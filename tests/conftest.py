@@ -66,6 +66,11 @@ def pytest_configure(config):
         "centerpiece) spread over two xdist workers instead of "
         "serializing on one)",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips with a reason where torch.cuda is unavailable",
+    )
 
 
 @pytest.fixture(scope="session")
