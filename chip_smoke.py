@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port: build, check and time its kernels, then
-serve a full-width text-tower model through them.
+"""GPU smoke run of the PyTorch port: build, check and time its kernels, train
+a full-width text-tower model through them, then serve the trained model.
 
     python3 chip_smoke.py
 
 Needs one CUDA GPU (an H100: the kernels are built for sm_90a) and nvcc.
 Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
   1. device  — nvidia-smi name and power limit, torch's device name, TF32 off;
-  2. build   — nvcc builds every kernel from ultrafnd_git_tpu_torch/csrc;
+  2. build   — nvcc builds every kernel from ultrafnd_git_tpu_torch/csrc, one
+     process per source, all started together;
   3. kernels — each kernel against its plain PyTorch version on the card at
-     the shapes the serving path gives it (plus ragged S and fully masked
-     rows), then both timed at the serving shape (CUDA events, median);
-  4. slice   — a seeded full-width model (tower 768 x 2 layers x 6 heads,
-     S = 64, vocab 32768, fusion 512, GCN 416-256-128, classifier 512 with
-     a 6 x 4 NODE forest) over a synthetic corpus of N = 5376 answers three
-     predict() requests (8, 64, 300 records, each sent five times after a
-     warm-up) on the GPU; the kernel launch counts of that run
-     must match the tower's depth times the chunks, and the same model on
-     the CPU (plain attention) must agree within 1e-4 on prob_fake and
-     the three forensic scalars;
-  5. a JSON line of the kernels, then the JSON result line.
+     the shapes the training and serving paths give it (plus ragged S and
+     fully masked rows): K2 forward and K3/K4 backward at atol = rtol 2e-5
+     and 5e-4, K1 (AdamW over the full-width parameter tree, 3 steps) bit
+     for bit; each timed against its plain version (CUDA events, median);
+  4. train   — ForensicTrainer on a synthetic corpus of N = 5376 at full
+     width (tower 768 x 2 layers x 6 heads, S = 64, vocab 32768, fusion
+     512, GCN 416-256-128, classifier 512 with a 6 x 4 NODE forest),
+     --train_text_tower --fused_adamw, batch 512, f32: fit() for one epoch
+     (8 steps over the 3763 training rows, then val) and test(); losses
+     finite, launch counts K2 = depth x (steps + eval chunks), K3/K4 =
+     depth x steps, K1 = steps; one gradient with dropout off on the GPU
+     and on the CPU (plain versions) agree to 1e-4 of each leaf's largest;
+  5. serve   — the trained `best` slot exported (align weights from the
+     seeded model directory the cache came with) answers three predict()
+     requests (8, 64, 300 records, each sent three times after a warm-up);
+     K2 launches = depth x chunks; the CPU Predictor agrees within 1e-4;
+  6. a JSON line of the kernels, then the JSON result line.
+The train phase also prints the device time of one steady train step by
+kernel (torch.profiler), the breakdown PERF.md keeps.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -40,20 +50,32 @@ N_CORPUS = 5376  # FakeSV scale
 OCR_VOCAB = 4096
 TOKENS_PER_DOC = 12
 REQUEST_SIZES = (8, 64, 300)  # 300 crosses the 256 bucket
-REPEATS = 5  # each request is sent this many times; latency is the median
-TOL = dict(atol=2e-5, rtol=2e-5)  # both sides full-f32 matmuls (TF32 off)
+REPEATS = 3  # each request is sent this many times; latency is the median
+TOL = dict(atol=2e-5, rtol=2e-5)  # K2: both sides full-f32 matmuls (TF32 off)
+BWD_TOL = dict(atol=5e-4, rtol=5e-4)  # K3/K4: the JAX suite's gradient tolerance
 PROB_ATOL = 1e-4  # GPU vs CPU-plain, each served value
+GRAD_RTOL = 1e-4  # GPU vs CPU-plain gradient, relative to each leaf's largest
+TRAIN_BATCH = 512
 SERVING_SHAPE = (256, 6, 64, 128)
+TRAIN_SHAPE = (TRAIN_BATCH, 6, 64, 128)
 CHECK_SHAPES = (
     SERVING_SHAPE,
     (64, 6, 64, 128),  # the bucket of the 8- and 64-record requests
-    (512, 6, 64, 128),  # the bucket of the 300-record request
+    TRAIN_SHAPE,  # training batch; also the bucket of the 300-record request
     (8, 4, 64, 192),  # the test fixture's tower head width
     (4, 4, 100, 64),
     (4, 4, 512, 64),
     (2, 4, 2048, 64),
 )
+BWD_SHAPES = (
+    TRAIN_SHAPE,
+    (16, 6, 64, 128),  # the CLI's default batch
+    (8, 4, 64, 192),
+    (4, 4, 100, 64),
+    (4, 4, 512, 64),
+)
 TOWER = dict(width=768, depth=2, heads=6, vocab_size=32768, max_len=64, gelu="tanh")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "adamw")
 CJK_WORDS = ("外星人", "入侵", "地球", "警告", "辟谣", "谣言", "不实", "疫苗",
              "危险", "致命", "隐瞒", "专家", "证据", "科学", "视频", "记录")
 
@@ -83,12 +105,19 @@ def phase_device():
 
 
 def phase_build():
-    from ultrafnd_git_tpu_torch.kernels import _build, flash_attention as fa
+    from ultrafnd_git_tpu_torch.kernels import _build, adamw as aw, flash_attention as fa
 
-    t0 = time.perf_counter()
-    fa._kernel()  # nvcc -> build/torch_kernels, loaded with ctypes
-    log("build", kernel="flash_attention_fwd", seconds=time.perf_counter() - t0,
-        lib=_build.library_path("flash_attention_fwd").relative_to(REPO))
+    def timed(name):
+        t0 = time.perf_counter()
+        _build.build(name)  # nvcc -> build/torch_kernels, keyed by the source
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        seconds = dict(zip(KERNELS, pool.map(timed, KERNELS)))
+    fa._kernel(), fa._bwd_kernel(), aw._kernel()  # load them with ctypes
+    for name, s in seconds.items():
+        log("build", kernel=name, seconds=s,
+            lib=_build.library_path(name).relative_to(REPO))
 
 
 def _attention_inputs(shape, seed, dev):
@@ -96,13 +125,13 @@ def _attention_inputs(shape, seed, dev):
 
     b, h, s, d = shape
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=g).to(dev) for _ in range(3))
+    q, k, v, do = (torch.randn(shape, generator=g).to(dev) for _ in range(4))
     lengths = torch.randint(0, s + 1, (b,), generator=g)
     lengths[0] = 0  # a fully masked row (an empty or padded record)
     if b > 1:
         lengths[1] = s
     mask = (torch.arange(s)[None] < lengths[:, None]).float().to(dev)
-    return q, k, v, mask
+    return q, k, v, do, mask
 
 
 def _median_ms(fn, runs=30, calls=10, warmup=5):
@@ -125,15 +154,21 @@ def _median_ms(fn, runs=30, calls=10, warmup=5):
     return statistics.median(times)
 
 
-def phase_kernels(dev):
+def _max_err(a, b) -> float:
+    return (a - b).abs().max().item()
+
+
+def check_flash(dev):
+    """K2 and K3/K4 against their plain versions; both timed."""
     import torch
 
     from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
 
-    max_err = 0.0
-    with torch.inference_mode():
+    res = {"fwd": {"max_abs_err": 0.0}, "dq": {"max_abs_err": 0.0, "dbias_max_abs_err": 0.0},
+           "dkv": {"max_abs_err": 0.0}}
+    with torch.no_grad():
         for i, shape in enumerate(CHECK_SHAPES):
-            q, k, v, mask = _attention_inputs(shape, i, dev)
+            q, k, v, _, mask = _attention_inputs(shape, i, dev)
             bias = fa.padding_bias(mask)
             out, lse = fa.flash_attention_fwd(q, k, v, bias)
             ref_out, ref_lse = fa.reference_attention(q, k, v, bias)
@@ -141,17 +176,107 @@ def phase_kernels(dev):
             torch.testing.assert_close(out, ref_out, **TOL)
             torch.testing.assert_close(lse, ref_lse, **TOL)
             if not torch.isfinite(out).all():
-                raise RuntimeError(f"non-finite kernel output at {shape}")
-            err = max((out - ref_out).abs().max().item(),
-                      (lse - ref_lse).abs().max().item())
-            max_err = max(max_err, err)
+                raise RuntimeError(f"non-finite K2 output at {shape}")
+            err = max(_max_err(out, ref_out), _max_err(lse, ref_lse))
+            res["fwd"]["max_abs_err"] = max(res["fwd"]["max_abs_err"], err)
             log("kernels", check="flash_attention_fwd", shape=shape, max_abs_err=err)
-        q, k, v, mask = _attention_inputs(SERVING_SHAPE, 99, dev)
+        for i, shape in enumerate(BWD_SHAPES):
+            q, k, v, do, mask = _attention_inputs(shape, 100 + i, dev)
+            bias = fa.padding_bias(mask)
+            out, lse = fa.flash_attention_fwd(q, k, v, bias)
+            got = fa.flash_attention_bwd(q, k, v, bias, out, lse, do)
+            ref = fa.attention_bwd_reference(q, k, v, bias, out, lse, do)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+                torch.testing.assert_close(a, r, **BWD_TOL, msg=f"{name} at {shape}")
+                if not torch.isfinite(a).all():
+                    raise RuntimeError(f"non-finite K3/K4 {name} at {shape}")
+                errs[name] = _max_err(a, r)
+            res["dq"]["max_abs_err"] = max(res["dq"]["max_abs_err"], errs["dq"])
+            res["dq"]["dbias_max_abs_err"] = max(res["dq"]["dbias_max_abs_err"], errs["dbias"])
+            res["dkv"]["max_abs_err"] = max(res["dkv"]["max_abs_err"], errs["dk"], errs["dv"])
+            log("kernels", check="flash_attention_bwd", shape=shape,
+                max_abs_err=json.dumps(errs, separators=(",", ":")))
+
+        q, k, v, do, mask = _attention_inputs(SERVING_SHAPE, 99, dev)
         bias = fa.padding_bias(mask)
-        ms = _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias))
-        plain_ms = _median_ms(lambda: fa.reference_attention(q, k, v, bias))
-    log("kernels", time="flash_attention_fwd", shape=SERVING_SHAPE,
-        ms=ms, plain_ms=plain_ms, timing="median of 30 blocks of 10 calls")
+        res["fwd"]["ms"] = _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias))
+        res["fwd"]["plain_ms"] = _median_ms(lambda: fa.reference_attention(q, k, v, bias))
+        log("kernels", time="flash_attention_fwd", shape=SERVING_SHAPE, ms=res["fwd"]["ms"],
+            plain_ms=res["fwd"]["plain_ms"], timing="median of 30 blocks of 10 calls")
+        q, k, v, do, mask = _attention_inputs(TRAIN_SHAPE, 98, dev)
+        bias = fa.padding_bias(mask)
+        out, lse = fa.flash_attention_fwd(q, k, v, bias)
+        ms = _median_ms(lambda: fa.flash_attention_bwd(q, k, v, bias, out, lse, do,
+                                                       with_dbias=False), runs=20)
+        plain_ms = _median_ms(lambda: fa.attention_bwd_reference(q, k, v, bias, out, lse, do),
+                              runs=20)
+    for key in ("dq", "dkv"):
+        res[key].update(ms=ms, plain_ms=plain_ms,
+                        shared="launches and ms are the K3+K4 pair's: one backward call "
+                               "launches both (delta included, no dbias, as the trainer calls it)")
+    log("kernels", time="flash_attention_bwd (K3+K4, delta, no dbias)", shape=TRAIN_SHAPE,
+        ms=ms, plain_ms=plain_ms, timing="median of 20 blocks of 10 calls")
+    return res
+
+
+def full_width_params(dev):
+    """The trainer's parameter tree at full width (about 52 M parameters)."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
+    from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
+    from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
+    from ultrafnd_git_tpu_torch.models.initializers import jax_init_
+    from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
+    from ultrafnd_git_tpu_torch.training.trainer import CLASSIFIER
+
+    gen = torch.Generator().manual_seed(3)
+    mods = {"fusion": CrossModalTransformer(), "clf": DeepTruthClassifier(**CLASSIFIER),
+            "gnn": SimpleGCN(416, 256, 128), "text_tower": TextTransformer(**TOWER)}
+    return {k: jax_init_(k, m, gen).to(dev) for k, m in mods.items()}
+
+
+def check_adamw(dev):
+    """K1 bit for bit against the plain update over 3 steps, then timed."""
+    import copy
+
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels import adamw as aw
+    from ultrafnd_git_tpu_torch.training.state import make_optimizer
+
+    params = full_width_params(dev)
+    plain_params = copy.deepcopy(params)
+    fused = make_optimizer(2e-4, 1e-4, 5.0, steps_per_epoch=1)  # the trainer's FusedAdamW
+    plain = aw.AdamW(fused.schedule, fused.weight_decay, fused.grad_clip)
+    sf, sp = fused.init(params), plain.init(plain_params)
+    g = torch.Generator(device=dev).manual_seed(4)
+    max_err = 0.0
+    for step in range(3):  # the first step is under the clip, the others over
+        grads = {part: {n: torch.randn(p.shape, generator=g, device=dev) * (1e-4 + 1e-3 * step)
+                        for n, p in m.named_parameters()} for part, m in params.items()}
+        fused.apply(params, sf, grads)
+        plain.apply(plain_params, sp, grads)
+    torch.cuda.synchronize()
+    n_params = 0
+    for part, mod in params.items():
+        for n, p in mod.named_parameters():
+            pairs = ((p, dict(plain_params[part].named_parameters())[n]),
+                     (sf["mu"][part][n], sp["mu"][part][n]), (sf["nu"][part][n], sp["nu"][part][n]))
+            for a, b in pairs:
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"K1 differs from the plain update at {part}.{n}")
+                max_err = max(max_err, _max_err(a, b))
+            n_params += p.numel()
+    leaves = fused._leaves(params, sf, grads)
+    scal = fused.scalars(grads, sf["count"])
+    ms = _median_ms(lambda: aw.fused_adamw_(leaves, scal), runs=20, calls=5)
+    plain_ms = _median_ms(lambda: plain._update(leaves, scal), runs=20, calls=5)
+    log("kernels", check="adamw", params=n_params, leaves=len(leaves), steps=3,
+        bit_identical=True, ms=ms, plain_ms=plain_ms,
+        timing="median of 20 blocks of 5 updates (fixed scalars)")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -163,6 +288,7 @@ def synthetic_corpus(n, rng):
     vocab = np.array([f"tok{i}" for i in range(OCR_VOCAB)])
     split = rng.permutation(n)
     k1, k2 = int(0.7 * n), int(0.85 * n)
+    lengths = rng.integers(1, TOWER_IDS_LEN + 1, size=n)
     return {
         "ids": np.array([f"v{i}" for i in range(n)], dtype=object),
         "labels": rng.integers(0, 2, size=n).astype(np.int64),
@@ -172,7 +298,7 @@ def synthetic_corpus(n, rng):
         "temporal": rng.standard_normal((n, 256)).astype(np.float32),
         "aux": rng.uniform(size=(n, 2)).astype(np.float32),
         "text_ids": rng.integers(1, TOWER_VOCAB, size=(n, TOWER_IDS_LEN)).astype(np.int32),
-        "text_mask": np.ones((n, TOWER_IDS_LEN), np.float32),
+        "text_mask": (np.arange(TOWER_IDS_LEN)[None] < lengths[:, None]).astype(np.float32),
         "ocr_sets": [set(rng.choice(vocab, size=TOKENS_PER_DOC, replace=False))
                      for _ in range(n)],
         "split": (split[:k1], split[k1:k2], split[k2:]),
@@ -200,7 +326,8 @@ def synthetic_records(count, corpus, rng):
 
 def build_model_dir(root):
     """A full-width tower model with seeded weights (torch.Generator(0))
-    over a synthetic FakeSV-scale corpus."""
+    over a synthetic FakeSV-scale corpus: the trainer's cache and the
+    align weights of its export."""
     from ultrafnd_git_tpu_torch.serving import write_seeded_model_dir
 
     meta = {
@@ -229,69 +356,191 @@ def build_model_dir(root):
     return corpus
 
 
-def phase_slice(dev):
+def _train_cfg(out_dir, model_dir):
+    from ultrafnd_git_tpu_torch.training.trainer import TrainConfig
+
+    return TrainConfig(out_dir=str(out_dir), model_dir=str(model_dir),
+                       batch_size=TRAIN_BATCH, epochs=1, seed=0, train_text_tower=True,
+                       text_tower_depth=TOWER["depth"], text_tower_heads=TOWER["heads"],
+                       tower_gelu=TOWER["gelu"], fused_adamw=True)
+
+
+def _grad_gap(gpu, cpu):
+    """Largest leaf error of one dropout-off gradient, GPU against CPU, over
+    64 training rows, relative to the leaf's largest CPU value."""
+    import torch
+
+    idx = torch.from_numpy(np.asarray(gpu.tr_idx[:64], np.int64))
+    mask = torch.ones(64)
+    _, g_gpu, _ = gpu.grads_of(idx.to(gpu.device), mask.to(gpu.device))
+    _, g_cpu, _ = cpu.grads_of(idx, mask)
+    worst = (0.0, "")
+    for part, leaves in g_cpu.items():
+        for name, c in leaves.items():
+            err = (g_gpu[part][name].cpu() - c).abs().max().item()
+            rel = err / max(c.abs().max().item(), 1e-30)
+            worst = max(worst, (rel, f"{part}.{name}"))
+    return worst
+
+
+def profile_step(trainer, median_step_ms, rows=12):
+    """Device time of one steady train step by kernel (torch.profiler; the
+    device total sums the kernel events, as the profiler's own table does)
+    and the device's idle share of a step: 1 - that device time / the
+    median wall time of the unprofiled steps (host clock around a
+    synchronised step). The profiled step's own wall time is printed too:
+    the profiler's host-side tracing lengthens it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk, mask, _ = trainer.epoch_batches(trainer.tr_idx, True)[0]
+    trainer.train_step(chunk, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s = time.perf_counter()
+        trainer.train_step(chunk, mask)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - s)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log("profile", step_device_ms=device_ms, median_step_ms=median_step_ms,
+        profiled_step_wall_ms=wall_ms,
+        device_idle_share=max(0.0, 1.0 - device_ms / median_step_ms))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]:
+        log("profile", kernel=json.dumps(e.key[:90]), calls=e.count,
+            device_ms=e.self_device_time_total / 1e3)
+
+
+def phase_train(dev, model_dir, out_dir):
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer
+
+    t0 = time.perf_counter()
+    trainer = ForensicTrainer(_train_cfg(out_dir, model_dir), device="cuda")
+    log("train", init_s=time.perf_counter() - t0, corpus=trainer.n_total,
+        train_rows=len(trainer.tr_idx), val_rows=len(trainer.va_idx),
+        test_rows=len(trainer.te_idx), batch=TRAIN_BATCH)
+    step_ms = []
+    train_step = trainer.train_step
+
+    def timed_step(idx, mask):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = train_step(idx, mask)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - s))
+        return out
+
+    trainer.train_step = timed_step
+    fa.launches = fa.bwd_launches = aw.launches = 0  # count only the main path's run
+    t1 = time.perf_counter()
+    trainer.fit()
+    results = trainer.test()
+    fit_test_s = time.perf_counter() - t1
+    launches = {"fwd": fa.launches, "bwd": fa.bwd_launches, "adamw": aw.launches}
+    trainer.train_step = train_step
+
+    steps = len(step_ms)
+    chunks = sum(-(-len(s) // TRAIN_BATCH) for s in (trainer.va_idx, trainer.te_idx))
+    depth = TOWER["depth"]
+    expect = {"fwd": depth * (steps + chunks), "bwd": depth * steps, "adamw": steps}
+    if steps != -(-len(trainer.tr_idx) // TRAIN_BATCH) or launches != expect:
+        raise RuntimeError(f"launches {launches} over {steps} steps, expected {expect}")
+    log_rows = [json.loads(ln) for ln in (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
+    losses = [r[k] for r in log_rows for k in ("train_loss", "val_loss")] + [results["test_loss"]]
+    if not np.isfinite(losses).all() or not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"non-finite losses or metrics: {losses} {results}")
+    for slot in ("best", "latest"):
+        if not (Path(out_dir) / slot / "meta.json").exists():
+            raise RuntimeError(f"fit() wrote no {slot} slot")
+    later = step_ms[1:]
+    log("train", steps=steps, launches=json.dumps(launches, separators=(",", ":")),
+        expected=json.dumps(expect, separators=(",", ":")),
+        first_step_ms=step_ms[0], median_step_ms=statistics.median(later),
+        samples_per_s=TRAIN_BATCH * 1e3 / statistics.median(later),
+        fit_and_test_s=fit_test_s, losses=json.dumps([round(x, 6) for x in losses]),
+        test_auc=results["test_auc"])
+
+    profile_step(trainer, statistics.median(later))
+
+    t2 = time.perf_counter()
+    cfg = _train_cfg(Path(out_dir).parent / "cpu_run", model_dir)
+    cfg.cache_to_disk = False
+    cpu = ForensicTrainer(cfg, cache=trainer.cache, device="cpu")
+    for part, mod in cpu.state.params.items():
+        mod.load_state_dict({k: v.cpu() for k, v in trainer.state.params[part].state_dict().items()})
+    rel, leaf = _grad_gap(trainer, cpu)
+    if not rel <= GRAD_RTOL:
+        raise RuntimeError(f"GPU vs CPU-plain gradient of {leaf} differs by {rel} of its max")
+    log("train", gpu_vs_cpu_grad_max_rel=rel, worst_leaf=leaf, rows=64,
+        check_s=time.perf_counter() - t2)
+    return launches
+
+
+def phase_serve(model_dir, corpus):
     from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
     from ultrafnd_git_tpu_torch.serving import FORENSIC_KEYS, Predictor
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_model_", dir=REPO / "build") as root:
-        t0 = time.perf_counter()
-        corpus = build_model_dir(root)
-        rng = np.random.default_rng(1)
-        requests = [synthetic_records(n, corpus, rng) for n in REQUEST_SIZES]
-        t1 = time.perf_counter()
-        gpu = Predictor(root, device="cuda")
-        gpu.warmup(max(REQUEST_SIZES))  # every bucket the requests use
-        t2 = time.perf_counter()
-        log("slice", model_dir_s=t1 - t0, predictor_init_and_warmup_s=t2 - t1,
-            corpus=N_CORPUS)
-        try:
-            fa.launches = 0  # count only the main path's run below
-            rows, lat = [], []
-            for recs in requests:
-                times = []
-                for _ in range(REPEATS):
-                    s = time.perf_counter()
-                    out = gpu.predict(recs)  # returns host floats: synchronised
-                    times.append(time.perf_counter() - s)
-                rows.append(out)
-                lat.append(statistics.median(times))
-            launches = fa.launches
-        finally:
-            gpu.close()
-        chunks = len(REQUEST_SIZES) * REPEATS  # a request is one GPU chunk (<= 4096 rows)
-        expect = TOWER["depth"] * chunks
-        if launches != expect:
-            raise RuntimeError(f"flash kernel launched {launches} times, expected {expect}")
-        for recs, out in zip(requests, rows):
-            p = np.array([r["prob_fake"] for r in out])
-            if len(out) != len(recs) or not (np.isfinite(p).all() and (p >= 0).all()
-                                              and (p <= 1).all()):
-                raise RuntimeError("bad prob_fake values in a GPU response")
-            if [r["id"] for r in out] != [r["video_id"] for r in recs]:
-                raise RuntimeError("response ids do not match the request")
-        for n, t in zip(REQUEST_SIZES, lat):
-            log("slice", request=n, median_latency_ms=1e3 * t, records_per_s=n / t,
-                repeats=REPEATS)
+    rng = np.random.default_rng(1)
+    requests = [synthetic_records(n, corpus, rng) for n in REQUEST_SIZES]
+    t1 = time.perf_counter()
+    gpu = Predictor(model_dir, device="cuda")
+    gpu.warmup(max(REQUEST_SIZES))  # every bucket the requests use
+    log("serve", predictor_init_and_warmup_s=time.perf_counter() - t1, corpus=N_CORPUS)
+    try:
+        fa.launches = fa.bwd_launches = 0  # count only the main path's run below
+        rows, lat = [], []
+        for recs in requests:
+            times = []
+            for _ in range(REPEATS):
+                s = time.perf_counter()
+                out = gpu.predict(recs)  # returns host floats: synchronised
+                times.append(time.perf_counter() - s)
+            rows.append(out)
+            lat.append(statistics.median(times))
+        launches = fa.launches
+        if fa.bwd_launches:
+            raise RuntimeError("serving launched the backward kernels")
+    finally:
+        gpu.close()
+    chunks = len(REQUEST_SIZES) * REPEATS  # a request is one GPU chunk (<= 4096 rows)
+    expect = TOWER["depth"] * chunks
+    if launches != expect:
+        raise RuntimeError(f"flash kernel launched {launches} times, expected {expect}")
+    for recs, out in zip(requests, rows):
+        p = np.array([r["prob_fake"] for r in out])
+        if len(out) != len(recs) or not (np.isfinite(p).all() and (p >= 0).all()
+                                          and (p <= 1).all()):
+            raise RuntimeError("bad prob_fake values in a GPU response")
+        if [r["id"] for r in out] != [r["video_id"] for r in recs]:
+            raise RuntimeError("response ids do not match the request")
+    for n, t in zip(REQUEST_SIZES, lat):
+        log("serve", request=n, median_latency_ms=1e3 * t, records_per_s=n / t,
+            repeats=REPEATS)
 
-        cpu = Predictor(root, device="cpu")
-        try:
-            cpu_rows = [cpu.predict(recs) for recs in requests]
-        finally:
-            cpu.close()
-        diffs = {}
-        for key in ("prob_fake", *FORENSIC_KEYS):
-            gpu_v, cpu_v = (
-                np.concatenate([[r[key] for r in out] for out in rs])
-                for rs in (rows, cpu_rows)
-            )
-            diffs[key] = float(np.max(np.abs(gpu_v - cpu_v)))
-            if not diffs[key] <= PROB_ATOL:
-                raise RuntimeError(f"GPU vs CPU-plain {key} differ by {diffs[key]}")
-        all_p = np.concatenate([[r["prob_fake"] for r in out] for out in rows])
-        log("slice", launches=launches, expected=expect,
-            gpu_vs_cpu_max_abs=json.dumps(diffs, separators=(",", ":")),
-            prob_min=float(all_p.min()), prob_max=float(all_p.max()),
-            prob_std=float(all_p.std()))
+    cpu = Predictor(model_dir, device="cpu")
+    try:
+        cpu_rows = [cpu.predict(recs) for recs in requests]
+    finally:
+        cpu.close()
+    diffs = {}
+    for key in ("prob_fake", *FORENSIC_KEYS):
+        gpu_v, cpu_v = (
+            np.concatenate([[r[key] for r in out] for out in rs])
+            for rs in (rows, cpu_rows)
+        )
+        diffs[key] = float(np.max(np.abs(gpu_v - cpu_v)))
+        if not diffs[key] <= PROB_ATOL:
+            raise RuntimeError(f"GPU vs CPU-plain {key} differ by {diffs[key]}")
+    all_p = np.concatenate([[r["prob_fake"] for r in out] for out in rows])
+    log("serve", launches=launches, expected=expect,
+        gpu_vs_cpu_max_abs=json.dumps(diffs, separators=(",", ":")),
+        prob_min=float(all_p.min()), prob_max=float(all_p.max()),
+        prob_std=float(all_p.std()))
     return launches
 
 
@@ -299,18 +548,36 @@ def main() -> int:
     dev = phase_device()
     import torch
 
+    from ultrafnd_git_tpu_torch.utils.transfer import export_trained
+
     (REPO / "build").mkdir(exist_ok=True)
     phase_build()
-    k2 = phase_kernels(dev)
-    launches = phase_slice(dev)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "ultrafnd_git_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "ultrafnd_git_tpu/kernels/flash_attention.py:68",
-        "launches": launches,
-        **k2,
-    }]}), flush=True)
+    flash = check_flash(dev)
+    k1 = check_adamw(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as root:
+        seeded, served = Path(root) / "seeded_model", Path(root) / "trained_model"
+        corpus = build_model_dir(str(seeded))
+        train = phase_train(dev, seeded, Path(root) / "run")
+        export_trained(str(Path(root) / "run"), "best", str(served), str(seeded))
+        serve_fwd = phase_serve(str(served), corpus)
+
+    src = "ultrafnd_git_tpu_torch/csrc/"
+    ref = "ultrafnd_git_tpu/kernels/"
+    paths = lambda train_n, serve_n: {"train": train_n, "serve": serve_n}  # noqa: E731
+    print(json.dumps({"kernels": [
+        {"name": "adamw", "route": "cuda", "source": src + "adamw.cu",
+         "replaces": ref + "adamw.py:114", "launches": train["adamw"],
+         "launches_by_path": paths(train["adamw"], 0), **k1},
+        {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
+         "replaces": ref + "flash_attention.py:162", "launches": train["fwd"] + serve_fwd,
+         "launches_by_path": paths(train["fwd"], serve_fwd), **flash["fwd"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:379",
+         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dq"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:412",
+         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dkv"]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

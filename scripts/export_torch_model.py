@@ -13,7 +13,10 @@ writes into --model_dir:
   * meta.json   — the checkpoint cfg plus the resolved module dims (the
     port reads no YAML);
   * feature_cache.npz — a copy of the corpus cache.
-Serve the result with `python -m ultrafnd_git_tpu_torch.predict`.
+Serve the result with `python -m ultrafnd_git_tpu_torch.predict`, or
+train from it with `python -m ultrafnd_git_tpu_torch.train --model_dir`:
+the port's trainer reads its feature cache from the directory, and its
+`--export_model_dir` takes the align weights from it.
 """
 import argparse
 import json

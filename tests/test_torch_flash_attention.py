@@ -91,14 +91,15 @@ def _good(b=2, h=2, s=16, d=64):
         (lambda q, k, v, bias: (q.double(), k, v, bias), TypeError),
         (lambda q, k, v, bias: (q.transpose(2, 3).contiguous().transpose(2, 3),
                                 k, v, bias), ValueError),
-        (lambda q, k, v, bias: (q.requires_grad_(), k, v, bias), RuntimeError),
+        # the backward's incoming gradient dO must have q's shape
+        (lambda q, k, v, bias: (q, k, v, bias, q.clone(), q[:, :, :8].contiguous()),
+         ValueError),
     ],
     ids=["head_dim", "kv_shape", "bias_shape", "dtype", "layout", "grad"],
 )
 def test_kernel_argument_checks_raise(bad, error):
-    q, k, v, bias = bad(*_good())
     with pytest.raises(error):
-        fa._check(q, k, v, bias)
+        fa._check(*bad(*_good()))
 
 
 def test_argument_checks_accept_kernel_shapes():

@@ -1,17 +1,23 @@
 """PyTorch port on a CUDA GPU: each kernel against its plain version, and
-the serving path on the GPU against the same model on the CPU.
+the serving and training paths on the GPU against the same model on the CPU.
 
 Every test here carries the `gpu` marker and skips with a reason where
 torch.cuda is unavailable. The file imports no jax, so it also runs on a
 GPU machine without it:
     python -m pytest --noconftest -o addopts="" tests/test_torch_gpu.py -q
-Tolerances: kernel atol = rtol = 2e-5 (both sides full-f32 matmuls, TF32
-off); tower atol 1e-5; served values atol 1e-4.
+Tolerances: forward kernel atol = rtol = 2e-5 (both sides full-f32
+matmuls, TF32 off); backward kernels atol = rtol = 5e-4 (the JAX suite's
+gradient tolerance); AdamW kernel bit-identical (torch.equal); tower atol
+1e-5, its gradients rtol 1e-4 of each leaf's largest value; served values
+atol 1e-4.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from ultrafnd_git_tpu_torch.kernels import adamw as aw
 from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.gpu
@@ -116,3 +122,72 @@ def test_predictor_on_gpu_matches_cpu(cuda, tmp_path):
     for key in ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity"):
         np.testing.assert_allclose([r[key] for r in g_rows], [r[key] for r in c_rows],
                                    atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize(
+    "shape", [(512, 6, 64, 128), (8, 4, 64, 192), (2, 2, 100, 64), (2, 2, 512, 64),
+              (2, 2, 77, 256)]
+)
+def test_flash_bwd_kernels_match_plain_version(cuda, shape):
+    b, h, s, d = shape
+    rng = np.random.default_rng(1)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+                   for _ in range(4))
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = 0  # a fully masked row
+    mask = torch.from_numpy((np.arange(s)[None] < lengths[:, None]).astype(np.float32))
+    bias = fa.padding_bias(mask.to(cuda))
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, bias)
+        before = fa.bwd_launches
+        got = fa.flash_attention_bwd(q, k, v, bias, out, lse, do)
+        torch.cuda.synchronize()
+        assert fa.bwd_launches == before + 1
+        ref = fa.attention_bwd_reference(q, k, v, bias, out, lse, do)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        torch.testing.assert_close(a, r, atol=5e-4, rtol=5e-4, msg=name)
+
+
+def test_fused_adamw_kernel_is_bit_identical_to_plain(cuda):
+    g = torch.Generator().manual_seed(0)
+    shapes = [(32768, 768), (768,), (1, 64, 768), (3072, 768), (7,), (1,), (4097,)]
+    params = {"a": torch.nn.ParameterDict(
+        {f"p{i}": torch.nn.Parameter(torch.randn(sh, generator=g)) for i, sh in enumerate(shapes)}
+    ).to(cuda)}
+    plain_params = copy.deepcopy(params)
+    schedule = lambda count: 2e-4 * 0.7 ** (count // 2)  # noqa: E731
+    fused, plain = aw.FusedAdamW(schedule, 1e-4, 5.0), aw.AdamW(schedule, 1e-4, 5.0)
+    sf, sp = fused.init(params), plain.init(plain_params)
+    before = aw.launches
+    for step in range(3):  # step 0 clips nothing, steps 1 and 2 clip
+        grads = {"a": {n: (torch.randn(p.shape, generator=g) * (0.001 + step)).to(cuda)
+                       for n, p in params["a"].named_parameters()}}
+        fused.apply(params, sf, grads)
+        plain.apply(plain_params, sp, grads)
+    torch.cuda.synchronize()
+    assert aw.launches == before + 3
+    for (n, a), b in zip(params["a"].named_parameters(), plain_params["a"].parameters()):
+        assert torch.equal(a, b), n
+        assert torch.equal(sf["mu"]["a"][n], sp["mu"]["a"][n]), n
+        assert torch.equal(sf["nu"]["a"][n], sp["nu"]["a"][n]), n
+
+
+def test_tower_backward_on_gpu_matches_cpu(cuda):
+    from ultrafnd_git_tpu_torch.models.initializers import seeded_init_
+    from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
+
+    tower = TextTransformer(width=768, depth=2, heads=6, vocab_size=1024, max_len=64)
+    seeded_init_(tower, torch.Generator().manual_seed(0))
+    gpu_tower = copy.deepcopy(tower).to(cuda)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(1, 1024, size=(16, 64)))
+    lengths = rng.integers(1, 65, size=16)
+    mask = torch.from_numpy((np.arange(64)[None] < lengths[:, None]).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((16, 768)).astype(np.float32))
+    (tower(ids, mask) * w).sum().backward()
+    f0, b0 = fa.launches, fa.bwd_launches
+    (gpu_tower(ids.to(cuda), mask.to(cuda)) * w.to(cuda)).sum().backward()
+    assert (fa.launches - f0, fa.bwd_launches - b0) == (2, 2)  # one of each per block
+    for (n, a), b in zip(gpu_tower.named_parameters(), tower.parameters()):
+        err = (a.grad.cpu() - b.grad).abs().max() / b.grad.abs().max().clamp_min(1e-30)
+        assert err <= 1e-4, (n, float(err))

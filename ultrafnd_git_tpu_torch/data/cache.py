@@ -1,4 +1,5 @@
-"""Feature-cache npz reader and writer (counterpart of `data/cache.py:448-538`).
+"""Feature-cache npz reader and writer (counterpart of `data/cache.py:448-538`)
+and the trainer's cache ladder (`bootstrap_cache`, `data/cache.py:343-389`).
 
 The file format is the JAX package's `feature_cache.npz` (cache version 3):
 per-row arrays plus `ocr_sets` stored as JSON strings of sorted tokens.
@@ -8,7 +9,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -88,3 +89,39 @@ def save_cache(cache: Dict[str, Any], path: str) -> None:
         split_test=te,
     )
     os.replace(tmp, p)
+
+
+def bootstrap_cache(
+    out_dir: str,
+    model_dir: Optional[str] = None,
+    cache: Optional[Dict[str, Any]] = None,
+    cache_to_disk: bool = True,
+) -> Dict[str, Any]:
+    """The trainer's feature cache: injected > `<out_dir>/feature_cache.npz`
+    > `<model_dir>/feature_cache.npz` (a model directory written by
+    `scripts/export_torch_model.py`, copied into out_dir so the run's
+    checkpoints travel with their cache).
+
+    Building a cache from a raw data_root is not ported: its align MLP is a
+    `jax.random.PRNGKey(seed)` draw (`models/temporal.py:140`) that torch
+    cannot repeat, so it raises NotImplementedError (see ROADMAP.md).
+    """
+    own = Path(out_dir) / "feature_cache.npz"
+    if cache is not None:
+        if cache_to_disk and not own.exists():
+            save_cache(cache, str(own))
+        return cache
+    if own.exists():
+        return load_cache(str(own))
+    if model_dir is not None and (Path(model_dir) / "feature_cache.npz").exists():
+        cache = load_cache(str(Path(model_dir) / "feature_cache.npz"))
+        if cache_to_disk:
+            save_cache(cache, str(own))
+        return cache
+    raise NotImplementedError(
+        f"no feature_cache.npz in {out_dir}"
+        + (f" or {model_dir}" if model_dir else "")
+        + ": building a feature cache from a raw data_root is not ported to "
+        "ultrafnd_git_tpu_torch yet (see the port's module list in "
+        "ROADMAP.md); pass --model_dir from scripts/export_torch_model.py"
+    )

@@ -1,19 +1,32 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain twin.
+"""Flash attention: the hand-written Hopper kernels and their plain twins.
 
-`flash_attention_fwd(q, k, v, bias) -> (out, lse)` is the counterpart of
-`ultrafnd_git_tpu/kernels/flash_attention.py::_pallas_forward` (kernel
-`_make_fwd_kernel`): attention over (B, H, S, D) with an additive
-key-padding bias of shape (B, 1, 1, S), softmax in f32, and the per-row
-logsumexp. On a CUDA tensor it launches `csrc/flash_attention_fwd.cu`
-(built with nvcc for sm_90a at first use, see `_build.py`) or raises; it
-never falls back. On a CPU tensor it runs `reference_attention`, the plain
-PyTorch version the tests hold against the JAX kernel.
+`flash_attention(q, k, v, bias)` is what the text tower calls: attention
+over (B, H, S, D) with an additive key-padding bias of shape (B, 1, 1, S),
+softmax in f32, differentiable in q, k, v (and bias when it asks for a
+gradient). It is a `torch.autograd.Function` with
 
-`launches` counts kernel launches (and nothing else), so a run can show
-that its path went through the kernel; the CPU path leaves it unchanged.
+* forward `flash_attention_fwd(q, k, v, bias) -> (out, lse)`, the
+  counterpart of `ultrafnd_git_tpu/kernels/flash_attention.py::
+  _pallas_forward` (kernel `_make_fwd_kernel`, K2): on a CUDA tensor it
+  launches `csrc/flash_attention_fwd.cu`;
+* backward `flash_attention_bwd(q, k, v, bias, out, lse, do) -> (dq, dk,
+  dv, dbias)`, the counterpart of `_pallas_backward` (kernels
+  `_make_bwd_dq_kernel`, K3, and `_make_bwd_dkv_kernel`, K4): on a CUDA
+  tensor it launches `csrc/flash_attention_bwd.cu`.
 
-Forward only: the backward kernels (K3, K4 in ROADMAP.md) come with the
-trainable tower, so a CUDA call that would need gradients raises.
+Both build with nvcc for sm_90a at first use (`_build.py`) and raise on a
+failed build or launch; they never fall back. On a CPU tensor they run the
+plain PyTorch versions, `reference_attention` and
+`attention_bwd_reference`, which the tests hold against the JAX kernels.
+The backward recomputes P = exp(s - lse) as the TPU kernels do, so on a
+row whose keys are all masked P is 1 per key rather than 1/S (see the
+note in `csrc/flash_attention_bwd.cu`); rows with a valid key agree with
+autograd of a softmax.
+
+`launches` counts forward kernel launches and `bwd_launches` backward
+launches (one per backward call, K3 and K4 together), and nothing else, so
+a run can show that its path went through the kernels; the CPU path
+leaves both unchanged. Under `torch.inference_mode()` only K2 runs.
 """
 from __future__ import annotations
 
@@ -28,8 +41,12 @@ from ultrafnd_git_tpu_torch.kernels import _build
 NEG_INF = -1e9
 HEAD_DIMS = (64, 128, 192, 256)  # the kernel's compiled head widths
 
-launches = 0  # kernel launches since import (or since a caller reset it)
+BWD_BLOCK_Q = 64  # K3's query tile: rows of the per-CTA dbias partials
+
+launches = 0  # K2 launches since import (or since a caller reset it)
+bwd_launches = 0  # K3 + K4 launches, one per backward call
 _lib = None
+_bwd_lib = None
 
 
 def _scale(dim: int) -> float:
@@ -55,6 +72,33 @@ def reference_attention(
     return out, (m + torch.log(denom)).squeeze(-1)
 
 
+def attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward with the kernels' formulas: (dq, dk, dv, dbias).
+
+    P is recomputed from lse, exp(s - lse), as K3 and K4 do (not autograd),
+    delta = rowsum(dO * O); dbias is (B, 1, 1, S), dS summed over heads and
+    query rows.
+    """
+    scale = _scale(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + bias
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    delta = (do * out).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    return dq, dk, dv, ds.sum(dim=(1, 2), keepdim=True)
+
+
 def _kernel():
     global _lib
     if _lib is None:
@@ -69,14 +113,30 @@ def _kernel():
     return _lib
 
 
-def _check(q, k, v, bias) -> None:
+def _bwd_kernel():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("flash_attention_bwd")
+        fn = lib.ufnd_flash_attention_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+            ctypes.c_float,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _bwd_lib = fn
+    return _bwd_lib
+
+
+def _check(q, k, v, bias, *grads) -> None:
+    """Raise on anything the kernels do not take; `grads` are the backward's
+    extra (B, H, S, D) operands (out, dO)."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, S, D), got shape {tuple(q.shape)}")
     b, h, s, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
+    if any(t.shape != q.shape for t in (k, v, *grads)):
         raise ValueError(
-            f"q, k, v shapes differ: {tuple(q.shape)}, {tuple(k.shape)}, "
-            f"{tuple(v.shape)}"
+            f"q, k, v (and out, dO) shapes differ: "
+            f"{[tuple(t.shape) for t in (q, k, v, *grads)]}"
         )
     if bias.shape != (b, 1, 1, s):
         raise ValueError(
@@ -87,7 +147,9 @@ def _check(q, k, v, bias) -> None:
         raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
     if s < 1 or b * h < 1:
         raise ValueError(f"empty attention shape {tuple(q.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+    named = [("q", q), ("k", k), ("v", v), ("bias", bias)]
+    named += [(f"grad operand {i}", t) for i, t in enumerate(grads)]
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != q.device:
@@ -96,14 +158,6 @@ def _check(q, k, v, bias) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v, bias)
-    ):
-        raise RuntimeError(
-            "flash_attention_fwd is forward-only: the backward kernels (K3 "
-            "dQ, K4 dK/dV in ROADMAP.md) are not ported yet; call it under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
 
 
 def flash_attention_fwd(
@@ -148,6 +202,104 @@ def flash_attention_fwd(
     global launches
     launches += 1
     return out, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    with_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dq, dk, dv, dbias) of attention, given the forward's out and lse.
+
+    Same operands as `flash_attention_fwd` plus out and dO (B, H, S, D) and
+    lse (B, H, S), all float32. A CUDA call computes delta = rowsum(dO * O)
+    with torch, launches K3 then K4 on the current stream and adds one to
+    `bwd_launches`; it raises on a shape, dtype, layout or launch it cannot
+    take. dbias (B, 1, 1, S) is the sum of the per-CTA partials over heads
+    and query tiles, in a fixed order; `with_dbias=False` skips it and
+    returns None. A CPU call returns `attention_bwd_reference`.
+    """
+    if q.device.type == "cpu":
+        dq, dk, dv, dbias = attention_bwd_reference(q, k, v, bias, out, lse, do)
+        return dq, dk, dv, dbias if with_dbias else None
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    _check(q, k, v, bias, out, do)
+    b, h, s, d = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 {(b, h, s)}, got {tuple(lse.shape)}")
+    delta = (do * out).sum(dim=-1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    part = None
+    if with_dbias:
+        nq = -(-s // BWD_BLOCK_Q)
+        part = torch.empty((b * h, nq, s), dtype=torch.float32, device=q.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            b, h, s, d, _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed: cudaError {err} "
+            f"at shape {(b, h, s, d)}"
+        )
+    global bwd_launches
+    bwd_launches += 1
+    dbias = None
+    if part is not None:
+        dbias = part.view(b, h * part.shape[1], s).sum(dim=1).view(b, 1, 1, s)
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 forward, K3 + K4 backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        out, lse = flash_attention_fwd(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bwd(
+            q, k, v, bias, out, lse, do.contiguous(),
+            with_dbias=ctx.needs_input_grad[3],
+        )
+        return dq, dk, dv, dbias
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + bias) v, differentiable; (B, H, S, D).
+
+    The entry the text tower calls. On a CUDA tensor, with or without
+    grad, it goes through the autograd Function: the forward launches K2,
+    a backward launches K3 and K4. On a CPU tensor the same Function runs
+    the plain versions. bias (B, 1, 1, S) gets a gradient only when it
+    requires one (the trainer's mask bias does not).
+    """
+    if bias is None:
+        bias = torch.zeros(
+            (q.shape[0], 1, 1, q.shape[2]), dtype=q.dtype, device=q.device
+        )
+    return _FlashAttention.apply(q, k, v, bias)
 
 
 def padding_bias(mask: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,9 @@
-"""Calibrated classifier (counterpart of `models/classifier.py:34-136`), eval.
+"""Calibrated classifier (counterpart of `models/classifier.py:34-136`).
 
 pre-MLP -> NODE forest + linear bypass -> softmax(logits / clip(T, 0.5, 5)).
+Training mode (a `torch.Generator` passed as `gen`) drops 0.1 after each
+GELU of the pre-MLP (`classifier.py:109,114`) and 0.3 on the per-tree
+logits before their mean (`:52-53`).
 Parameter names are the reference state-dict keys that
 `ultrafnd_git_tpu.utils.torch_transfer.classifier_state_dict_from_params`
 writes (`pre.0` / `.3`, `node.trees.{t}.gates.{k}`, `.thresh.{k}`,
@@ -11,8 +14,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
 from ultrafnd_git_tpu_torch.ops.trees import oblivious_forest_logits
 
 
@@ -35,20 +40,23 @@ class NODEEnsemble(nn.Module):
     """Forest of soft oblivious trees; mean of per-tree logits."""
 
     def __init__(self, in_dim: int, num_classes: int = 2, num_trees: int = 6,
-                 depth: int = 4, tau: float = 10.0):
+                 depth: int = 4, tau: float = 10.0, dropout: float = 0.3):
         super().__init__()
         self.tau = float(tau)
+        self.dropout = dropout
         self.trees = nn.ModuleList(
             ObliviousTree(in_dim, depth, num_classes, tau)
             for _ in range(num_trees)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, gen: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         gates = torch.stack([torch.stack(list(t.gates)) for t in self.trees])
         thresh = torch.stack([torch.cat(list(t.thresh)) for t in self.trees])
         leaf = torch.stack([t.leaf_logits for t in self.trees])
         per_tree = oblivious_forest_logits(x, gates, thresh, leaf, self.tau)
-        return per_tree.mean(dim=1)  # (B, C)
+        return drop(per_tree, self.dropout, gen).mean(dim=1)  # (B, C)
 
 
 class DeepTruthClassifier(nn.Module):
@@ -65,31 +73,39 @@ class DeepTruthClassifier(nn.Module):
         node_depth: int = 4,
         node_tau: float = 10.0,
         temperature_init: float = 1.0,
+        dropout: float = 0.1,
+        node_dropout: float = 0.3,
     ):
         super().__init__()
         self.use_aux = use_aux
+        self.dropout = dropout
         d_in = in_dim + (aux_dim if use_aux else 0)
         self.pre = nn.Sequential(
             nn.Linear(d_in, hidden),
             nn.GELU(),
-            nn.Identity(),  # the reference's dropout slot (eval: identity)
+            nn.Identity(),  # the reference's dropout slot (see forward)
             nn.Linear(hidden, hidden),
             nn.GELU(),
         )
         self.node = NODEEnsemble(
-            hidden, num_classes, node_trees, node_depth, node_tau
+            hidden, num_classes, node_trees, node_depth, node_tau, node_dropout
         )
         self.bypass = nn.Linear(hidden, num_classes)
         self.temperature = nn.Parameter(torch.tensor(float(temperature_init)))
 
     def forward(
-        self, fused: torch.Tensor, aux: Optional[torch.Tensor] = None
+        self,
+        fused: torch.Tensor,
+        aux: Optional[torch.Tensor] = None,
+        gen: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
+        """`gen` = None is eval mode; a generator turns dropout on."""
         x = fused
         if self.use_aux and aux is not None:
             x = torch.cat([x, aux], dim=-1)
-        h = self.pre(x)
-        logits = self.node(h) + self.bypass(h)
+        h = drop(F.gelu(self.pre[0](x)), self.dropout, gen)
+        h = drop(F.gelu(self.pre[3](h)), self.dropout, gen)
+        logits = self.node(h, gen) + self.bypass(h)
         t = self.temperature.clamp(0.5, 5.0)
         probs = torch.softmax(logits / t, dim=-1)
         return {"logits": logits, "probs": probs, "temperature": t}

@@ -1,6 +1,9 @@
-"""Cross-modal fusion (counterpart of `models/fusion.py:35-213`), eval mode.
+"""Cross-modal fusion (counterpart of `models/fusion.py:35-213`).
 
-Parameter names are the reference state-dict keys that
+Training mode (a `torch.Generator` passed as `gen`) drops `dropout` (0.1)
+after each GELU of the fuse MLP (`fusion.py:187,192`); the evidence
+proxies carry no gradient (`jax.lax.stop_gradient` there, `.detach()`
+here). Parameter names are the reference state-dict keys that
 `ultrafnd_git_tpu.utils.torch_transfer.fusion_state_dict_from_params`
 writes (`fuse_mlp.0` / `.3`, `classifier`, `attn_*.evidence_proj.0` /
 `.2`), so that function carries JAX fusion params across unchanged.
@@ -8,11 +11,13 @@ writes (`fuse_mlp.0` / `.3`, `classifier`, `attn_*.evidence_proj.0` /
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
 
 
 def cos01(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -60,9 +65,11 @@ class CrossModalTransformer(nn.Module):
         temporal_dim: int = 256,
         use_gnn: bool = True,
         gnn_dim: int = 128,
+        dropout: float = 0.1,
     ):
         super().__init__()
         self.use_gnn = use_gnn
+        self.dropout = dropout
         self.text_proj = nn.Linear(text_dim, hidden)
         self.audio_proj = nn.Linear(audio_dim, hidden)
         self.visual_proj = nn.Linear(visual_dim, hidden)
@@ -76,13 +83,18 @@ class CrossModalTransformer(nn.Module):
         self.fuse_mlp = nn.Sequential(
             nn.Linear(n_parts * hidden, 2 * hidden),
             nn.GELU(),
-            nn.Identity(),  # the reference's dropout slot (eval: identity)
+            nn.Identity(),  # the reference's dropout slot (see forward)
             nn.Linear(2 * hidden, hidden),
             nn.GELU(),
         )
         self.classifier = nn.Linear(hidden, 2)
 
-    def forward(self, feats: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    def forward(
+        self,
+        feats: Dict[str, torch.Tensor],
+        gen: Optional[torch.Generator] = None,
+    ) -> Dict[str, object]:
+        """`gen` = None is eval mode; a generator turns dropout on."""
         t = self.text_proj(feats["text_features"])
         a = self.audio_proj(feats["audio_features"])
         v = self.visual_proj(feats["visual_features"])
@@ -94,9 +106,9 @@ class CrossModalTransformer(nn.Module):
             emo_proxy = evidence[:, 1:2]
             delay_proxy = evidence[:, 2:3]
         else:
-            semantic_conflict = 1.0 - cos01(t, v)  # (B, 1)
-            emo_proxy = torch.tanh(t.abs().mean(dim=-1, keepdim=True))
-            delay_proxy = 1.0 - cos01(t, u)
+            semantic_conflict = (1.0 - cos01(t, v)).detach()  # (B, 1)
+            emo_proxy = torch.tanh(t.abs().mean(dim=-1, keepdim=True)).detach()
+            delay_proxy = (1.0 - cos01(t, u)).detach()
         zeros = torch.zeros_like(emo_proxy)
 
         tv_star = self.attn_tv(
@@ -117,7 +129,9 @@ class CrossModalTransformer(nn.Module):
         parts = [t, a, v, u, pairs, tv_star, ta_star, vu_star]
         if self.use_gnn:
             parts.append(self.gnn_proj(feats["gnn_feat"]))
-        fused = self.fuse_mlp(torch.cat(parts, dim=-1))
+        mlp = self.fuse_mlp
+        h = drop(F.gelu(mlp[0](torch.cat(parts, dim=-1))), self.dropout, gen)
+        fused = drop(F.gelu(mlp[3](h)), self.dropout, gen)
         return {
             "fused": fused,
             "logits": self.classifier(fused),

@@ -2,14 +2,21 @@
 
 Serving never runs the full-graph forward: the corpus side is precomputed
 (`ax = a_norm @ xg` on the host, `h_corpus = gelu(lin1(ax))` once per
-Predictor) and a request's rows attach to it through `extend`.
+Predictor) and a request's rows attach to it through `extend`. Training
+runs `propagate` with the trainer's `out_rows` shortcut: the first
+propagation `ax` is a constant, so only `a_norm[idx]` rows of the second
+are computed; dropout (0.2) hits `h` over all N rows (`gnn.py:93-99`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
 
 
 def normalize_adjacency(adj: np.ndarray) -> np.ndarray:
@@ -25,8 +32,10 @@ def normalize_adjacency(adj: np.ndarray) -> np.ndarray:
 class SimpleGCN(nn.Module):
     """`lin1` / `lin2` of the JAX SimpleGCN (exact GELU between them)."""
 
-    def __init__(self, in_dim: int = 416, hid: int = 256, out_dim: int = 128):
+    def __init__(self, in_dim: int = 416, hid: int = 256, out_dim: int = 128,
+                 dropout: float = 0.2):
         super().__init__()
+        self.dropout = dropout
         self.lin1 = nn.Linear(in_dim, hid)
         self.lin2 = nn.Linear(hid, out_dim)
 
@@ -34,6 +43,17 @@ class SimpleGCN(nn.Module):
         """Dense full-graph forward: lin2(a @ gelu(lin1(a @ x)))."""
         h = F.gelu(self.lin1(a @ x))
         return self.lin2(a @ h)
+
+    def propagate(
+        self,
+        a_rows: torch.Tensor,
+        ax: torch.Tensor,
+        gen: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """lin2(a_rows @ dropout(gelu(lin1(ax)))): the embeddings of the
+        nodes whose normalised adjacency rows are `a_rows` (all N rows for
+        the full graph, `a_norm[idx]` for a batch); `gen` turns dropout on."""
+        return self.lin2(a_rows @ drop(F.gelu(self.lin1(ax)), self.dropout, gen))
 
     def corpus_hidden(self, ax: torch.Tensor) -> torch.Tensor:
         """Layer-1 activations of the corpus, gelu(lin1(a_norm @ xg))."""

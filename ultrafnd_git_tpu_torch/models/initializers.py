@@ -1,5 +1,10 @@
 """Seeded random weights for the port's modules, from a torch.Generator.
 
+`jax_init_` is the trainer's fresh start: each parameter drawn from the
+distribution the JAX package initialises it with (not the same numbers:
+the generators differ). `seeded_init_` is for a servable model without a
+checkpoint (the GPU smoke run), as follows.
+
 Served models come from JAX checkpoints (`scripts/export_torch_model.py`);
 this is for runs that need a model where no JAX is installed (the GPU
 smoke run): every parameter is drawn from the given generator. Linear
@@ -46,4 +51,52 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             p.normal_(0.0, 0.02, generator=generator)
         elif name == "temperature":
             p.fill_(1.0)
+    return module
+
+
+_FROM_ZERO = ("gates", "thresh", "leaf_logits")  # the NODE forest starts at 0
+
+
+@torch.no_grad()
+def jax_init_(part: str, module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill `module` (trainer part "fusion", "clf", "gnn" or "text_tower") in
+    place with the JAX package's initial distributions; returns `module`.
+
+    fusion, gnn: torch.nn.Linear's default, U(+-1/sqrt(fan_in)) weights and
+    biases (`models/initializers.torch_dense`); clf: xavier-uniform weights,
+    zero biases, a zero forest, temperature 1; text_tower: Flax defaults,
+    lecun-normal (truncated) Dense weights with zero biases, embedding
+    N(0, 1/width), pos_embed N(0, 0.02), LayerNorm 1 / 0.
+    """
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            fan_in, fan_out = m.in_features, m.out_features
+            if part in ("fusion", "gnn"):
+                bound = 1.0 / math.sqrt(fan_in)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+            elif part == "clf":
+                bound = math.sqrt(6.0 / (fan_in + fan_out))
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.zero_()
+            else:
+                # variance_scaling(1, fan_in, truncated_normal): the std of a
+                # N(0, 1) cut at +-2 is 0.87962566
+                std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim), generator=generator)
+    for name, p in module.named_parameters():
+        leaf = name.split(".")[-2 if name.split(".")[-1].isdigit() else -1]
+        if name == "pos_embed":
+            p.normal_(0.0, 0.02, generator=generator)
+        elif name == "temperature":
+            p.fill_(1.0)
+        elif leaf in _FROM_ZERO:
+            p.zero_()
     return module

@@ -1,12 +1,15 @@
-"""Text tower over the flash-attention kernel (dense MLP blocks).
+"""Text tower over the flash-attention kernels (dense MLP blocks).
 
 Counterpart of `ultrafnd_git_tpu/models/transformer.py`: the hash
 tokenizer, `MultiHeadAttention`, `EncoderBlock` and `TextTransformer`
 (ids (B, L) -> mean-pooled, L2-normalised (B, width)). Parameter names
 follow the Flax tree (`utils/transfer.py` maps one onto the other). Every
-attention call goes through `kernels.flash_attention_fwd`, whatever S is: on
-a CUDA tensor that is the hand-written kernel. MoE blocks, remat, ring
-attention and coord dropout are not ported yet (ROADMAP.md).
+attention call goes through `kernels.flash_attention`, whatever S is: on a
+CUDA tensor its forward is K2 and its backward K3 + K4. Training mode
+(a `torch.Generator` passed as `gen`) drops 0.1 at the two sites of each
+block, after attention and after `mlp_out`, as the JAX block does; nothing
+inside attention is dropped. MoE blocks, remat, ring attention and coord
+dropout are not ported yet (ROADMAP.md): the trainer raises for them.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ from torch import nn
 
 from ultrafnd_git_tpu.ops.hashing import basis_for_salt, fnv1a_64
 from ultrafnd_git_tpu_torch.kernels.flash_attention import (
-    flash_attention_fwd,
+    flash_attention,
     padding_bias,
 )
+from ultrafnd_git_tpu_torch.models.dropout import dropout
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon (torch defaults to 1e-5)
 
@@ -90,28 +94,35 @@ class MultiHeadAttention(nn.Module):
         def heads_first(t):
             return t.reshape(b, s, self.heads, d).transpose(1, 2).contiguous()
 
-        o, _ = flash_attention_fwd(
+        o = flash_attention(
             heads_first(q), heads_first(k), heads_first(v), padding_bias(mask)
         )  # (B, H, S, D)
         return self.out(o.transpose(1, 2).reshape(b, s, self.width))
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN block: x + attn(ln1(x)); x + mlp(ln2(x)). Eval only."""
+    """Pre-LN block: x + drop(attn(ln1(x))); x + drop(mlp(ln2(x)))."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: int = 4,
-                 gelu: str = "tanh"):
+                 gelu: str = "tanh", dropout: float = 0.1):
         super().__init__()
         self.gelu = gelu
+        self.dropout = dropout
         self.ln1 = nn.LayerNorm(width, eps=LN_EPS)
         self.attn = MultiHeadAttention(width, heads)
         self.ln2 = nn.LayerNorm(width, eps=LN_EPS)
         self.mlp_in = nn.Linear(width, mlp_ratio * width)
         self.mlp_out = nn.Linear(mlp_ratio * width, width)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self.mlp_out(gelu(self.mlp_in(self.ln2(x)), self.gelu))
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor,
+        gen: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        x = x + dropout(self.attn(self.ln1(x), mask), self.dropout, gen)
+        h = self.mlp_out(gelu(self.mlp_in(self.ln2(x)), self.gelu))
+        return x + dropout(h, self.dropout, gen)
 
 
 class TextTransformer(nn.Module):
@@ -125,21 +136,29 @@ class TextTransformer(nn.Module):
         vocab_size: int = 32768,
         max_len: int = 256,
         gelu: str = "tanh",
+        dropout: float = 0.1,
     ):
         super().__init__()
         self.tok_embed = nn.Embedding(vocab_size, width)
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, width))
         self.ln_embed = nn.LayerNorm(width, eps=LN_EPS)
         self.blocks = nn.ModuleList(
-            EncoderBlock(width, heads, gelu=gelu) for _ in range(depth)
+            EncoderBlock(width, heads, gelu=gelu, dropout=dropout)
+            for _ in range(depth)
         )
         self.ln_final = nn.LayerNorm(width, eps=LN_EPS)
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        ids: torch.Tensor,
+        mask: torch.Tensor,
+        gen: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """`gen` = None is eval mode; a generator turns dropout on."""
         x = self.tok_embed(ids) + self.pos_embed[:, : ids.shape[1]]
         x = self.ln_embed(x)
         for block in self.blocks:
-            x = block(x, mask)
+            x = block(x, mask, gen)
         x = self.ln_final(x)
         m = mask[..., None]
         pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)

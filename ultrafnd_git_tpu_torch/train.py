@@ -1,0 +1,116 @@
+"""Train and test the v2 model with the port (counterpart of run_train_eval.py).
+
+    python -m ultrafnd_git_tpu_torch.train --model_dir D --out_dir O \
+        [--epochs 12] [--batch_size 16] [--train_text_tower] [--fused_adamw] \
+        [--device cuda|cpu] [--export_model_dir M]
+
+`--model_dir` is a model directory from `scripts/export_torch_model.py`:
+the run's feature cache comes from it (unless out_dir already has one)
+and so do the align weights of `--export_model_dir`, which writes the
+trained `best` slot as a model directory that
+`python -m ultrafnd_git_tpu_torch.predict` serves. The device defaults to
+cuda and raises when there is no GPU; pass --device cpu to run on the CPU.
+Prints the `==== Final Results ====` block of run_train_eval.py.
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="ultrafnd_git_tpu_torch v2 — train/test")
+    p.add_argument("--model_dir", default=None,
+                   help="model dir with feature_cache.npz (and the align weights)")
+    p.add_argument("--out_dir", default="outputs_v2",
+                   help="Where to save checkpoints & logs")
+    p.add_argument("--epochs", type=int, default=12)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--gnn_dim", type=int, default=128)
+    p.add_argument("--gnn_overlap_thresh", type=float, default=0.12)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no_gnn", action="store_true", help="Disable GNN features")
+    p.add_argument("--freeze_gnn", action="store_true",
+                   help="Keep the GCN frozen after its degree-recon pretrain")
+    p.add_argument("--grad_accum", type=int, default=1)
+    p.add_argument("--fused_adamw", action="store_true",
+                   help="accepted for run_train_eval.py parity; no effect: "
+                        "AdamW always runs as one K1 launch per step on CUDA")
+    p.add_argument("--train_text_tower", action="store_true")
+    p.add_argument("--text_tower_depth", type=int, default=2)
+    p.add_argument("--text_tower_heads", type=int, default=6)
+    p.add_argument("--tower_gelu", choices=("tanh", "exact"), default="tanh")
+    p.add_argument("--select_metric", default="auc",
+                   choices=("auc", "acc", "f1", "precision", "recall"))
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from the latest checkpoint in out_dir")
+    p.add_argument("--eval_only", action="store_true",
+                   help="Skip training; load best and test")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--export_model_dir", default=None,
+                   help="write the best slot here as a servable model dir")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+    out_dir = Path(args.out_dir).expanduser()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = TrainConfig(
+        out_dir=str(out_dir),
+        model_dir=args.model_dir,
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        gnn_dim=args.gnn_dim,
+        gnn_overlap_thresh=args.gnn_overlap_thresh,
+        seed=args.seed,
+        use_gnn=not args.no_gnn,
+        train_gnn=not args.freeze_gnn,
+        grad_accum=args.grad_accum,
+        fused_adamw=args.fused_adamw,
+        train_text_tower=args.train_text_tower,
+        text_tower_depth=args.text_tower_depth,
+        text_tower_heads=args.text_tower_heads,
+        tower_gelu=args.tower_gelu,
+        select_metric=args.select_metric,
+        resume=args.resume,
+        eval_only=args.eval_only,
+    )
+    print("==== ultrafnd_git_tpu_torch v2 ====")
+    print(f"Device:          {args.device}")
+    print(f"Model dir:       {args.model_dir}")
+    print(f"Output dir:      {out_dir}")
+    print(f"Epochs:          {args.epochs}")
+    print(f"Batch size:      {args.batch_size}")
+    print(f"Use GNN:         {not args.no_gnn}")
+    print("=============================")
+    trainer = ForensicTrainer(cfg, device=args.device)
+    if not args.eval_only:
+        print("\n>>> Training...")
+        trainer.fit()
+    print("\n>>> Testing best checkpoint...")
+    results = trainer.test()
+    print("\n==== Final Results ====")
+    print(f"Test Loss: {results['test_loss']:.4f}")
+    print(f"Test Acc : {results['test_acc']:.4f}")
+    print(f"Test AUC : {results['test_auc']:.4f}")
+    for k in ("test_precision", "test_recall", "test_f1", "test_cmcs", "test_dfdr"):
+        print(f"{k.replace('test_', 'Test ').title()}: {results[k]:.4f}")
+    if args.export_model_dir:
+        if args.model_dir is None:
+            raise SystemExit("--export_model_dir needs --model_dir (the align weights)")
+        from ultrafnd_git_tpu_torch.utils.transfer import export_trained
+
+        root = export_trained(str(out_dir), "best", args.export_model_dir, args.model_dir)
+        print(f"wrote {root}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,528 @@
+"""The cache-based v2 trainer (counterpart of `training/trainer.py`).
+
+    trainer = ForensicTrainer(TrainConfig(model_dir=D, out_dir=O,
+                                          train_text_tower=True))
+    trainer.fit()                 # epochs of train + val, best/latest slots
+    results = trainer.test()      # the JAX trainer's test_* keys
+
+Feature cache -> transductive OCR-Jaccard graph + GCN (trained in the
+step, the `out_rows` shortcut) -> optional trainable text tower (its
+attention on K2, K3 and K4 on a GPU) -> fusion -> NODE classifier; masked
+mean cross-entropy, `grad_accum` as a sum of microbatch gradients over the
+step's valid rows, AdamW with global-norm clipping and the epoch-staircase
+schedule (K1 on a GPU), early stop on the validation
+metric, `best` / `latest` checkpoints, `--resume` and `--eval_only` with
+the JAX trainer's checkpoint-field adoption. The batch orders are the JAX
+trainer's: `np.random.seed(cfg.seed)` then one shuffle per epoch.
+
+Differences that are the port's own: one step per Python call (no
+`lax.scan`, so `scan_epoch` has no effect), one `torch.Generator` for the
+dropout masks (so `fast_dropout_rng` has no effect), one AdamW route (K1
+is bit-identical to the plain update, so `fused_adamw` has no effect and
+every run launches K1 on a GPU), parameters drawn from
+the JAX package's distributions but not its numbers, the fusion and
+classifier dims of the shipped YAMLs (the port reads no YAML), no GCN when
+`use_gnn=False` (the JAX trainer builds and weight-decays one it never
+uses), and the cache comes from out_dir or a model directory
+(`data/cache.bootstrap_cache`). Flags outside this slice raise
+NotImplementedError naming ROADMAP.md.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+import time
+from contextlib import nullcontext
+from dataclasses import asdict, dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ultrafnd_git_tpu_torch.data.cache import TOWER_VOCAB, bootstrap_cache
+from ultrafnd_git_tpu_torch.kernels.adamw import FusedAdamW
+from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
+from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
+from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
+from ultrafnd_git_tpu_torch.models.initializers import jax_init_
+from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
+from ultrafnd_git_tpu_torch.ops.graphctx import build_graph_context
+from ultrafnd_git_tpu_torch.training import checkpoint as ckpt
+from ultrafnd_git_tpu_torch.training.loop import (
+    ImprovementTracker,
+    flatten_epoch_rows,
+    iter_padded_batches,
+    load_checkpoint_guarded,
+    log_jsonl,
+    np_random_state_payload,
+    restore_np_random_state,
+)
+from ultrafnd_git_tpu_torch.training.metrics import aggregate_epoch_metrics, pretty_print
+from ultrafnd_git_tpu_torch.training.state import TrainState, make_optimizer
+from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
+
+# the shipped configs/model_configs/{fusion,classifier}.yaml (equal to the
+# JAX modules' defaults); the GPU machine has no PyYAML to read them
+FUSION_HIDDEN = 512
+FUSION_DROPOUT = 0.1
+CLASSIFIER = dict(hidden=512, num_classes=2, use_aux=True, aux_dim=2,
+                  node_trees=6, node_depth=4, node_tau=10.0,
+                  temperature_init=1.0, dropout=0.1, node_dropout=0.3)
+GNN_DROPOUT = 0.2
+TRAINER_KIND = "v2"
+
+
+@dataclass
+class TrainConfig:
+    """The JAX `TrainConfig` (`trainer.py:65-258`): same field names and
+    defaults, plus `model_dir`, where the port finds its feature cache
+    (and an export its align weights). `data_root` is kept for the
+    checkpoint meta but a cache is never built from it here.
+    `scan_epoch`, `fast_dropout_rng` and `fused_adamw` are accepted (and
+    adopted from a checkpoint, and written to its meta) and have no
+    effect."""
+
+    data_root: Optional[str] = None
+    ocr_phrase_pkl: Optional[str] = None
+    out_dir: str = "outputs"
+    batch_size: int = 16
+    epochs: int = 8
+    lr: float = 2e-4
+    weight_decay: float = 1e-4
+    gnn_dim: int = 128
+    gnn_overlap_thresh: float = 0.12
+    seed: int = 42
+    use_gnn: bool = True
+    train_gnn: bool = True
+    use_evidence: bool = False
+    train_text_tower: bool = False
+    text_tower_depth: int = 2
+    text_tower_heads: int = 6
+    tower_gelu: str = "tanh"
+    moe_experts: int = 0
+    moe_aux_weight: float = 1e-2
+    sp: int = 1
+    pp: int = 1
+    pp_microbatches: Optional[int] = None
+    remat_tower: bool = False
+    save_best: bool = True
+    grad_clip: float = 5.0
+    early_stop_patience: int = 3
+    select_metric: str = "auc"
+    hash_salt: str = ""
+    cache_to_disk: bool = True
+    resume: bool = False
+    save_every_steps: int = 0
+    eval_only: bool = False
+    dp: Optional[int] = None
+    tp: int = 1
+    dcn: int = 1
+    shard_corpus: bool = False
+    shard_graph: bool = False
+    sparse_graph: bool = False
+    mesh_backend: Optional[str] = None
+    bf16_compute: bool = False
+    scan_epoch: bool = True
+    grad_accum: int = 1
+    fused_adamw: bool = False
+    fast_dropout_rng: bool = True
+    profile_dir: Optional[str] = None
+    debug_nans: bool = False
+    log_metrics_jsonl: bool = True
+    fusion_config: str = "configs/model_configs/fusion.yaml"
+    classifier_config: str = "configs/model_configs/classifier.yaml"
+    model_dir: Optional[str] = None
+
+
+def _unsupported(cfg: TrainConfig) -> list:
+    return [
+        flag for flag, on in (
+            ("dp", cfg.dp is not None), ("tp", cfg.tp > 1), ("dcn", cfg.dcn > 1),
+            ("sp", cfg.sp > 1), ("pp", cfg.pp > 1),
+            ("shard_corpus", cfg.shard_corpus), ("shard_graph", cfg.shard_graph),
+            ("sparse_graph", cfg.sparse_graph), ("use_evidence", cfg.use_evidence),
+            ("moe_experts", cfg.moe_experts > 0), ("remat_tower", cfg.remat_tower),
+            ("bf16_compute", cfg.bf16_compute),
+            ("save_every_steps", cfg.save_every_steps > 0),
+            ("profile_dir", cfg.profile_dir is not None),
+            ("debug_nans", cfg.debug_nans),
+        ) if on
+    ]
+
+
+def _adopt_checkpoint_fields(cfg: TrainConfig) -> None:
+    """The JAX trainer's adoption (`trainer.py:273-353`): with --resume
+    (latest) or --eval_only (best), the fields that shape the trained
+    function or its optimizer state come from the slot's meta."""
+    slot = "latest" if cfg.resume else ("best" if cfg.eval_only else None)
+    if slot is None:
+        return
+    meta_p = os.path.join(cfg.out_dir, slot, "meta.json")
+    saved: Dict[str, Any] = {}
+    if os.path.exists(meta_p):
+        try:
+            with open(meta_p, "r", encoding="utf-8") as fh:
+                saved = json.load(fh).get("cfg", {})
+        except (OSError, ValueError):
+            saved = {}
+    if saved.get("train_text_tower") and not cfg.train_text_tower:
+        print("note: checkpoint was trained with --train_text_tower; adopting it")
+        cfg.train_text_tower = True
+    if saved.get("train_text_tower"):
+        for field, default in (("text_tower_depth", 2), ("text_tower_heads", 12),
+                               ("moe_experts", 0)):
+            saved_v = int(saved.get(field, default))
+            if saved_v != getattr(cfg, field):
+                print(f"note: checkpoint tower was trained with {field}={saved_v}; "
+                      "adopting it")
+                setattr(cfg, field, saved_v)
+        saved_gelu = str(saved.get("tower_gelu", "exact"))
+        if saved_gelu != cfg.tower_gelu:
+            print(f"note: checkpoint tower was trained with tower_gelu={saved_gelu}; "
+                  "adopting it")
+            cfg.tower_gelu = saved_gelu
+    for field, default in (("train_gnn", True), ("fused_adamw", False)):
+        if saved and bool(saved.get(field, default)) != getattr(cfg, field):
+            print(f"note: checkpoint was trained with {field}="
+                  f"{saved.get(field, default)}; adopting it")
+            setattr(cfg, field, bool(saved.get(field, default)))
+    if saved and saved.get("hash_salt", "") != cfg.hash_salt:
+        print(f"note: checkpoint was trained with hash_salt="
+              f"{saved.get('hash_salt', '')!r}; adopting it")
+        cfg.hash_salt = str(saved.get("hash_salt", ""))
+
+
+class ForensicTrainer:
+    """Cache-based multimodal trainer with a transductive GCN channel.
+
+    `device` is "cuda" by default and raises without a GPU; pass "cpu" to
+    run the plain versions of the kernels on the CPU.
+    """
+
+    def __init__(self, cfg: TrainConfig, cache: Optional[Dict[str, Any]] = None,
+                 device: str = "cuda"):
+        self.cfg = cfg
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        _adopt_checkpoint_fields(cfg)
+        bad = _unsupported(cfg)
+        if bad:
+            raise NotImplementedError(
+                f"{', '.join(bad)} not ported to ultrafnd_git_tpu_torch yet (see "
+                "the port's module list in ROADMAP.md); train it with "
+                "ultrafnd_git_tpu"
+            )
+        if cfg.tower_gelu not in ("tanh", "exact"):
+            raise ValueError(f"tower_gelu must be 'tanh' or 'exact', got {cfg.tower_gelu!r}")
+        self.device = dev = resolve_device(device)
+        np.random.seed(cfg.seed)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+        # ---- feature cache and device-resident corpus ----------------------
+        self.cache = bootstrap_cache(cfg.out_dir, cfg.model_dir, cache, cfg.cache_to_disk)
+        self.tr_idx, self.va_idx, self.te_idx = (np.asarray(s) for s in self.cache["split"])
+        self.n_total = int(self.cache["labels"].shape[0])
+
+        def put(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x)).to(dev, dtype)
+
+        self.corpus: Dict[str, torch.Tensor] = {
+            "audio": put(self.cache["audio"]),
+            "visual": put(self.cache["visual"]),
+            "temporal": put(self.cache["temporal"]),
+            "aux": put(self.cache["aux"]),
+            "labels": put(self.cache["labels"], torch.int64),
+        }
+        text_width = int(self.cache["text"].shape[1])
+        if cfg.train_text_tower:
+            if float(np.asarray(self.cache["text_mask"]).sum()) == 0.0:
+                raise ValueError("--train_text_tower needs token ids, but this cache has none")
+            self.corpus["text_ids"] = put(self.cache["text_ids"], torch.int64)
+            self.corpus["text_mask"] = put(self.cache["text_mask"])
+        else:
+            self.corpus["text"] = put(self.cache["text"])
+        if cfg.use_gnn:
+            gctx = build_graph_context(self.cache, cfg.gnn_overlap_thresh)
+            self.corpus["a_norm"] = put(gctx.a_norm)
+            self.corpus["ax"] = put(gctx.ax)
+
+        # ---- modules (the JAX package's initial distributions) -------------
+        widths = {k: int(self.cache[k].shape[1]) for k in ("audio", "visual", "temporal")}
+        self.model_meta: Dict[str, Any] = {
+            "fusion": {"hidden": FUSION_HIDDEN, "use_gnn": cfg.use_gnn,
+                       "gnn_dim": cfg.gnn_dim, "text_dim": text_width,
+                       **{f"{k}_dim": w for k, w in widths.items()}},
+            "classifier": {k: v for k, v in CLASSIFIER.items()
+                           if k not in ("dropout", "node_dropout")},
+            "gnn": None,
+            "text_tower": None,
+        }
+        params: Dict[str, nn.Module] = {
+            "fusion": CrossModalTransformer(
+                hidden=FUSION_HIDDEN, text_dim=text_width,
+                audio_dim=widths["audio"], visual_dim=widths["visual"],
+                temporal_dim=widths["temporal"], use_gnn=cfg.use_gnn,
+                gnn_dim=cfg.gnn_dim, dropout=FUSION_DROPOUT),
+            "clf": DeepTruthClassifier(in_dim=FUSION_HIDDEN, **CLASSIFIER),
+        }
+        if cfg.use_gnn:
+            in_dim = int(self.corpus["ax"].shape[1])
+            params["gnn"] = SimpleGCN(in_dim, 2 * cfg.gnn_dim, cfg.gnn_dim, GNN_DROPOUT)
+            self.model_meta["gnn"] = {"in_dim": in_dim, "hid": 2 * cfg.gnn_dim,
+                                      "out_dim": cfg.gnn_dim}
+        if cfg.train_text_tower:
+            tower = dict(width=text_width, depth=cfg.text_tower_depth,
+                         heads=cfg.text_tower_heads, vocab_size=TOWER_VOCAB,
+                         max_len=int(self.cache["text_ids"].shape[1]),
+                         gelu=cfg.tower_gelu)
+            params["text_tower"] = TextTransformer(**tower)
+            self.model_meta["text_tower"] = tower
+        init_gen = torch.Generator().manual_seed(cfg.seed)  # same draws on any device
+        for part, mod in params.items():
+            jax_init_(part, mod, init_gen).to(dev)
+
+        if cfg.use_gnn and not (cfg.eval_only and ckpt.checkpoint_exists(cfg.out_dir, "best")):
+            self._pretrain_gnn(params["gnn"], gen)
+
+        # ---- optimizer and state -------------------------------------------
+        steps_per_epoch = max(
+            1, math.ceil(len(self.tr_idx) / (cfg.batch_size * max(1, cfg.grad_accum)))
+        )
+        self.tx = make_optimizer(
+            cfg.lr, cfg.weight_decay, cfg.grad_clip, steps_per_epoch,
+            frozen_subtrees=() if cfg.train_gnn else ("gnn",),
+        )
+        self.state = TrainState(step=0, params=params, opt_state=self.tx.init(params),
+                                gen=gen)
+        self.start_epoch = 1
+        self.best_val_auc = -1.0
+        self.no_improve = 0
+        if cfg.resume:
+            restored = load_checkpoint_guarded(cfg.out_dir, "latest", TRAINER_KIND,
+                                               "starting fresh", dev)
+            if restored is not None:
+                payload, meta = restored
+                try:
+                    self.state.load_state_dict(payload)
+                except ValueError as exc:
+                    print(f"⚠️  latest checkpoint does not fit this model ({exc}); "
+                          "starting fresh")
+                else:
+                    self.start_epoch = int(meta.get("epoch", 0)) + 1
+                    self.best_val_auc = float(meta.get("best_val_auc", -1.0))
+                    self.no_improve = int(meta.get("no_improve", 0))
+                    rs = meta.get("np_random_state")
+                    if rs is not None:
+                        restore_np_random_state(rs)
+
+    # ------------------------------------------------------------------
+    def pretrain_loss(self, gnn: SimpleGCN, head: torch.Tensor,
+                      gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Degree reconstruction over the full graph: mean squared error of
+        sigmoid(gcn(x) @ head) against the normalised degree."""
+        a_norm = self.corpus["a_norm"]
+        target = a_norm.sum(dim=-1, keepdim=True) / max(1.0, float(self.n_total))
+        z = gnn.propagate(a_norm, self.corpus["ax"], gen)
+        return ((torch.sigmoid(z @ head) - target) ** 2).mean()
+
+    def _pretrain_gnn(self, gnn: SimpleGCN, gen: torch.Generator, epochs: int = 2) -> None:
+        """Degree-reconstruction warm start with a fixed random readout head
+        and adamw(1e-3, wd=1e-4) in optax order (`trainer.py:731-791`)."""
+        dim = self.cfg.gnn_dim
+        head = torch.randn((dim, 1), generator=gen, device=self.device) / dim ** 0.5
+        opt = FusedAdamW(lambda count: 1e-3, weight_decay=1e-4, grad_clip=0.0)
+        params = {"gnn": gnn}
+        state = opt.init(params)
+        names = [n for n, _ in gnn.named_parameters()]
+        for _ in range(epochs):
+            loss = self.pretrain_loss(gnn, head, gen)
+            grads = torch.autograd.grad(loss, list(gnn.parameters()))
+            opt.apply(params, state, {"gnn": dict(zip(names, grads))})
+
+    # ------------------------------------------------------------------
+    def _forward(self, params: Dict[str, nn.Module], idx: torch.Tensor,
+                 gen: Optional[torch.Generator] = None):
+        """(per-row CE (B,), p_fake (B,), forensic (3, B)) of corpus rows
+        `idx`; `gen` = None is eval mode, a generator turns dropout on."""
+        c, cfg = self.corpus, self.cfg
+        if "text_tower" in params:
+            text = params["text_tower"](c["text_ids"][idx], c["text_mask"][idx], gen)
+        else:
+            text = c["text"][idx]
+        feats = {
+            "text_features": text,
+            "audio_features": c["audio"][idx],
+            "visual_features": c["visual"][idx],
+            "temporal_features": c["temporal"][idx],
+        }
+        if cfg.use_gnn:
+            # frozen-GNN mode: no backward through the graph channel
+            with nullcontext() if cfg.train_gnn else torch.no_grad():
+                feats["gnn_feat"] = params["gnn"].propagate(
+                    c["a_norm"][idx], c["ax"], gen)
+        fo = params["fusion"](feats, gen)
+        co = params["clf"](fo["fused"], c["aux"][idx], gen)
+        ce = F.cross_entropy(co["logits"], c["labels"][idx], reduction="none")
+        f = fo["forensic"]
+        forensic = torch.stack(
+            [f["semantic_conflict"], f["temporal_delay"], f["emotion_intensity"]]
+        )
+        return ce, co["probs"][:, 1], forensic
+
+    def trainable(self) -> Dict[str, nn.Module]:
+        return {k: m for k, m in self.state.params.items() if k not in self.tx.frozen}
+
+    def grads_of(self, idx: torch.Tensor, mask: torch.Tensor,
+                 gen: Optional[torch.Generator] = None):
+        """(loss, grads {part: {name: tensor}}, (p_fake, forensic)) of the
+        masked mean CE over a step's rows. With grad_accum = k the rows are
+        k microbatches whose summed-CE gradients add up before one divide by
+        the step's valid-row count (`trainer.py:926-1011`)."""
+        params = self.state.params
+        for mod in params.values():
+            for p in mod.parameters():
+                p.grad = None
+        accum = max(1, int(self.cfg.grad_accum))
+        denom = mask.sum().clamp_min(1.0)
+        lsum = torch.zeros((), device=idx.device)
+        p1s, fs = [], []
+        for i, m in zip(idx.view(accum, -1), mask.view(accum, -1)):
+            ce, p1, f = self._forward(params, i, gen)
+            ls = (ce * m).sum()
+            (ls / denom if accum == 1 else ls).backward()
+            lsum = lsum + ls.detach()
+            p1s.append(p1.detach())
+            fs.append(f.detach())
+        grads = {}
+        for part, mod in self.trainable().items():
+            grads[part] = {}
+            for name, p in mod.named_parameters():
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                grads[part][name] = g if accum == 1 else g.div_(denom)
+        return lsum / denom, grads, (torch.cat(p1s), torch.cat(fs, dim=1))
+
+    def train_step(self, idx: np.ndarray, mask: np.ndarray):
+        """One optimizer step on corpus rows `idx`; (loss, p_fake, forensic)."""
+        i = to_device(torch.as_tensor(idx), self.device, torch.int64)
+        m = to_device(torch.as_tensor(mask), self.device, torch.float32)
+        loss, grads, (p1, forensic) = self.grads_of(i, m, self.state.gen)
+        self.tx.apply(self.trainable(), self.state.opt_state, grads)
+        self.state.step += 1
+        return loss, p1, forensic
+
+    @torch.inference_mode()
+    def eval_step(self, params: Dict[str, nn.Module], idx: np.ndarray, mask: np.ndarray):
+        i = to_device(torch.as_tensor(idx), self.device, torch.int64)
+        m = to_device(torch.as_tensor(mask), self.device, torch.float32)
+        ce, p1, forensic = self._forward(params, i)
+        return (ce * m).sum() / m.sum().clamp_min(1.0), p1, forensic
+
+    # ------------------------------------------------------------------
+    def epoch_batches(self, split_idx: np.ndarray, is_train: bool):
+        """The epoch's [(chunk, mask, valid)]: a train epoch shuffles with
+        np.random's global stream (one draw per epoch, as the JAX trainer)
+        and takes batch_size * grad_accum rows per optimizer step."""
+        cfg = self.cfg
+        order = split_idx
+        if is_train:
+            order = np.array(split_idx, dtype=np.int32)
+            np.random.shuffle(order)
+        eff = cfg.batch_size * (max(1, cfg.grad_accum) if is_train else 1)
+        return list(iter_padded_batches(order, eff, shuffle=False))
+
+    def _epoch_loop(self, split_idx: np.ndarray, split: str,
+                    params: Optional[Dict[str, nn.Module]] = None) -> Tuple[float, Dict[str, float]]:
+        is_train = split == "train"
+        params = params if params is not None else self.state.params
+        batches = self.epoch_batches(split_idx, is_train)
+        if not batches:
+            return 0.0, aggregate_epoch_metrics(np.array([], int), np.array([], float))
+        for mod in params.values():
+            mod.train(is_train)
+        outs = []
+        for chunk, mask, _ in batches:
+            if is_train:
+                outs.append(self.train_step(chunk, mask))
+            else:
+                outs.append(self.eval_step(params, chunk, mask))
+        # one device -> host copy per epoch
+        losses = torch.stack([o[0].detach() for o in outs]).cpu().numpy()
+        p1_mat = torch.stack([o[1] for o in outs]).cpu().numpy()
+        f_mat = torch.stack([o[2] for o in outs]).cpu().numpy()
+        y, p1, f_cat = flatten_epoch_rows(batches, self.cache["labels"], p1_mat, f_mat)
+        metrics = aggregate_epoch_metrics(
+            y, p1, forensic={"semantic_conflict": f_cat[0], "temporal_delay": f_cat[1],
+                             "emotion_intensity": f_cat[2]})
+        return float(np.mean(losses)), metrics
+
+    def fit(self) -> float:
+        cfg = self.cfg
+        sel = {"acc": "accuracy"}.get(cfg.select_metric, cfg.select_metric)
+        if sel not in ("auc", "accuracy", "f1", "precision", "recall"):
+            raise ValueError(f"select_metric={cfg.select_metric!r} — use one of "
+                             "auc/acc/f1/precision/recall")
+        tracker = ImprovementTracker(cfg.out_dir, TRAINER_KIND, cfg.save_best,
+                                     cfg.early_stop_patience, best=self.best_val_auc,
+                                     no_improve=self.no_improve)
+        for epoch in range(self.start_epoch, cfg.epochs + 1):
+            t0 = time.time()
+            tr_loss, tr_metrics = self._epoch_loop(self.tr_idx, "train")
+            va_loss, va_metrics = self._epoch_loop(self.va_idx, "val")
+            dt = time.time() - t0
+            print(f"[Epoch {epoch:02d}] train_loss={tr_loss:.4f} | ", end="")
+            pretty_print("train", tr_metrics)
+            print(f"           val_loss={va_loss:.4f} | ", end="")
+            pretty_print("val", va_metrics)
+            log_jsonl(cfg.out_dir, cfg.log_metrics_jsonl, {
+                "epoch": epoch, "seconds": dt, "train_loss": tr_loss, "val_loss": va_loss,
+                **{f"train_{k}": v for k, v in tr_metrics.items()},
+                **{f"val_{k}": v for k, v in va_metrics.items()},
+            })
+            # the resolved module dims travel with every slot (export_trained)
+            extra = {"model": self.model_meta}
+            tracker.update(float(va_metrics.get(sel, 0.5)), self.state, epoch, asdict(cfg),
+                           extra)
+            self.best_val_auc = tracker.best
+            self.no_improve = tracker.no_improve
+            meta = {**tracker.meta(epoch, asdict(cfg)), **extra,
+                    "np_random_state": np_random_state_payload()}
+            ckpt.save_checkpoint(cfg.out_dir, "latest", self.state, meta)
+            if tracker.should_stop:
+                tracker.announce_stop()
+                break
+        return self.best_val_auc
+
+    def test(self) -> Dict[str, float]:
+        """Test metrics of the `best` slot (of the live params when there is
+        none, or it is foreign), with the JAX trainer's keys."""
+        params = self.state.params
+        restored = load_checkpoint_guarded(self.cfg.out_dir, "best", TRAINER_KIND,
+                                           "testing current params", self.device)
+        if restored is not None:
+            best = copy.deepcopy(self.state.params)
+            try:
+                TrainState(0, best, self.state.opt_state, self.state.gen).check_compatible(
+                    restored[0])
+            except ValueError as exc:
+                print(f"⚠️  best checkpoint does not fit this model ({exc}); "
+                      "testing current params")
+            else:
+                for part, mod in best.items():
+                    mod.load_state_dict(restored[0]["params"][part])
+                params = best
+        ts_loss, m = self._epoch_loop(self.te_idx, "test", params=params)
+        print(f"[Test] loss={ts_loss:.4f} | ", end="")
+        pretty_print("test", m)
+        return {
+            "test_loss": ts_loss,
+            "test_acc": m.get("accuracy", 0.0),
+            "test_auc": m.get("auc", 0.5),
+            "test_precision": m.get("precision", 0.0),
+            "test_recall": m.get("recall", 0.0),
+            "test_f1": m.get("f1", 0.0),
+            "test_cmcs": m.get("cmcs", 0.0),
+            "test_dfdr": m.get("dfdr", 0.0),
+        }

@@ -28,3 +28,14 @@ def resolve_device(name: str = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(t: torch.Tensor, dev: torch.device, dtype=None) -> torch.Tensor:
+    """A host tensor on `dev` (in `dtype`). To CUDA it goes through a pinned
+    copy and an asynchronous transfer: a copy from pageable memory would
+    wait for the stream to drain, and the device would idle while the host
+    enqueues the work after it."""
+    t = t if dtype is None else t.to(dtype)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

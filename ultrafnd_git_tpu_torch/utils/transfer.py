@@ -1,8 +1,8 @@
 """Weight bridge: the JAX package's parameter tree -> the port's state dicts.
 
 Input is the JAX `TrainState.params` tree as nested dicts of numpy arrays
-(`fusion`, `clf`, `gnn`, `text_tower`) plus the temporal align MLP's
-variables. Dense kernels (in, out) become `Linear.weight` (out, in).
+(`fusion`, `clf`, `gnn`, `text_tower`), or a gradient tree of the same
+structure, plus the temporal align MLP's variables. Dense kernels (in, out) become `Linear.weight` (out, in).
 Fusion, classifier and GCN go through the existing reference-layout
 functions of `ultrafnd_git_tpu.utils.torch_transfer`, whose keys the
 port's modules are named after. The module imports no jax: the caller
@@ -11,6 +11,7 @@ converts arrays to numpy.
 A model directory holds `weights.pt` ({part: state_dict}, loadable with
 `torch.load(..., weights_only=True)`), `meta.json` (the checkpoint cfg
 plus resolved module dims) and the corpus `feature_cache.npz`.
+`export_trained` writes one from a checkpoint of the port's own trainer.
 """
 from __future__ import annotations
 
@@ -83,15 +84,18 @@ def fusion_state_dict(params: Mapping[str, Any]) -> StateDict:
 
 def port_state_dicts(
     params: Mapping[str, Any],
-    align_variables: Mapping[str, Any],
+    align_variables: Optional[Mapping[str, Any]],
     node_tau: float,
 ) -> Dict[str, StateDict]:
-    """The whole JAX tree -> {"fusion", "clf", "align", ["gnn"], ["text_tower"]}."""
+    """The whole JAX tree -> {"fusion", "clf", ["align"], ["gnn"],
+    ["text_tower"]} (no "align" when `align_variables` is None: the
+    trainer's tree, or its gradients)."""
     out = {
         "fusion": fusion_state_dict(params["fusion"]),
         "clf": classifier_state_dict_from_params(params["clf"], tau=node_tau),
-        "align": align_state_dict(align_variables),
     }
+    if align_variables is not None:
+        out["align"] = align_state_dict(align_variables)
     if "gnn" in params:
         out["gnn"] = gcn_state_dict_from_params(params["gnn"])
     if "text_tower" in params:
@@ -123,3 +127,29 @@ def write_model_dir(
     if cache_npz is not None:
         shutil.copyfile(cache_npz, root / "feature_cache.npz")
     return root
+
+
+def export_trained(
+    out_dir: str, slot: str, model_dir: str, align_from: str
+) -> Path:
+    """A servable model directory from a checkpoint of the port's trainer.
+
+    Reads `<out_dir>/<slot>/` (state.pt and meta.json, whose "model" entry
+    holds the resolved module dims) and `<out_dir>/feature_cache.npz`; the
+    temporal align MLP, which the trainer does not train, comes with its
+    dims from the model directory the cache came with (`align_from`).
+    Writes weights.pt, meta.json and feature_cache.npz into `model_dir`.
+    """
+    src = Path(out_dir) / slot
+    payload = torch.load(src / "state.pt", map_location="cpu", weights_only=True)
+    with open(src / "meta.json", "r", encoding="utf-8") as fh:
+        ckpt_meta = json.load(fh)
+    with open(Path(align_from) / "meta.json", "r", encoding="utf-8") as fh:
+        align_meta = json.load(fh)["align"]
+    align = torch.load(Path(align_from) / "weights.pt", map_location="cpu",
+                       weights_only=True)["align"]
+    meta = {"cfg": ckpt_meta["cfg"], **ckpt_meta["model"], "align": align_meta}
+    return write_model_dir(
+        model_dir, {**payload["params"], "align": align}, meta,
+        cache_npz=str(Path(out_dir) / "feature_cache.npz"),
+    )
