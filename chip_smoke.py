@@ -11,9 +11,17 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      process per source, all started together;
   3. kernels — each kernel against its plain PyTorch version on the card at
      the shapes the training and serving paths give it (plus ragged S and
-     fully masked rows): K2 forward and K3/K4 backward at atol = rtol 2e-5
-     and 5e-4, K1 (AdamW over the full-width parameter tree, 3 steps) bit
-     for bit; each timed against its plain version (CUDA events, median);
+     fully masked rows): K2 forward at atol = rtol 2e-5; the fused K3/K4
+     backward at atol = rtol 5e-4 and dq, dk, dv within 1e-5 of max|plain|,
+     bit-identical over two calls; K1 (AdamW over the full-width parameter
+     tree, 3 steps) bit for bit. Each is timed (CUDA events, median of
+     blocks) against its plain version and against one PyTorch library call
+     that computes the same function (its yardstick, never called by the
+     port): SDPA's memory-efficient f32 kernels for K2 and for K3/K4's
+     backward, torch._fused_adamw_ for K1; each gets its bound, the larger
+     of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s
+     (H100 SXM data sheet), computed from this run's shapes; the ptxas
+     report (registers, spills) of every kernel is printed;
   4. train   — ForensicTrainer on a synthetic corpus of N = 5376 at full
      width (tower 768 x 2 layers x 6 heads, S = 64, vocab 32768, fusion
      512, GCN 416-256-128, classifier 512 with a 6 x 4 NODE forest),
@@ -26,13 +34,15 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      seeded model directory the cache came with) answers three predict()
      requests (8, 64, 300 records, each sent three times after a warm-up);
      K2 launches = depth x chunks; the CPU Predictor agrees within 1e-4;
-  6. a JSON line of the kernels, then the JSON result line.
+  6. a check that no module of jax or of the JAX package ultrafnd_git_tpu
+     was loaded, a JSON line of the kernels, then the JSON result line.
 The train phase also prints the device time of one steady train step by
 kernel (torch.profiler), the breakdown PERF.md keeps.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +63,10 @@ REQUEST_SIZES = (8, 64, 300)  # 300 crosses the 256 bucket
 REPEATS = 3  # each request is sent this many times; latency is the median
 TOL = dict(atol=2e-5, rtol=2e-5)  # K2: both sides full-f32 matmuls (TF32 off)
 BWD_TOL = dict(atol=5e-4, rtol=5e-4)  # K3/K4: the JAX suite's gradient tolerance
+BWD_REL = 1e-5  # K3/K4 dq, dk, dv: max|kernel - plain| / max|plain| (3xTF32 ~ f32)
+MEM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, FLOP/s (data sheet)
+ADAMW_FLOP = 18  # f32 operations per parameter in csrc/adamw.cu's body (clipped step)
 PROB_ATOL = 1e-4  # GPU vs CPU-plain, each served value
 GRAD_RTOL = 1e-4  # GPU vs CPU-plain gradient, relative to each leaf's largest
 TRAIN_BATCH = 512
@@ -104,6 +118,23 @@ def phase_device():
     return dev
 
 
+def _kernel_label(symbol: str) -> str:
+    """`name<D>` of a mangled kernel symbol (its length-prefixed identifier
+    that ends in "kernel", and its int template argument)."""
+    i = 0
+    while i < len(symbol):
+        m = re.match(r"\d+", symbol[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + m.end()
+        i = start + int(m.group())
+        if symbol[start:i].endswith("kernel"):
+            arg = re.match(r"ILi(\d+)E", symbol[i:])
+            return symbol[start:i] + (f"<{arg.group(1)}>" if arg else "")
+    return symbol
+
+
 def phase_build():
     from ultrafnd_git_tpu_torch.kernels import _build, adamw as aw, flash_attention as fa
 
@@ -115,9 +146,15 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         seconds = dict(zip(KERNELS, pool.map(timed, KERNELS)))
     fa._kernel(), fa._bwd_kernel(), aw._kernel()  # load them with ctypes
+    ptxas = {}
     for name, s in seconds.items():
         log("build", kernel=name, seconds=s,
             lib=_build.library_path(name).relative_to(REPO))
+        for symbol, info in _build.ptxas_report(name).items():
+            label = _kernel_label(symbol)
+            ptxas.setdefault(name, {})[label] = info
+            log("build", ptxas=label, **info)
+    return ptxas
 
 
 def _attention_inputs(shape, seed, dev):
@@ -158,8 +195,38 @@ def _max_err(a, b) -> float:
     return (a - b).abs().max().item()
 
 
+def _bound(nbytes: float, flop: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the f32 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / MEM_BPS, flop / F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flop": flop}
+
+
+def _fwd_bound(shape) -> dict:
+    b, h, s, d = shape  # q, k, v, bias in; out, lse out; products Q K^T, P V
+    return _bound(4 * (4 * b * h * s * d + b * s + b * h * s), 4 * b * h * s * s * d)
+
+
+def _bwd_bound(shape) -> dict:
+    b, h, s, d = shape  # q, k, v, out, dO, lse, bias in; dq, dk, dv out; 5 products
+    return _bound(4 * (8 * b * h * s * d + b * h * s + b * s), 10 * b * h * s * s * d)
+
+
+def _sdpa(q, k, v, bias):
+    """The library yardstick of K2: SDPA in f32 on its memory-efficient
+    kernel (flash and cuDNN SDPA take no f32)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
 def check_flash(dev):
-    """K2 and K3/K4 against their plain versions; both timed."""
+    """K2 and the fused K3/K4 against their plain versions; each timed
+    against its plain version and its library yardstick."""
     import torch
 
     from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
@@ -185,26 +252,45 @@ def check_flash(dev):
             bias = fa.padding_bias(mask)
             out, lse = fa.flash_attention_fwd(q, k, v, bias)
             got = fa.flash_attention_bwd(q, k, v, bias, out, lse, do)
+            again = fa.flash_attention_bwd(q, k, v, bias, out, lse, do)
             ref = fa.attention_bwd_reference(q, k, v, bias, out, lse, do)
             torch.cuda.synchronize()
-            errs = {}
-            for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            errs, rel = {}, {}
+            for name, a, a2, r in zip(("dq", "dk", "dv", "dbias"), got, again, ref):
                 torch.testing.assert_close(a, r, **BWD_TOL, msg=f"{name} at {shape}")
                 if not torch.isfinite(a).all():
                     raise RuntimeError(f"non-finite K3/K4 {name} at {shape}")
+                if not torch.equal(a, a2):
+                    raise RuntimeError(f"K3/K4 {name} differs between two calls at {shape}")
                 errs[name] = _max_err(a, r)
+                rel[name] = errs[name] / max(r.abs().max().item(), 1e-30)
+                if name != "dbias" and not rel[name] <= BWD_REL:
+                    raise RuntimeError(f"K3/K4 {name} at {shape}: {rel[name]} of max|plain|")
             res["dq"]["max_abs_err"] = max(res["dq"]["max_abs_err"], errs["dq"])
             res["dq"]["dbias_max_abs_err"] = max(res["dq"]["dbias_max_abs_err"], errs["dbias"])
             res["dkv"]["max_abs_err"] = max(res["dkv"]["max_abs_err"], errs["dk"], errs["dv"])
-            log("kernels", check="flash_attention_bwd", shape=shape,
-                max_abs_err=json.dumps(errs, separators=(",", ":")))
+            log("kernels", check="flash_attention_bwd", shape=shape, bit_identical_repeat=True,
+                max_abs_err=json.dumps(errs, separators=(",", ":")),
+                rel_err=json.dumps(rel, separators=(",", ":")))
 
-        q, k, v, do, mask = _attention_inputs(SERVING_SHAPE, 99, dev)
-        bias = fa.padding_bias(mask)
-        res["fwd"]["ms"] = _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias))
-        res["fwd"]["plain_ms"] = _median_ms(lambda: fa.reference_attention(q, k, v, bias))
-        log("kernels", time="flash_attention_fwd", shape=SERVING_SHAPE, ms=res["fwd"]["ms"],
-            plain_ms=res["fwd"]["plain_ms"], timing="median of 30 blocks of 10 calls")
+        # K2: serving bucket and training shape; kernel, plain, library
+        for key, shape, seed in (("serve", SERVING_SHAPE, 99), ("train", TRAIN_SHAPE, 97)):
+            q, k, v, do, mask = _attention_inputs(shape, seed, dev)
+            bias = fa.padding_bias(mask)
+            lib_err = _max_err(_sdpa(q, k, v, bias), fa.reference_attention(q, k, v, bias)[0])
+            t = {"ms": _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias)),
+                 "plain_ms": _median_ms(lambda: fa.reference_attention(q, k, v, bias)),
+                 "library_ms": _median_ms(lambda: _sdpa(q, k, v, bias)), **_fwd_bound(shape)}
+            log("kernels", time="flash_attention_fwd", shape=shape, **t,
+                library="SDPA EFFICIENT_ATTENTION f32", library_max_abs_err_vs_plain=lib_err,
+                timing="median of 30 blocks of 10 calls")
+            if key == "serve":
+                res["fwd"].update(t)
+            else:
+                res["fwd"]["train_shape"] = {"shape": list(shape), **t}
+        res["fwd"]["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+                                      "attn_mask=bias) under sdpa_kernel(EFFICIENT_ATTENTION), f32")
+
         q, k, v, do, mask = _attention_inputs(TRAIN_SHAPE, 98, dev)
         bias = fa.padding_bias(mask)
         out, lse = fa.flash_attention_fwd(q, k, v, bias)
@@ -212,12 +298,26 @@ def check_flash(dev):
                                                        with_dbias=False), runs=20)
         plain_ms = _median_ms(lambda: fa.attention_bwd_reference(q, k, v, bias, out, lse, do),
                               runs=20)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = _sdpa(qg, kg, vg, bias)  # the bias takes no gradient, as in the trainer
+    lib_grads = torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True)
+    ref = fa.attention_bwd_reference(q, k, v, bias, out, lse, do)
+    lib_err = max(_max_err(a, r) for a, r in zip(lib_grads, ref))
+    library_ms = _median_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                        retain_graph=True), runs=20)
+    del lib_out, lib_grads
+    bound = _bwd_bound(TRAIN_SHAPE)
     for key in ("dq", "dkv"):
-        res[key].update(ms=ms, plain_ms=plain_ms,
-                        shared="launches and ms are the K3+K4 pair's: one backward call "
-                               "launches both (delta included, no dbias, as the trainer calls it)")
-    log("kernels", time="flash_attention_bwd (K3+K4, delta, no dbias)", shape=TRAIN_SHAPE,
-        ms=ms, plain_ms=plain_ms, timing="median of 20 blocks of 10 calls")
+        res[key].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
+                        library_call="torch.autograd.grad of the SDPA call above (its "
+                                     "memory-efficient f32 backward) for q, k, v",
+                        shared="one fused kernel computes K3's and K4's outputs: launches "
+                               "and ms are the one kernel's (delta included, no dbias, as "
+                               "the trainer calls it)")
+    log("kernels", time="flash_attention_bwd (fused K3+K4, delta, no dbias)", shape=TRAIN_SHAPE,
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
+        library="SDPA EFFICIENT_ATTENTION f32 backward", library_max_abs_err_vs_plain=lib_err,
+        timing="median of 20 blocks of 10 calls")
     return res
 
 
@@ -274,10 +374,26 @@ def check_adamw(dev):
     scal = fused.scalars(grads, sf["count"])
     ms = _median_ms(lambda: aw.fused_adamw_(leaves, scal), runs=20, calls=5)
     plain_ms = _median_ms(lambda: plain._update(leaves, scal), runs=20, calls=5)
+    # the yardstick: torch's fused AdamW over the same leaves, the clip
+    # coefficient min(1, clip / gnorm) passed as grad_scale = 1 / coefficient
+    ps, ms_, vs, gs = (list(t) for t in zip(*leaves))
+    steps = [torch.zeros((), device=dev) for _ in leaves]
+    grad_scale = torch.clamp(scal[0] / fused.grad_clip, min=1.0).reshape(())
+    library_ms = _median_ms(lambda: torch._fused_adamw_(
+        ps, gs, ms_, vs, [], steps, lr=2e-4, beta1=fused.b1, beta2=fused.b2,
+        weight_decay=fused.weight_decay, eps=fused.eps, amsgrad=False, maximize=False,
+        grad_scale=grad_scale, found_inf=None), runs=20, calls=5)
+    bound = _bound(4 * 7 * n_params, ADAMW_FLOP * n_params)  # p, g, m, v in; p, m, v out
     log("kernels", check="adamw", params=n_params, leaves=len(leaves), steps=3,
-        bit_identical=True, ms=ms, plain_ms=plain_ms,
+        bit_identical=True, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
         timing="median of 20 blocks of 5 updates (fixed scalars)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "torch._fused_adamw_ over the same leaves, grad_scale = "
+                            "1 / clip coefficient; a yardstick, not a reference: it decays "
+                            "p by (1 - lr wd) before the moment update and divides the "
+                            "gradient by grad_scale, where K1 clips by multiplying, adds "
+                            "wd p to the update and folds lr in last",
+            **bound}
 
 
 def synthetic_corpus(n, rng):
@@ -551,7 +667,7 @@ def main() -> int:
     from ultrafnd_git_tpu_torch.utils.transfer import export_trained
 
     (REPO / "build").mkdir(exist_ok=True)
-    phase_build()
+    ptxas = phase_build()
     flash = check_flash(dev)
     k1 = check_adamw(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as root:
@@ -561,22 +677,29 @@ def main() -> int:
         export_trained(str(Path(root) / "run"), "best", str(served), str(seeded))
         serve_fwd = phase_serve(str(served), corpus)
 
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
+    if loaded:
+        raise RuntimeError(f"the run loaded modules of jax or the JAX package: {loaded[:10]}")
     src = "ultrafnd_git_tpu_torch/csrc/"
     ref = "ultrafnd_git_tpu/kernels/"
     paths = lambda train_n, serve_n: {"train": train_n, "serve": serve_n}  # noqa: E731
     print(json.dumps({"kernels": [
         {"name": "adamw", "route": "cuda", "source": src + "adamw.cu",
          "replaces": ref + "adamw.py:114", "launches": train["adamw"],
-         "launches_by_path": paths(train["adamw"], 0), **k1},
+         "launches_by_path": paths(train["adamw"], 0), **k1, "ptxas": ptxas["adamw"]},
         {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
          "replaces": ref + "flash_attention.py:162", "launches": train["fwd"] + serve_fwd,
-         "launches_by_path": paths(train["fwd"], serve_fwd), **flash["fwd"]},
+         "launches_by_path": paths(train["fwd"], serve_fwd), **flash["fwd"],
+         "ptxas": ptxas["flash_attention_fwd"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:379",
-         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dq"]},
+         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dq"],
+         "ptxas": ptxas["flash_attention_bwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:412",
-         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dkv"]},
+         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dkv"],
+         "ptxas": ptxas["flash_attention_bwd"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -106,8 +106,8 @@ def test_multi_chunk_request(exported, records, jax_rows):
 
 
 def test_predict_cli_loads_no_jax(exported, tmp_path):
-    """The port imports no jax: a fresh process runs the predict CLI on
-    the CPU and then checks sys.modules."""
+    """The port imports no jax and nothing of the JAX package: a fresh
+    process runs the predict CLI on the CPU and then checks sys.modules."""
     out = tmp_path / "preds.jsonl"
     code = (
         "import sys\n"
@@ -115,7 +115,7 @@ def test_predict_cli_loads_no_jax(exported, tmp_path):
         f"main(['--model_dir', {exported!r}, '--input', {str(FIXTURE)!r},"
         f" '--output', {str(out)!r}, '--device', 'cpu', '--batch_size', '16'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "('ultrafnd_git_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
     )
@@ -221,6 +221,7 @@ def test_featurizer_matches_jax_cache_builder(records, salt):
     from ultrafnd_git_tpu.data.cache import build_feature_cache, make_encoders
     from ultrafnd_git_tpu.ops.hashing import get_hash_salt, set_hash_salt
     from ultrafnd_git_tpu_torch.data.featurize import featurize_records
+    from ultrafnd_git_tpu_torch.ops import hashing as port_hashing
 
     recs = records[:24] + [{}, {"title": "", "comments": None}]
 
@@ -234,14 +235,16 @@ def test_featurizer_matches_jax_cache_builder(records, salt):
                     "title": r.get("title") or "", "ocr": r.get("ocr") or "",
                     "comments": list(r.get("comments") or []), "label": 0}
 
-    prev = get_hash_salt()
+    prev = get_hash_salt(), port_hashing.get_hash_salt()
     try:
-        set_hash_salt(salt)
+        set_hash_salt(salt)  # each package keeps its own process-wide salt
+        port_hashing.set_hash_salt(salt)
         ref = build_feature_cache(Raw(), encoders=make_encoders(seed=0, with_evidence=False),
                                   with_evidence=False, with_align=False)
         ours = featurize_records(recs)
     finally:
-        set_hash_salt(prev)
+        set_hash_salt(prev[0])
+        port_hashing.set_hash_salt(prev[1])
     assert list(ours["ids"]) == list(ref["ids"])
     for key in ("text", "audio", "visual", "emo", "text_ids", "text_mask"):
         np.testing.assert_array_equal(ours[key], ref[key], err_msg=key)

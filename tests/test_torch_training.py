@@ -216,7 +216,7 @@ def _copy_run(fitted, tmp_path):
 def cli_run(fitted, model_dir, tmp_path_factory):
     """The training CLI in a fresh process on the CPU: --resume trains the
     second epoch of a copy of the fitted run, tests it and exports it; then
-    the process lists the jax modules it loaded."""
+    the process lists the modules of jax and of the JAX package it loaded."""
     tmp = tmp_path_factory.mktemp("cli")
     run = _copy_run(fitted, tmp)
     code = (
@@ -227,7 +227,7 @@ def cli_run(fitted, model_dir, tmp_path_factory):
         " '--text_tower_depth', '1', '--text_tower_heads', '4', '--fused_adamw',"
         f" '--device', 'cpu', '--export_model_dir', {str(tmp / 'm')!r}])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "('ultrafnd_git_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n"
     )

@@ -15,6 +15,7 @@ from ultrafnd_git_tpu.models.transformer import (
     hash_tokenize_batch as jax_hash_tokenize_batch,
 )
 from ultrafnd_git_tpu.ops.hashing import get_hash_salt, set_hash_salt
+from ultrafnd_git_tpu_torch.ops import hashing as port_hashing
 from ultrafnd_git_tpu_torch.models.transformer import (
     TextTransformer,
     hash_tokenize_batch,
@@ -33,15 +34,17 @@ TEXTS = [
 
 @pytest.mark.parametrize("salt", ["", "other-salt"])
 def test_hash_tokenize_ids_identical(salt):
-    prev = get_hash_salt()
+    prev = get_hash_salt(), port_hashing.get_hash_salt()
     try:
-        set_hash_salt(salt)
+        set_hash_salt(salt)  # each package keeps its own process-wide salt
+        port_hashing.set_hash_salt(salt)
         ours = hash_tokenize_batch(TEXTS, 64, 32768)
         ref = jax_hash_tokenize_batch(TEXTS, 64, 32768)
         pinned = hash_tokenize_batch(TEXTS, 64, 32768, salt="pinned")
         ref_pinned = jax_hash_tokenize_batch(TEXTS, 64, 32768, salt="pinned")
     finally:
-        set_hash_salt(prev)
+        set_hash_salt(prev[0])
+        port_hashing.set_hash_salt(prev[1])
     for a, b in ((ours, ref), (pinned, ref_pinned)):
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])

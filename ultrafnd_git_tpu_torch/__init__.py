@@ -3,5 +3,8 @@
 Serves a `--train_text_tower` checkpoint exported from the JAX package
 (`scripts/export_torch_model.py`) through `serving.Predictor`, with the
 tower's attention on the hand-written Hopper kernel in
-`csrc/flash_attention_fwd.cu`. Imports torch, never jax.
+`csrc/flash_attention_fwd.cu`, and trains one (`train.py`). Imports torch,
+never jax, and nothing of the JAX package `ultrafnd_git_tpu`: the host
+ops it shares with it (hashing, OCR tokens, the Jaccard graph, the C++
+host ops in `native/`) are its own copies.
 """

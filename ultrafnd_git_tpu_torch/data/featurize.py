@@ -12,10 +12,10 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
-from ultrafnd_git_tpu.data.ocr import ocr_sets_for_records
-from ultrafnd_git_tpu.ops.hashing import hash_embed_batch
 from ultrafnd_git_tpu_torch.data.cache import EMO_TERMS, TOWER_IDS_LEN, TOWER_VOCAB
+from ultrafnd_git_tpu_torch.data.ocr import ocr_sets_for_records
 from ultrafnd_git_tpu_torch.models.transformer import hash_tokenize_batch
+from ultrafnd_git_tpu_torch.ops.hashing import hash_embed_batch
 
 TEXT_DIM, AUDIO_DIM, VISUAL_DIM = 768, 128, 512
 
@@ -60,7 +60,8 @@ def featurize_records(
     ids, text (N,768), audio (N,128), visual (N,512), emo (N,), ocr_sets,
     and text_ids / text_mask (N,64) when `with_tower_tokens`.
 
-    Hashing follows the process-wide salt: the caller sets it first.
+    Hashing follows the port's process-wide salt (`ops.hashing.set_hash_salt`):
+    the caller sets it first.
     """
     recs = [
         {

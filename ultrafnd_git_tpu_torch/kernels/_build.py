@@ -5,14 +5,16 @@ shared library with a plain C interface. Libraries go to
 `build/torch_kernels/` at the repository root, keyed by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
 loads at once. The build runs at a kernel's first launch, never at
-import. Nothing here falls back: a missing nvcc or a failed compile
-raises.
+import. ptxas reports each kernel's registers, spills and shared memory
+(`-Xptxas -v`); the report is kept beside the library (`ptxas_report`).
+Nothing here falls back: a missing nvcc or a failed compile raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -68,8 +70,31 @@ def build(name: str) -> Path:
             f"nvcc failed building {name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)  # a concurrent build never loads a partial file
     return so
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """{kernel symbol: {"registers", "spill_stores", "spill_loads"}} from
+    the ptxas report of the built `csrc/<name>.cu`."""
+    report: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in build(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

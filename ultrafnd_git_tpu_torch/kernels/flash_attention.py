@@ -12,7 +12,9 @@ gradient). It is a `torch.autograd.Function` with
 * backward `flash_attention_bwd(q, k, v, bias, out, lse, do) -> (dq, dk,
   dv, dbias)`, the counterpart of `_pallas_backward` (kernels
   `_make_bwd_dq_kernel`, K3, and `_make_bwd_dkv_kernel`, K4): on a CUDA
-  tensor it launches `csrc/flash_attention_bwd.cu`.
+  tensor it launches `csrc/flash_attention_bwd.cu`, one pass on the
+  tensor cores (3xTF32) that computes delta, dQ, dK, dV and the dbias
+  partials together.
 
 Both build with nvcc for sm_90a at first use (`_build.py`) and raise on a
 failed build or launch; they never fall back. On a CPU tensor they run the
@@ -24,7 +26,7 @@ note in `csrc/flash_attention_bwd.cu`); rows with a valid key agree with
 autograd of a softmax.
 
 `launches` counts forward kernel launches and `bwd_launches` backward
-launches (one per backward call, K3 and K4 together), and nothing else, so
+launches (one per backward call, K3 and K4 fused), and nothing else, so
 a run can show that its path went through the kernels; the CPU path
 leaves both unchanged. Under `torch.inference_mode()` only K2 runs.
 """
@@ -41,12 +43,11 @@ from ultrafnd_git_tpu_torch.kernels import _build
 NEG_INF = -1e9
 HEAD_DIMS = (64, 128, 192, 256)  # the kernel's compiled head widths
 
-BWD_BLOCK_Q = 64  # K3's query tile: rows of the per-CTA dbias partials
-
 launches = 0  # K2 launches since import (or since a caller reset it)
-bwd_launches = 0  # K3 + K4 launches, one per backward call
+bwd_launches = 0  # backward (K3 + K4 fused) launches, one per call
 _lib = None
 _bwd_lib = None
+_bwd_block_keys = None
 
 
 def _scale(dim: int) -> float:
@@ -114,7 +115,7 @@ def _kernel():
 
 
 def _bwd_kernel():
-    global _bwd_lib
+    global _bwd_lib, _bwd_block_keys
     if _bwd_lib is None:
         lib = _build.load("flash_attention_bwd")
         fn = lib.ufnd_flash_attention_bwd_f32
@@ -123,7 +124,9 @@ def _bwd_kernel():
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _bwd_lib = fn
+        keys = lib.ufnd_flash_attention_bwd_block_keys
+        keys.argtypes, keys.restype = [ctypes.c_int], ctypes.c_int
+        _bwd_lib, _bwd_block_keys = fn, keys
     return _bwd_lib
 
 
@@ -217,12 +220,15 @@ def flash_attention_bwd(
     """(dq, dk, dv, dbias) of attention, given the forward's out and lse.
 
     Same operands as `flash_attention_fwd` plus out and dO (B, H, S, D) and
-    lse (B, H, S), all float32. A CUDA call computes delta = rowsum(dO * O)
-    with torch, launches K3 then K4 on the current stream and adds one to
-    `bwd_launches`; it raises on a shape, dtype, layout or launch it cannot
-    take. dbias (B, 1, 1, S) is the sum of the per-CTA partials over heads
-    and query tiles, in a fixed order; `with_dbias=False` skips it and
-    returns None. A CPU call returns `attention_bwd_reference`.
+    lse (B, H, S), all float32. A CUDA call launches the fused backward
+    once on the current stream (delta = rowsum(dO * O) is computed in it)
+    and adds one to `bwd_launches`; it raises on a shape, dtype, layout or
+    launch it cannot take. dbias (B, 1, 1, S) is the kernel's per-(b, h)
+    partials summed over heads; when S exceeds the kernel's key block, dq
+    is its per-key-block partials summed; both sums are torch reductions
+    in a fixed order, so two calls give the same bits. `with_dbias=False`
+    skips dbias and returns None. A CPU call returns
+    `attention_bwd_reference`.
     """
     if q.device.type == "cpu":
         dq, dk, dv, dbias = attention_bwd_reference(q, k, v, bias, out, lse, do)
@@ -231,19 +237,20 @@ def flash_attention_bwd(
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     _check(q, k, v, bias, out, do)
     b, h, s, d = q.shape
-    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
         raise ValueError(f"lse must be contiguous f32 {(b, h, s)}, got {tuple(lse.shape)}")
-    delta = (do * out).sum(dim=-1)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    part = None
-    if with_dbias:
-        nq = -(-s // BWD_BLOCK_Q)
-        part = torch.empty((b * h, nq, s), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel()
+    key_blocks = -(-s // _bwd_block_keys(d))
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    # dq, or one dq slab per key block when S spans several
+    dq = torch.empty((key_blocks, *q.shape) if key_blocks > 1 else q.shape,
+                     dtype=torch.float32, device=q.device)
+    part = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_dbias else None
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            out.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             part.data_ptr() if part is not None else None,
             b, h, s, d, _scale(d),
@@ -256,14 +263,14 @@ def flash_attention_bwd(
         )
     global bwd_launches
     bwd_launches += 1
-    dbias = None
-    if part is not None:
-        dbias = part.view(b, h * part.shape[1], s).sum(dim=1).view(b, 1, 1, s)
+    if key_blocks > 1:
+        dq = dq.sum(dim=0)
+    dbias = part.sum(dim=1).view(b, 1, 1, s) if part is not None else None
     return dq, dk, dv, dbias
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K2 forward, K3 + K4 backward (their plain versions on the CPU)."""
+    """K2 forward, the fused K3 + K4 backward (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
@@ -291,8 +298,8 @@ def flash_attention(
 
     The entry the text tower calls. On a CUDA tensor, with or without
     grad, it goes through the autograd Function: the forward launches K2,
-    a backward launches K3 and K4. On a CPU tensor the same Function runs
-    the plain versions. bias (B, 1, 1, S) gets a gradient only when it
+    a backward launches the fused K3 + K4 kernel. On a CPU tensor the same
+    Function runs the plain versions. bias (B, 1, 1, S) gets a gradient only when it
     requires one (the trainer's mask bias does not).
     """
     if bias is None:

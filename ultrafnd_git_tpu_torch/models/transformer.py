@@ -20,12 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ultrafnd_git_tpu.ops.hashing import basis_for_salt, fnv1a_64
 from ultrafnd_git_tpu_torch.kernels.flash_attention import (
     flash_attention,
     padding_bias,
 )
 from ultrafnd_git_tpu_torch.models.dropout import dropout
+from ultrafnd_git_tpu_torch.ops.hashing import basis_for_salt, fnv1a_64
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon (torch defaults to 1e-5)
 

@@ -1,8 +1,8 @@
 """Corpus graph context (counterpart of `ops/graphctx.py:20-53`), numpy only.
 
 The same compact node features and normalised OCR-Jaccard graph the JAX
-trainer built the checkpoint on; the graph itself comes from the shared
-host builder `ultrafnd_git_tpu.ops.jaccard.build_adj_from_ocr`.
+trainer built the checkpoint on; the graph itself comes from the port's
+host builder `ops.jaccard.build_adj_from_ocr`.
 """
 from __future__ import annotations
 
@@ -11,8 +11,8 @@ from typing import Any, Dict
 
 import numpy as np
 
-from ultrafnd_git_tpu.ops.jaccard import build_adj_from_ocr
 from ultrafnd_git_tpu_torch.models.gnn import normalize_adjacency
+from ultrafnd_git_tpu_torch.ops.jaccard import build_adj_from_ocr
 
 # Compact per-modality slice widths: text 192 || audio 32 || visual 128 ||
 # temporal 64 = 416.

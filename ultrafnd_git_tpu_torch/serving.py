@@ -29,7 +29,6 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ultrafnd_git_tpu.ops.hashing import set_hash_salt
 from ultrafnd_git_tpu_torch.data.cache import load_cache
 from ultrafnd_git_tpu_torch.data.featurize import featurize_records
 from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
@@ -38,6 +37,7 @@ from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
 from ultrafnd_git_tpu_torch.models.temporal import TemporalAlignMLP, _pad_or_trunc
 from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
 from ultrafnd_git_tpu_torch.ops.graphctx import SLICES, build_graph_context
+from ultrafnd_git_tpu_torch.ops.hashing import set_hash_salt
 from ultrafnd_git_tpu_torch.utils.device import resolve_device
 
 MAX_CHUNK_ROWS = 4096  # largest dispatch chunk on an accelerator

@@ -2,11 +2,12 @@
 
 Input is the JAX `TrainState.params` tree as nested dicts of numpy arrays
 (`fusion`, `clf`, `gnn`, `text_tower`), or a gradient tree of the same
-structure, plus the temporal align MLP's variables. Dense kernels (in, out) become `Linear.weight` (out, in).
-Fusion, classifier and GCN go through the existing reference-layout
-functions of `ultrafnd_git_tpu.utils.torch_transfer`, whose keys the
-port's modules are named after. The module imports no jax: the caller
-converts arrays to numpy.
+structure, plus the temporal align MLP's variables. Dense kernels (in,
+out) become `Linear.weight` (out, in). Fusion, classifier and GCN map to
+the reference PyTorch layout (`fusion_/classifier_/gcn_state_dict_from_params`,
+the port's copies of the functions of the JAX package's
+`utils/torch_transfer.py`), whose keys the port's modules are named after.
+The caller converts arrays to numpy.
 
 A model directory holds `weights.pt` ({part: state_dict}, loadable with
 `torch.load(..., weights_only=True)`), `meta.json` (the checkpoint cfg
@@ -23,12 +24,6 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ultrafnd_git_tpu.utils.torch_transfer import (
-    classifier_state_dict_from_params,
-    fusion_state_dict_from_params,
-    gcn_state_dict_from_params,
-)
-
 StateDict = Dict[str, np.ndarray]
 
 
@@ -44,6 +39,60 @@ def _dense(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
 def _layer_norm(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
     out[f"{name}.weight"] = _f32(p["scale"])
     out[f"{name}.bias"] = _f32(p["bias"])
+
+
+def _coattn(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    for key, sub in (("q", "q"), ("k", "k"), ("v", "v"),
+                     ("evidence_proj.0", "evidence_in"), ("evidence_proj.2", "evidence_out")):
+        _dense(out, f"{name}.{key}", p[sub])
+
+
+def fusion_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
+    """Fusion params -> the reference `CrossModalTransformer` state dict,
+    with the zero-filled `semantic.{text,vision}_proj.0` entries (512 x 512,
+    CLIP-width constants) that only the reference's strict loader needs."""
+    out: StateDict = {}
+    for name in ("text_proj", "audio_proj", "visual_proj", "temporal_proj"):
+        _dense(out, name, params[name])
+    if "gnn_proj" in params:
+        _dense(out, "gnn_proj", params["gnn_proj"])
+    for name in ("semantic.text_proj.0", "semantic.vision_proj.0"):
+        out[f"{name}.weight"] = np.zeros((512, 512), dtype=np.float32)
+        out[f"{name}.bias"] = np.zeros((512,), dtype=np.float32)
+    for name in ("attn_tv", "attn_ta", "attn_vu"):
+        _coattn(out, name, params[name])
+    _dense(out, "fuse_mlp.0", params["fuse0"])
+    _dense(out, "fuse_mlp.3", params["fuse1"])
+    _dense(out, "classifier", params["head"])
+    return out
+
+
+def classifier_state_dict_from_params(params: Mapping[str, Any], tau: float = 10.0) -> StateDict:
+    """Classifier params -> the reference `DeepTruthClassifier` state dict:
+    the stacked forest (gates (T, K, F), thresholds (T, K), leaf logits
+    (T, 2^K, C)) split per tree and depth, `tau` per tree."""
+    out: StateDict = {"temperature": _f32(params["temperature"]).reshape(())}
+    _dense(out, "pre.0", params["pre0"])
+    _dense(out, "pre.3", params["pre1"])
+    node = params["node"]
+    gates, thresh, leaf = (_f32(node[k]) for k in ("gates", "thresh", "leaf_logits"))
+    trees, depth, _ = gates.shape
+    for t in range(trees):
+        out[f"node.trees.{t}.tau"] = np.asarray(tau, dtype=np.float32)
+        out[f"node.trees.{t}.leaf_logits"] = leaf[t]
+        for k in range(depth):
+            out[f"node.trees.{t}.gates.{k}"] = gates[t, k]
+            out[f"node.trees.{t}.thresh.{k}"] = thresh[t, k : k + 1]
+    _dense(out, "bypass", params["bypass"])
+    return out
+
+
+def gcn_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
+    """GCN params -> the reference `SimpleGCN` state dict."""
+    out: StateDict = {}
+    _dense(out, "lin1", params["lin1"])
+    _dense(out, "lin2", params["lin2"])
+    return out
 
 
 def tower_state_dict(params: Mapping[str, Any]) -> StateDict:
