@@ -11,17 +11,23 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      process per source, all started together;
   3. kernels — each kernel against its plain PyTorch version on the card at
      the shapes the training and serving paths give it (plus ragged S and
-     fully masked rows): K2 forward at atol = rtol 2e-5; the fused K3/K4
-     backward at atol = rtol 5e-4 and dq, dk, dv within 1e-5 of max|plain|,
+     fully masked rows): K2 forward at atol = rtol 2e-5 and out within 1e-5
+     of max|plain|, bit-identical over two calls; the fused K3/K4 backward
+     at atol = rtol 5e-4 and dq, dk, dv within 1e-5 of max|plain|,
      bit-identical over two calls; K1 (AdamW over the full-width parameter
-     tree, 3 steps) bit for bit. Each is timed (CUDA events, median of
-     blocks) against its plain version and against one PyTorch library call
-     that computes the same function (its yardstick, never called by the
-     port): SDPA's memory-efficient f32 kernels for K2 and for K3/K4's
-     backward, torch._fused_adamw_ for K1; each gets its bound, the larger
-     of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s
-     (H100 SXM data sheet), computed from this run's shapes; the ptxas
-     report (registers, spills) of every kernel is printed;
+     tree, 3 steps) bit for bit, no leaf on its scalar path. Each is timed
+     (CUDA events around blocks of calls that start behind a
+     torch.cuda._sleep lead, median of blocks) against its plain version
+     and against one PyTorch library call that computes the same function
+     (its yardstick, never called by the port): SDPA's memory-efficient f32
+     kernels for K2 and for K3/K4's backward, torch._fused_adamw_ for K1;
+     each gets its bound, the larger of its bytes over 3.35 TB/s and its
+     operations over the peak rate of their type (H100 SXM data sheet):
+     the flash kernels' products as the three TF32 products of 3xTF32 over
+     495 TFLOP/s, K1's f32 arithmetic over 67 TFLOP/s, computed from this
+     run's shapes. K1 and its library call are also timed with the host's
+     work included (no lead). K2 is swept over S and D (B * S = 16384);
+     the ptxas report (registers, spills) of every kernel is printed;
   4. train   — ForensicTrainer on a synthetic corpus of N = 5376 at full
      width (tower 768 x 2 layers x 6 heads, S = 64, vocab 32768, fusion
      512, GCN 416-256-128, classifier 512 with a 6 x 4 NODE forest),
@@ -64,8 +70,10 @@ REPEATS = 3  # each request is sent this many times; latency is the median
 TOL = dict(atol=2e-5, rtol=2e-5)  # K2: both sides full-f32 matmuls (TF32 off)
 BWD_TOL = dict(atol=5e-4, rtol=5e-4)  # K3/K4: the JAX suite's gradient tolerance
 BWD_REL = 1e-5  # K3/K4 dq, dk, dv: max|kernel - plain| / max|plain| (3xTF32 ~ f32)
+FWD_REL = 1e-5  # K2 out: max|kernel - plain| / max|plain| (3xTF32 ~ f32)
 MEM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, FLOP/s (data sheet)
+TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense, FLOP/s (data sheet)
 ADAMW_FLOP = 18  # f32 operations per parameter in csrc/adamw.cu's body (clipped step)
 PROB_ATOL = 1e-4  # GPU vs CPU-plain, each served value
 GRAD_RTOL = 1e-4  # GPU vs CPU-plain gradient, relative to each leaf's largest
@@ -88,6 +96,8 @@ BWD_SHAPES = (
     (4, 4, 100, 64),
     (4, 4, 512, 64),
 )
+SWEEP = ((128, 64), (128, 256), (128, 1024), (128, 2048), (64, 64), (64, 2048),
+         (192, 512), (256, 512))  # (D, S) of K2's sweep
 TOWER = dict(width=768, depth=2, heads=6, vocab_size=32768, max_len=64, gelu="tanh")
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "adamw")
 CJK_WORDS = ("外星人", "入侵", "地球", "警告", "辟谣", "谣言", "不实", "疫苗",
@@ -171,22 +181,42 @@ def _attention_inputs(shape, seed, dev):
     return q, k, v, do, mask
 
 
-def _median_ms(fn, runs=30, calls=10, warmup=5):
-    """Median over `runs` of the per-call time of `calls` back-to-back calls
-    (CUDA events around each block, so the device queue stays full)."""
+def _median_ms(fn, runs=30, calls=10, warmup=5, before_block=None, lead=True):
+    """Median over `runs` of the per-call time of `calls` back-to-back calls.
+
+    CUDA events around each block time device work, not Python dispatch:
+    each block starts behind a `torch.cuda._sleep` lead, so the host has
+    enqueued the whole block before the device reaches its first call. A
+    block whose start event had already completed when the enqueue ended
+    is run again with the lead doubled. `lead=False` times without it, for
+    a call of more launches than CUDA queues ahead (the launches then wait
+    for the device, so no lead can cover them): its time is then the host's
+    dispatch wherever that is the slower. `before_block` (not timed) runs
+    before each block."""
     import torch
 
     for _ in range(warmup):
         fn()
+    cycles = 1 << 20  # about 0.6 ms on an H100
     times = []
-    for _ in range(runs):
+    while len(times) < runs:
+        if before_block is not None:
+            before_block()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if lead:
+            torch.cuda._sleep(cycles)
         e0.record()
         for _ in range(calls):
             fn()
         e1.record()
+        started = lead and e0.query()  # the device reached the block before its enqueue ended
         e1.synchronize()
+        if started:
+            cycles *= 2
+            if cycles > 1 << 32:
+                raise RuntimeError(f"a lead of {cycles >> 1} cycles did not cover the enqueue")
+            continue
         times.append(e0.elapsed_time(e1) / calls)
     return statistics.median(times)
 
@@ -195,23 +225,25 @@ def _max_err(a, b) -> float:
     return (a - b).abs().max().item()
 
 
-def _bound(nbytes: float, flop: float) -> dict:
+def _bound(nbytes: float, flop: float, peak: float) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    f32 operations over the f32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / MEM_BPS, flop / F32_FLOPS
+    operations over `peak`, the rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / MEM_BPS, flop / peak
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flop": flop}
+            "bytes": nbytes, "flop": flop, "peak_flops": peak}
 
 
 def _fwd_bound(shape) -> dict:
-    b, h, s, d = shape  # q, k, v, bias in; out, lse out; products Q K^T, P V
-    return _bound(4 * (4 * b * h * s * d + b * s + b * h * s), 4 * b * h * s * s * d)
+    b, h, s, d = shape  # q, k, v, bias in; out, lse out; Q K^T and P V in 3xTF32
+    return _bound(4 * (4 * b * h * s * d + b * s + b * h * s), 3 * 4 * b * h * s * s * d,
+                  TF32_FLOPS)
 
 
 def _bwd_bound(shape) -> dict:
-    b, h, s, d = shape  # q, k, v, out, dO, lse, bias in; dq, dk, dv out; 5 products
-    return _bound(4 * (8 * b * h * s * d + b * h * s + b * s), 10 * b * h * s * s * d)
+    b, h, s, d = shape  # q, k, v, out, dO, lse, bias in; dq, dk, dv out; 5 products, 3xTF32
+    return _bound(4 * (8 * b * h * s * d + b * h * s + b * s), 3 * 10 * b * h * s * s * d,
+                  TF32_FLOPS)
 
 
 def _sdpa(q, k, v, bias):
@@ -238,15 +270,23 @@ def check_flash(dev):
             q, k, v, _, mask = _attention_inputs(shape, i, dev)
             bias = fa.padding_bias(mask)
             out, lse = fa.flash_attention_fwd(q, k, v, bias)
+            out2, lse2 = fa.flash_attention_fwd(q, k, v, bias)
             ref_out, ref_lse = fa.reference_attention(q, k, v, bias)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, ref_out, **TOL)
             torch.testing.assert_close(lse, ref_lse, **TOL)
-            if not torch.isfinite(out).all():
+            if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
                 raise RuntimeError(f"non-finite K2 output at {shape}")
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise RuntimeError(f"K2 differs between two calls at {shape}")
             err = max(_max_err(out, ref_out), _max_err(lse, ref_lse))
+            rel = _max_err(out, ref_out) / max(ref_out.abs().max().item(), 1e-30)
+            if not rel <= FWD_REL:
+                raise RuntimeError(f"K2 out at {shape}: {rel} of max|plain|")
             res["fwd"]["max_abs_err"] = max(res["fwd"]["max_abs_err"], err)
-            log("kernels", check="flash_attention_fwd", shape=shape, max_abs_err=err)
+            res["fwd"]["rel_err"] = max(res["fwd"].get("rel_err", 0.0), rel)
+            log("kernels", check="flash_attention_fwd", shape=shape, max_abs_err=err,
+                rel_err=rel, bit_identical_repeat=True)
         for i, shape in enumerate(BWD_SHAPES):
             q, k, v, do, mask = _attention_inputs(shape, 100 + i, dev)
             bias = fa.padding_bias(mask)
@@ -283,13 +323,14 @@ def check_flash(dev):
                  "library_ms": _median_ms(lambda: _sdpa(q, k, v, bias)), **_fwd_bound(shape)}
             log("kernels", time="flash_attention_fwd", shape=shape, **t,
                 library="SDPA EFFICIENT_ATTENTION f32", library_max_abs_err_vs_plain=lib_err,
-                timing="median of 30 blocks of 10 calls")
+                timing="median of 30 blocks of 10 calls behind a sleep lead")
             if key == "serve":
                 res["fwd"].update(t)
             else:
                 res["fwd"]["train_shape"] = {"shape": list(shape), **t}
         res["fwd"]["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(q, k, v, "
                                       "attn_mask=bias) under sdpa_kernel(EFFICIENT_ATTENTION), f32")
+        res["fwd"]["sweep"] = sweep_flash(dev)
 
         q, k, v, do, mask = _attention_inputs(TRAIN_SHAPE, 98, dev)
         bias = fa.padding_bias(mask)
@@ -319,6 +360,31 @@ def check_flash(dev):
         library="SDPA EFFICIENT_ATTENTION f32 backward", library_max_abs_err_vs_plain=lib_err,
         timing="median of 20 blocks of 10 calls")
     return res
+
+
+def sweep_flash(dev):
+    """K2 across S at B x 6 heads with B * S = 16384: kernel, plain and
+    SDPA ms at D = 128 (S = 64 ... 2048), D = 64 (S = 64, 2048) and the
+    wide heads (D = 192, 256 at S = 512)."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+
+    rows = []
+    with torch.no_grad():
+        for d, s in SWEEP:
+            shape = (16384 // s, 6, s, d)
+            q, k, v, _, mask = _attention_inputs(shape, s + d, dev)
+            bias = fa.padding_bias(mask)
+            row = {"shape": list(shape),
+                   "ms": _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), runs=10),
+                   "plain_ms": _median_ms(lambda: fa.reference_attention(q, k, v, bias), runs=10),
+                   "library_ms": _median_ms(lambda: _sdpa(q, k, v, bias), runs=10)}
+            row.update((key, _fwd_bound(shape)[key]) for key in ("bound_ms", "bound_by"))
+            log("kernels", sweep="flash_attention_fwd", **row)
+            rows.append(row)
+            del q, k, v, mask, bias
+    return rows
 
 
 def full_width_params(dev):
@@ -354,12 +420,15 @@ def check_adamw(dev):
     sf, sp = fused.init(params), plain.init(plain_params)
     g = torch.Generator(device=dev).manual_seed(4)
     max_err = 0.0
+    scalar_before = aw.scalar_leaves
     for step in range(3):  # the first step is under the clip, the others over
         grads = {part: {n: torch.randn(p.shape, generator=g, device=dev) * (1e-4 + 1e-3 * step)
                         for n, p in m.named_parameters()} for part, m in params.items()}
         fused.apply(params, sf, grads)
         plain.apply(plain_params, sp, grads)
     torch.cuda.synchronize()
+    if aw.scalar_leaves != scalar_before:
+        raise RuntimeError("K1 sent a leaf of the full-width tree down its scalar path")
     n_params = 0
     for part, mod in params.items():
         for n, p in mod.named_parameters():
@@ -373,23 +442,39 @@ def check_adamw(dev):
     leaves = fused._leaves(params, sf, grads)
     scal = fused.scalars(grads, sf["count"])
     ms = _median_ms(lambda: aw.fused_adamw_(leaves, scal), runs=20, calls=5)
-    plain_ms = _median_ms(lambda: plain._update(leaves, scal), runs=20, calls=5)
+    # with the host's work per call (checks of 564 tensors, the launch) included
+    ms_host = _median_ms(lambda: aw.fused_adamw_(leaves, scal), runs=20, calls=5, lead=False)
+    # about 2,100 small launches a call: more than CUDA queues ahead, so no lead
+    plain_ms = _median_ms(lambda: plain._update(leaves, scal), runs=20, calls=5, lead=False)
     # the yardstick: torch's fused AdamW over the same leaves, the clip
     # coefficient min(1, clip / gnorm) passed as grad_scale = 1 / coefficient
     ps, ms_, vs, gs = (list(t) for t in zip(*leaves))
-    steps = [torch.zeros((), device=dev) for _ in leaves]
+    # the raw op does not count steps (torch.optim adds 1 before it): step 1,
+    # the bias correction of K1's first step; a step of 0 divides by zero
+    steps = [torch.ones((), device=dev) for _ in leaves]
     grad_scale = torch.clamp(scal[0] / fused.grad_clip, min=1.0).reshape(())
-    library_ms = _median_ms(lambda: torch._fused_adamw_(
+    # it writes the unscaled grads back: restore them before each block (untimed)
+    saved = [t.clone() for t in gs]
+    library = lambda: torch._fused_adamw_(  # noqa: E731
         ps, gs, ms_, vs, [], steps, lr=2e-4, beta1=fused.b1, beta2=fused.b2,
         weight_decay=fused.weight_decay, eps=fused.eps, amsgrad=False, maximize=False,
-        grad_scale=grad_scale, found_inf=None), runs=20, calls=5)
-    bound = _bound(4 * 7 * n_params, ADAMW_FLOP * n_params)  # p, g, m, v in; p, m, v out
+        grad_scale=grad_scale, found_inf=None)
+    restore = lambda: torch._foreach_copy_(gs, saved)  # noqa: E731
+    library_ms = _median_ms(library, runs=20, calls=5, before_block=restore)
+    library_ms_host = _median_ms(library, runs=20, calls=5, before_block=restore, lead=False)
+    del saved
+    # p, g, m, v in; p, m, v out; f32 arithmetic
+    bound = _bound(4 * 7 * n_params, ADAMW_FLOP * n_params, F32_FLOPS)
     log("kernels", check="adamw", params=n_params, leaves=len(leaves), steps=3,
-        bit_identical=True, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound,
-        timing="median of 20 blocks of 5 updates (fixed scalars)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        bit_identical=True, scalar_leaves=0, ms=ms, ms_host_included=ms_host, plain_ms=plain_ms,
+        library_ms=library_ms, library_ms_host_included=library_ms_host, **bound,
+        timing="median of 20 blocks of 5 updates (fixed scalars) behind a sleep lead; "
+               "host_included and plain without one")
+    return {"max_abs_err": max_err, "ms": ms, "ms_host_included": ms_host, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_ms_host_included": library_ms_host,
             "library_call": "torch._fused_adamw_ over the same leaves, grad_scale = "
-                            "1 / clip coefficient; a yardstick, not a reference: it decays "
+                            "1 / clip coefficient, the grads restored before each timed "
+                            "block; a yardstick, not a reference: it decays "
                             "p by (1 - lr wd) before the moment update and divides the "
                             "gradient by grad_scale, where K1 clips by multiplying, adds "
                             "wd p to the update and folds lr in last",

@@ -138,3 +138,14 @@ def test_kernel_route_rejects_what_it_cannot_take():
     p = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="no AdamW kernel"):
         aw.fused_adamw_([(p, p, p, p)], torch.zeros(16, device="meta"))
+
+
+@pytest.mark.parametrize("numels", [[1, 3, 4, 4097], [4096, 8192, 1], [0, 5, 0, 12289]],
+                         ids=["odd", "whole_chunks", "empty_leaves"])
+def test_block_entries_cover_every_chunk_once(numels):
+    """K1's per-block table: each leaf's ceil(numel / chunk) chunks, in leaf
+    order, each named once as (leaf << 32) | chunk."""
+    chunk = 4096
+    entries = aw.block_entries(numels, chunk)
+    want = [(leaf << 32) | c for leaf, n in enumerate(numels) for c in range(-(-n // chunk))]
+    assert entries.dtype == np.int64 and entries.tolist() == want

@@ -6,7 +6,8 @@ torch.cuda is unavailable. The file imports no jax, so it also runs on a
 GPU machine without it:
     python -m pytest --noconftest -o addopts="" tests/test_torch_gpu.py -q
 Tolerances: forward kernel atol = rtol = 2e-5 (both sides full-f32
-matmuls, TF32 off); the fused backward atol = rtol = 5e-4 (the JAX suite's
+matmuls, TF32 off) and out within 1e-5 of the plain version's largest
+value (3xTF32 on the tensor cores); the fused backward atol = rtol = 5e-4 (the JAX suite's
 gradient tolerance) and dq, dk, dv within 1e-5 of the plain version's
 largest value (3xTF32 on the tensor cores keeps about f32 accuracy);
 AdamW kernel bit-identical (torch.equal); tower atol
@@ -56,6 +57,37 @@ def test_flash_kernel_matches_plain_version(cuda, shape):
         ref_out, ref_lse = fa.reference_attention(q, k, v, bias)
     torch.testing.assert_close(out, ref_out, **TOL)
     torch.testing.assert_close(lse, ref_lse, **TOL)
+
+
+@pytest.mark.parametrize("s", [1, 64, 100, 2048])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_flash_fwd_every_width(cuda, d, s):
+    """The tensor-core forward at every head width, S from 1 to 2048 (one
+    or many key tiles, ragged tiles), a fully masked row: within 2e-5 of
+    the plain version and out within 1e-5 of its largest value (3xTF32
+    keeps about f32 accuracy), two calls bit for bit."""
+    b, h = (2, 2) if s > 100 else (3, 4)
+    rng = np.random.default_rng(d + s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = 0  # a fully masked row
+    mask = torch.from_numpy((np.arange(s)[None] < lengths[:, None]).astype(np.float32))
+    bias = fa.padding_bias(mask.to(cuda))
+    with torch.no_grad():
+        before = fa.launches
+        out, lse = fa.flash_attention_fwd(q, k, v, bias)
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 2
+        ref_out, ref_lse = fa.reference_attention(q, k, v, bias)
+    torch.testing.assert_close(out, ref_out, **TOL)
+    torch.testing.assert_close(lse, ref_lse, **TOL)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    err, top = (out - ref_out).abs().max().item(), ref_out.abs().max().item()
+    assert err <= 1e-5 * top, (err, top)
+    # the fully masked batch: uniform softmax over the keys, lse = -1e9 + log S
+    torch.testing.assert_close(out[0], v[0].mean(dim=1, keepdim=True).expand_as(v[0]), **TOL)
 
 
 def test_tower_on_gpu_matches_cpu_and_launches_per_layer(cuda):
@@ -231,6 +263,38 @@ def test_fused_adamw_kernel_is_bit_identical_to_plain(cuda):
         assert torch.equal(a, b), n
         assert torch.equal(sf["mu"]["a"][n], sp["mu"]["a"][n]), n
         assert torch.equal(sf["nu"]["a"][n], sp["nu"]["a"][n]), n
+
+
+def test_fused_adamw_odd_unaligned_and_fresh_leaves(cuda):
+    """Leaves of 1, 3, 4 and 4097 elements (scalar tails), one whose p, m and
+    v are offset views (not 16-byte aligned: the kernel's scalar path, which
+    the wrapper counts), and grads that are fresh tensors each step (the
+    pointer table is sent again): bit-identical to the plain update."""
+    g = torch.Generator().manual_seed(1)
+    sizes = [1, 3, 4, 4097, 70001]
+    whole = [torch.randn(70002, generator=g).to(cuda), torch.zeros(70002, device=cuda),
+             (torch.rand(70002, generator=g) * 1e-4).to(cuda)]
+    fused = [  # p, m, v; the last leaf's are offset views (data_ptr % 16 == 4)
+        [torch.randn(n, generator=g).to(cuda) for n in sizes] + [whole[0][1:]],
+        [torch.zeros(n, device=cuda) for n in sizes] + [whole[1][1:]],
+        [(torch.rand(n, generator=g) * 1e-4).to(cuda) for n in sizes] + [whole[2][1:]],
+    ]
+    plain = [[t.clone() for t in col] for col in fused]
+    opt = aw.AdamW(lambda count: 2e-4 * 0.5 ** count, 1e-4, 5.0)
+    before, unaligned = aw.launches, aw.scalar_leaves
+    for step in range(3):
+        grads = [torch.randn(p.shape, generator=g).to(cuda) * (1e-3 + step) for p in plain[0]]
+        scal = opt.scalars({"a": dict(enumerate(grads))}, step)
+        aw.fused_adamw_(list(zip(*fused, grads)), scal)
+        for p, m, v, gr in zip(*plain, grads):
+            aw.adamw_reference_(p, m, v, gr, scal)
+    torch.cuda.synchronize()
+    assert aw.launches == before + 3
+    assert aw.scalar_leaves == unaligned + 3  # the offset leaf, once a step
+    for col_f, col_p in zip(fused, plain):
+        for i, (a, b) in enumerate(zip(col_f, col_p)):
+            assert torch.equal(a, b), i
+    assert torch.equal(whole[0][1:], plain[0][-1])  # updated in place through the view
 
 
 def test_tower_backward_on_gpu_matches_cpu(cuda):

@@ -3,11 +3,12 @@
 Each `csrc/<name>.cu` compiles with nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface. Libraries go to
 `build/torch_kernels/` at the repository root, keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads at once. The build runs at a kernel's first launch, never at
-import. ptxas reports each kernel's registers, spills and shared memory
-(`-Xptxas -v`); the report is kept beside the library (`ptxas_report`).
-Nothing here falls back: a missing nvcc or a failed compile raises.
+source, every shared header (`csrc/*.cuh`) and the flags, so an edited
+source or header rebuilds and an unchanged one loads at once. The build
+runs at a kernel's first launch, never at import. ptxas reports each
+kernel's registers, spills and shared memory (`-Xptxas -v`); the report
+is kept beside the library (`ptxas_report`). Nothing here falls back: a
+missing nvcc or a failed compile raises.
 """
 from __future__ import annotations
 
@@ -48,11 +49,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    """Where the library of `csrc/<name>.cu` goes: its name carries a hash
+    of the source, of every `csrc/*.cuh` (name and bytes) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -14,10 +14,13 @@ tensors runs as ONE multi-tensor launch of `csrc/adamw.cu` per step over
 every trainable leaf (a device table of p, m, v, g pointers), p, m and v
 updated in place, bit-identical to `AdamW` on the same grads. On CPU
 tensors it runs `adamw_reference_` per leaf. `launches` counts K1 launches
-and nothing else. The pointer table is kept on the device and sent again
-only when a pointer moves; it and the host scalars reach the device
-through pinned buffers and asynchronous copies, so a step enqueues K1
-without waiting for its backward to finish.
+and nothing else; `scalar_leaves` counts the leaves that a launch sent down
+the kernel's scalar path (some pointer of the leaf not 16-byte aligned).
+The device table (a row per leaf, then an entry per 4096-element block
+naming its leaf and chunk) is kept on the device and sent again only when a
+pointer moves; it and the host scalars reach the device through pinned
+buffers and asynchronous copies, so a step enqueues K1 without waiting for
+its backward to finish.
 
 Both keep their state as {"count": int, "mu": {part: {name: tensor}},
 "nu": ...} over the trainer's parameter dict {part: nn.Module}; parts named
@@ -41,8 +44,9 @@ from ultrafnd_git_tpu_torch.kernels import _build
 from ultrafnd_git_tpu_torch.utils.device import to_device
 
 launches = 0  # K1 launches since import (or since a caller reset it)
+scalar_leaves = 0  # leaves a launch sent down the scalar (unaligned) path
 _lib = None
-_table = (None, None)  # ((device, rows), device table) of the last launch
+_table = (None, None)  # ((device, rows), (device table, blocks)) of the last launch
 
 Tensors = Dict[str, Dict[str, torch.Tensor]]
 
@@ -154,6 +158,16 @@ class AdamW:
         return state
 
 
+def block_entries(numels, chunk: int) -> np.ndarray:
+    """K1's per-block entries, (leaf << 32) | chunk index, for leaves of
+    these sizes: ceil(numel / chunk) blocks per leaf, in leaf order."""
+    numel = np.asarray(numels, dtype=np.int64)
+    chunks = -(-numel // chunk)
+    first = np.cumsum(chunks) - chunks
+    leaf = np.repeat(np.arange(len(numel), dtype=np.int64), chunks)
+    return (leaf << 32) | (np.arange(chunks.sum(), dtype=np.int64) - first[leaf])
+
+
 def _kernel():
     global _lib
     if _lib is None:
@@ -180,7 +194,7 @@ def fused_adamw_(leaves: List[Tuple[torch.Tensor, ...]], scal: torch.Tensor) -> 
     if dev.type != "cuda":
         raise ValueError(f"no AdamW kernel for device {dev}")
     fn, chunk = _kernel()
-    rows, first = [], 0  # flat (p, m, v, g, numel, first block) per leaf
+    rows = []  # flat (p, m, v, g, numel, aligned) per leaf
     for leaf in leaves:
         n = leaf[0].numel()
         for t in leaf:
@@ -191,19 +205,21 @@ def fused_adamw_(leaves: List[Tuple[torch.Tensor, ...]], scal: torch.Tensor) -> 
                     f"on {dev}; got {t.dtype} {tuple(t.shape)} on {t.device} "
                     f"(contiguous={t.is_contiguous()}) beside {tuple(leaf[0].shape)}"
                 )
-        rows += (*(t.data_ptr() for t in leaf), n, first)
-        first += -(-n // chunk)
-    global _table
+        ptrs = [t.data_ptr() for t in leaf]
+        rows += (*ptrs, n, int(all(x % 16 == 0 for x in ptrs)))
+    global _table, launches, scalar_leaves
     if _table[0] != (dev, rows):  # p, m, v never move; grads mostly come back in place
-        _table = ((dev, rows), to_device(torch.tensor(rows, dtype=torch.int64), dev))
-    table = _table[1]
+        blocks = block_entries(rows[4::6], chunk)
+        host = torch.from_numpy(np.concatenate([np.array(rows, dtype=np.int64), blocks]))
+        _table = ((dev, rows), (to_device(host, dev), len(blocks)))
+    table, n_blocks = _table[1]
     with torch.cuda.device(dev):
-        err = fn(table.data_ptr(), len(leaves), first, scal.data_ptr(),
+        err = fn(table.data_ptr(), len(leaves), n_blocks, scal.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"AdamW kernel launch failed: cudaError {err}")
-    global launches
     launches += 1
+    scalar_leaves += len(leaves) - sum(rows[5::6])
 
 
 class FusedAdamW(AdamW):

@@ -8,7 +8,8 @@ gradient). It is a `torch.autograd.Function` with
 * forward `flash_attention_fwd(q, k, v, bias) -> (out, lse)`, the
   counterpart of `ultrafnd_git_tpu/kernels/flash_attention.py::
   _pallas_forward` (kernel `_make_fwd_kernel`, K2): on a CUDA tensor it
-  launches `csrc/flash_attention_fwd.cu`;
+  launches `csrc/flash_attention_fwd.cu`, products on the tensor cores
+  (3xTF32) with the online softmax in f32;
 * backward `flash_attention_bwd(q, k, v, bias, out, lse, do) -> (dq, dk,
   dv, dbias)`, the counterpart of `_pallas_backward` (kernels
   `_make_bwd_dq_kernel`, K3, and `_make_bwd_dkv_kernel`, K4): on a CUDA
