@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build, check and time its kernels, train
-a full-width text-tower model through them, then serve the trained model.
+a full-width text-tower model through them, then serve the trained model on
+every single-device lever (f32, bf16, int8), explain it, put it behind the
+HTTP server, and train and serve it again on the sparse graph layout.
 
     python3 chip_smoke.py
 
@@ -12,7 +14,10 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
   3. kernels — each kernel against its plain PyTorch version on the card at
      the shapes the training and serving paths give it (plus ragged S and
      fully masked rows): K2 forward at atol = rtol 2e-5 and out within 1e-5
-     of max|plain|, bit-identical over two calls; the fused K3/K4 backward
+     of max|plain|, bit-identical over two calls; K2's bf16 mode at the
+     serving buckets, D = 192, S = 100, 512 and 2048, out within 8e-3 of
+     max|plain| and lse within 1e-4, bit-identical over two calls; the fused
+     K3/K4 backward
      at atol = rtol 5e-4 and dq, dk, dv within 1e-5 of max|plain|,
      bit-identical over two calls; K1 (AdamW over the full-width parameter
      tree, 3 steps) bit for bit, no leaf on its scalar path. Each is timed
@@ -20,11 +25,14 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      torch.cuda._sleep lead, median of blocks) against its plain version
      and against one PyTorch library call that computes the same function
      (its yardstick, never called by the port): SDPA's memory-efficient f32
-     kernels for K2 and for K3/K4's backward, torch._fused_adamw_ for K1;
+     kernels for K2 and for K3/K4's backward, SDPA with bf16 inputs and the
+     same bias (the backend it picks, named) for K2's bf16 mode,
+     torch._fused_adamw_ for K1;
      each gets its bound, the larger of its bytes over 3.35 TB/s and its
      operations over the peak rate of their type (H100 SXM data sheet):
      the flash kernels' products as the three TF32 products of 3xTF32 over
-     495 TFLOP/s, K1's f32 arithmetic over 67 TFLOP/s, computed from this
+     495 TFLOP/s, K2-bf16's two bf16 products over 989 TFLOP/s, K1's f32
+     arithmetic over 67 TFLOP/s, computed from this
      run's shapes. K1 and its library call are also timed with the host's
      work included (no lead). K2 is swept over S and D (B * S = 16384);
      the ptxas report (registers, spills) of every kernel is printed;
@@ -38,10 +46,30 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      and on the CPU (plain versions) agree to 1e-4 of each leaf's largest;
   5. serve   — the trained `best` slot exported (align weights from the
      seeded model directory the cache came with) answers three predict()
-     requests (8, 64, 300 records, each sent three times after a warm-up);
-     K2 launches = depth x chunks; the CPU Predictor agrees within 1e-4;
-  6. a check that no module of jax or of the JAX package ultrafnd_git_tpu
-     was loaded, a JSON line of the kernels, then the JSON result line.
+     requests (8, 64, 300 records, each sent five times after a warm-up);
+     K2 launches = depth x chunks; the CPU Predictor agrees within 1e-4; the
+     device time of the 300-record request by kernel (torch.profiler);
+  6. serve_levers — the same requests through Predictor(bf16), (quantize)
+     and (bf16 + quantize): K2-bf16 launches = depth x chunks and f32 K2
+     none under bf16, the reverse under quantize alone; each within 5e-2 of
+     the f32 GPU rows with >= 90% of the labels, and within 2e-2 of its own
+     CPU run (1e-4 for quantize alone); median latencies and the device
+     time of the 300-record request;
+  7. explain — explain() of 8 records by "grad" (within 1e-4 of the CPU
+     Predictor's, of the largest attribution) and "shap" (kernel-shap rows
+     whose base + sum equals prob_fake within 1e-5);
+  8. http    — make_server on port 0 over the f32 GPU Predictor: 16 client
+     threads (in a process of their own, stopped with the phase) each send
+     8 one-record requests, then one 300-record request
+     and one /explain; rows within 1e-5 of direct predict(), fewer
+     dispatches than requests; p50 / p99 latency, records/s, records per
+     dispatch;
+  9. sparse  — phase 4 with --sparse_graph (the same launch counts, the
+     GPU-vs-CPU gradient at 1e-4, the median step beside the dense one),
+     then its model served through both graph layouts within 1e-5;
+ 10. a check that no module of jax or of the JAX package ultrafnd_git_tpu
+     was loaded (server threads included), a JSON line of the kernels, then
+     the JSON result line.
 The train phase also prints the device time of one steady train step by
 kernel (torch.profiler), the breakdown PERF.md keeps.
 """
@@ -66,7 +94,7 @@ N_CORPUS = 5376  # FakeSV scale
 OCR_VOCAB = 4096
 TOKENS_PER_DOC = 12
 REQUEST_SIZES = (8, 64, 300)  # 300 crosses the 256 bucket
-REPEATS = 3  # each request is sent this many times; latency is the median
+REPEATS = 5  # each request is sent this many times; latency is the median
 TOL = dict(atol=2e-5, rtol=2e-5)  # K2: both sides full-f32 matmuls (TF32 off)
 BWD_TOL = dict(atol=5e-4, rtol=5e-4)  # K3/K4: the JAX suite's gradient tolerance
 BWD_REL = 1e-5  # K3/K4 dq, dk, dv: max|kernel - plain| / max|plain| (3xTF32 ~ f32)
@@ -74,6 +102,9 @@ FWD_REL = 1e-5  # K2 out: max|kernel - plain| / max|plain| (3xTF32 ~ f32)
 MEM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, FLOP/s (data sheet)
 TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense, FLOP/s (data sheet)
+BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s (data sheet)
+BF16_REL = 8e-3  # K2-bf16 out: max|kernel - plain| / max|plain| (one bf16 ulp at the top)
+BF16_LSE = 1e-4  # K2-bf16 lse, atol = rtol
 ADAMW_FLOP = 18  # f32 operations per parameter in csrc/adamw.cu's body (clipped step)
 PROB_ATOL = 1e-4  # GPU vs CPU-plain, each served value
 GRAD_RTOL = 1e-4  # GPU vs CPU-plain gradient, relative to each leaf's largest
@@ -96,10 +127,22 @@ BWD_SHAPES = (
     (4, 4, 100, 64),
     (4, 4, 512, 64),
 )
+BF16_SHAPES = (
+    (64, 6, 64, 128), SERVING_SHAPE, TRAIN_SHAPE,  # the serving buckets
+    (8, 4, 64, 192),
+    (4, 4, 100, 64),
+    (4, 4, 512, 64),
+    (2, 4, 2048, 64),
+)
+LEVERS = ({"bf16": True}, {"quantize": True}, {"bf16": True, "quantize": True})
+LEVER_VS_F32 = 5e-2  # each lever's prob_fake against the f32 GPU rows
+LEVER_LABELS = 0.9  # share of labels a lever keeps
+LEVER_VS_CPU = 2e-2  # a bf16 lever's GPU rows against its own CPU run (1e-4 quantize alone)
+HTTP_CLIENTS, HTTP_PER_CLIENT = 16, 8
 SWEEP = ((128, 64), (128, 256), (128, 1024), (128, 2048), (64, 64), (64, 2048),
          (192, 512), (256, 512))  # (D, S) of K2's sweep
 TOWER = dict(width=768, depth=2, heads=6, vocab_size=32768, max_len=64, gelu="tanh")
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "adamw")
+KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd", "adamw")
 CJK_WORDS = ("外星人", "入侵", "地球", "警告", "辟谣", "谣言", "不实", "疫苗",
              "危险", "致命", "隐瞒", "专家", "证据", "科学", "视频", "记录")
 
@@ -155,7 +198,7 @@ def phase_build():
 
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         seconds = dict(zip(KERNELS, pool.map(timed, KERNELS)))
-    fa._kernel(), fa._bwd_kernel(), aw._kernel()  # load them with ctypes
+    fa._kernel(), fa._bf16_kernel(), fa._bwd_kernel(), aw._kernel()  # load them with ctypes
     ptxas = {}
     for name, s in seconds.items():
         log("build", kernel=name, seconds=s,
@@ -387,6 +430,87 @@ def sweep_flash(dev):
     return rows
 
 
+def _fwd_bf16_bound(shape) -> dict:
+    b, h, s, d = shape  # q, k, v, out bf16; bias bf16; lse f32; Q K^T and P V in bf16
+    return _bound(2 * (4 * b * h * s * d + b * s) + 4 * b * h * s, 4 * b * h * s * s * d,
+                  BF16_FLOPS)
+
+
+def _sdpa_bf16(q, k, v, bias):
+    """The library yardstick of K2's bf16 mode: SDPA with bf16 q, k, v and the
+    same additive bias, on whichever backend it picks."""
+    import torch
+
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+def _sdpa_backend(q, k, v, bias) -> str:
+    """The SDPA backend PyTorch picks for these inputs (its dispatcher's choice)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(int(torch._fused_sdp_choice(q, k, v, attn_mask=bias))).name
+    except Exception as exc:  # noqa: BLE001 - a label only, never a path of the port
+        return f"unknown ({type(exc).__name__})"
+
+
+def check_flash_bf16(dev):
+    """K2's bf16 mode against its plain twin (BF16_SHAPES, a fully masked row
+    in each), twice for bit identity; timed at the serving and training
+    shapes against the twin, its bound and SDPA in bf16."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+
+    res = {"max_abs_err": 0.0, "rel_err": 0.0, "lse_max_abs_err": 0.0}
+    with torch.no_grad():
+        for i, shape in enumerate(BF16_SHAPES):
+            q, k, v, _, mask = _attention_inputs(shape, 200 + i, dev)
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            bias = fa.padding_bias(mask, torch.bfloat16)
+            out, lse = fa.flash_attention_fwd_bf16(q, k, v, bias)
+            out2, lse2 = fa.flash_attention_fwd_bf16(q, k, v, bias)
+            ref_out, ref_lse = fa.reference_attention_bf16(q, k, v, bias)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
+                raise RuntimeError(f"non-finite K2-bf16 output at {shape}")
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise RuntimeError(f"K2-bf16 differs between two calls at {shape}")
+            err = _max_err(out.float(), ref_out.float())
+            rel = err / max(ref_out.float().abs().max().item(), 1e-30)
+            if not rel <= BF16_REL:
+                raise RuntimeError(f"K2-bf16 out at {shape}: {rel} of max|plain|")
+            torch.testing.assert_close(lse, ref_lse, atol=BF16_LSE, rtol=BF16_LSE)
+            lse_err = _max_err(lse, ref_lse)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["rel_err"] = max(res["rel_err"], rel)
+            res["lse_max_abs_err"] = max(res["lse_max_abs_err"], lse_err)
+            log("kernels", check="flash_attention_fwd_bf16", shape=shape, max_abs_err=err,
+                rel_err=rel, lse_max_abs_err=lse_err, bit_identical_repeat=True)
+        for key, shape, seed in (("serve", SERVING_SHAPE, 299), ("train", TRAIN_SHAPE, 297)):
+            q, k, v, _, mask = _attention_inputs(shape, seed, dev)
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            bias = fa.padding_bias(mask, torch.bfloat16)
+            backend = _sdpa_backend(q, k, v, bias)
+            lib_err = _max_err(_sdpa_bf16(q, k, v, bias).float(),
+                               fa.reference_attention_bf16(q, k, v, bias)[0].float())
+            t = {"ms": _median_ms(lambda: fa.flash_attention_fwd_bf16(q, k, v, bias)),
+                 "plain_ms": _median_ms(lambda: fa.reference_attention_bf16(q, k, v, bias)),
+                 "library_ms": _median_ms(lambda: _sdpa_bf16(q, k, v, bias)),
+                 **_fwd_bf16_bound(shape)}
+            log("kernels", time="flash_attention_fwd_bf16", shape=shape, **t,
+                library=f"SDPA bf16, backend {backend}", library_max_abs_err_vs_plain=lib_err,
+                timing="median of 30 blocks of 10 calls behind a sleep lead")
+            if key == "serve":
+                res.update(t, library_backend=backend)
+            else:
+                res["train_shape"] = {"shape": list(shape), "library_backend": backend, **t}
+    res["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+                           "attn_mask=bias) with bf16 q, k, v and bias, the backend it picks")
+    return res
+
+
 def full_width_params(dev):
     """The trainer's parameter tree at full width (about 52 M parameters)."""
     import torch
@@ -557,13 +681,13 @@ def build_model_dir(root):
     return corpus
 
 
-def _train_cfg(out_dir, model_dir):
+def _train_cfg(out_dir, model_dir, sparse_graph=False):
     from ultrafnd_git_tpu_torch.training.trainer import TrainConfig
 
     return TrainConfig(out_dir=str(out_dir), model_dir=str(model_dir),
                        batch_size=TRAIN_BATCH, epochs=1, seed=0, train_text_tower=True,
                        text_tower_depth=TOWER["depth"], text_tower_heads=TOWER["heads"],
-                       tower_gelu=TOWER["gelu"], fused_adamw=True)
+                       tower_gelu=TOWER["gelu"], fused_adamw=True, sparse_graph=sparse_graph)
 
 
 def _grad_gap(gpu, cpu):
@@ -614,17 +738,42 @@ def profile_step(trainer, median_step_ms, rows=12):
             device_ms=e.self_device_time_total / 1e3)
 
 
-def phase_train(dev, model_dir, out_dir):
+def profile_request(pred, recs, phase, label, rows=4):
+    """Device time of one request by kernel (torch.profiler) beside its wall
+    time (the profiler's host tracing lengthens the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s = time.perf_counter()
+        pred.predict(recs)
+        wall_ms = 1e3 * (time.perf_counter() - s)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]
+    log(phase, profile=label, request=len(recs), profiled_wall_ms=wall_ms,
+        device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+        top_kernels=json.dumps([[e.key[:70], e.count, e.self_device_time_total / 1e3]
+                                for e in top], ensure_ascii=False))
+
+
+def phase_train(dev, model_dir, out_dir, sparse_graph=False):
+    """fit() one epoch and test() on the card, launches counted; the profile
+    of a step (dense run only); the GPU-vs-CPU gradient. Returns {launches,
+    median_step_ms}."""
     import torch
 
     from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
     from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer
 
+    phase = "sparse" if sparse_graph else "train"
     t0 = time.perf_counter()
-    trainer = ForensicTrainer(_train_cfg(out_dir, model_dir), device="cuda")
-    log("train", init_s=time.perf_counter() - t0, corpus=trainer.n_total,
+    trainer = ForensicTrainer(_train_cfg(out_dir, model_dir, sparse_graph), device="cuda")
+    if sparse_graph and ("a_norm" in trainer.corpus or "nbr_idx" not in trainer.corpus):
+        raise RuntimeError("the --sparse_graph trainer did not build the neighbour lists alone")
+    log(phase, init_s=time.perf_counter() - t0, corpus=trainer.n_total,
         train_rows=len(trainer.tr_idx), val_rows=len(trainer.va_idx),
-        test_rows=len(trainer.te_idx), batch=TRAIN_BATCH)
+        test_rows=len(trainer.te_idx), batch=TRAIN_BATCH,
+        **({"neighbour_slots": int(trainer.corpus["nbr_idx"].shape[1])} if sparse_graph else {}))
     step_ms = []
     train_step = trainer.train_step
 
@@ -637,18 +786,20 @@ def phase_train(dev, model_dir, out_dir):
         return out
 
     trainer.train_step = timed_step
-    fa.launches = fa.bwd_launches = aw.launches = 0  # count only the main path's run
+    fa.launches = fa.bf16_launches = fa.bwd_launches = aw.launches = 0  # this path's run only
     t1 = time.perf_counter()
     trainer.fit()
     results = trainer.test()
     fit_test_s = time.perf_counter() - t1
-    launches = {"fwd": fa.launches, "bwd": fa.bwd_launches, "adamw": aw.launches}
+    launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches, "bwd": fa.bwd_launches,
+                "adamw": aw.launches}
     trainer.train_step = train_step
 
     steps = len(step_ms)
     chunks = sum(-(-len(s) // TRAIN_BATCH) for s in (trainer.va_idx, trainer.te_idx))
     depth = TOWER["depth"]
-    expect = {"fwd": depth * (steps + chunks), "bwd": depth * steps, "adamw": steps}
+    expect = {"fwd": depth * (steps + chunks), "fwd_bf16": 0, "bwd": depth * steps,
+              "adamw": steps}
     if steps != -(-len(trainer.tr_idx) // TRAIN_BATCH) or launches != expect:
         raise RuntimeError(f"launches {launches} over {steps} steps, expected {expect}")
     log_rows = [json.loads(ln) for ln in (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
@@ -659,17 +810,19 @@ def phase_train(dev, model_dir, out_dir):
         if not (Path(out_dir) / slot / "meta.json").exists():
             raise RuntimeError(f"fit() wrote no {slot} slot")
     later = step_ms[1:]
-    log("train", steps=steps, launches=json.dumps(launches, separators=(",", ":")),
+    median_step = statistics.median(later)
+    log(phase, steps=steps, launches=json.dumps(launches, separators=(",", ":")),
         expected=json.dumps(expect, separators=(",", ":")),
-        first_step_ms=step_ms[0], median_step_ms=statistics.median(later),
-        samples_per_s=TRAIN_BATCH * 1e3 / statistics.median(later),
+        first_step_ms=step_ms[0], median_step_ms=median_step,
+        samples_per_s=TRAIN_BATCH * 1e3 / median_step,
         fit_and_test_s=fit_test_s, losses=json.dumps([round(x, 6) for x in losses]),
         test_auc=results["test_auc"])
 
-    profile_step(trainer, statistics.median(later))
+    if not sparse_graph:
+        profile_step(trainer, median_step)
 
     t2 = time.perf_counter()
-    cfg = _train_cfg(Path(out_dir).parent / "cpu_run", model_dir)
+    cfg = _train_cfg(Path(out_dir).parent / f"cpu_{phase}", model_dir, sparse_graph)
     cfg.cache_to_disk = False
     cpu = ForensicTrainer(cfg, cache=trainer.cache, device="cpu")
     for part, mod in cpu.state.params.items():
@@ -677,35 +830,44 @@ def phase_train(dev, model_dir, out_dir):
     rel, leaf = _grad_gap(trainer, cpu)
     if not rel <= GRAD_RTOL:
         raise RuntimeError(f"GPU vs CPU-plain gradient of {leaf} differs by {rel} of its max")
-    log("train", gpu_vs_cpu_grad_max_rel=rel, worst_leaf=leaf, rows=64,
+    log(phase, gpu_vs_cpu_grad_max_rel=rel, worst_leaf=leaf, rows=64,
         check_s=time.perf_counter() - t2)
-    return launches
+    return {"launches": launches, "median_step_ms": median_step}
 
 
-def phase_serve(model_dir, corpus):
+def _timed_requests(pred, requests):
+    """Each request REPEATS times: (the last rows of each, median seconds of each)."""
+    rows, lat = [], []
+    for recs in requests:
+        times = []
+        for _ in range(REPEATS):
+            s = time.perf_counter()
+            out = pred.predict(recs)  # returns host floats: synchronised
+            times.append(time.perf_counter() - s)
+        rows.append(out)
+        lat.append(statistics.median(times))
+    return rows, lat
+
+
+def _values(rows_by_request, key="prob_fake"):
+    return np.concatenate([[r[key] for r in out] for out in rows_by_request])
+
+
+def phase_serve(model_dir, requests):
     from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
     from ultrafnd_git_tpu_torch.serving import FORENSIC_KEYS, Predictor
 
-    rng = np.random.default_rng(1)
-    requests = [synthetic_records(n, corpus, rng) for n in REQUEST_SIZES]
     t1 = time.perf_counter()
     gpu = Predictor(model_dir, device="cuda")
     gpu.warmup(max(REQUEST_SIZES))  # every bucket the requests use
     log("serve", predictor_init_and_warmup_s=time.perf_counter() - t1, corpus=N_CORPUS)
     try:
-        fa.launches = fa.bwd_launches = 0  # count only the main path's run below
-        rows, lat = [], []
-        for recs in requests:
-            times = []
-            for _ in range(REPEATS):
-                s = time.perf_counter()
-                out = gpu.predict(recs)  # returns host floats: synchronised
-                times.append(time.perf_counter() - s)
-            rows.append(out)
-            lat.append(statistics.median(times))
+        fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+        rows, lat = _timed_requests(gpu, requests)
         launches = fa.launches
-        if fa.bwd_launches:
-            raise RuntimeError("serving launched the backward kernels")
+        if fa.bwd_launches or fa.bf16_launches:
+            raise RuntimeError("f32 serving launched the backward or the bf16 kernel")
+        profile_request(gpu, requests[-1], "serve", "f32")
     finally:
         gpu.close()
     chunks = len(REQUEST_SIZES) * REPEATS  # a request is one GPU chunk (<= 4096 rows)
@@ -730,19 +892,227 @@ def phase_serve(model_dir, corpus):
         cpu.close()
     diffs = {}
     for key in ("prob_fake", *FORENSIC_KEYS):
-        gpu_v, cpu_v = (
-            np.concatenate([[r[key] for r in out] for out in rs])
-            for rs in (rows, cpu_rows)
-        )
-        diffs[key] = float(np.max(np.abs(gpu_v - cpu_v)))
+        diffs[key] = float(np.max(np.abs(_values(rows, key) - _values(cpu_rows, key))))
         if not diffs[key] <= PROB_ATOL:
             raise RuntimeError(f"GPU vs CPU-plain {key} differ by {diffs[key]}")
-    all_p = np.concatenate([[r["prob_fake"] for r in out] for out in rows])
+    all_p = _values(rows)
     log("serve", launches=launches, expected=expect,
         gpu_vs_cpu_max_abs=json.dumps(diffs, separators=(",", ":")),
         prob_min=float(all_p.min()), prob_max=float(all_p.max()),
         prob_std=float(all_p.std()))
+    return {"launches": launches, "rows": rows, "latency_s": lat}
+
+
+def phase_serve_levers(model_dir, requests, f32):
+    """The requests through bf16, int8 and both: which K2 mode ran, the gap to
+    the f32 rows and to each lever's own CPU run, median latencies."""
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    expect = TOWER["depth"] * len(REQUEST_SIZES) * REPEATS
+    total = {"fwd": 0, "fwd_bf16": 0}
+    for levers in LEVERS:
+        name = "+".join(levers)
+        t0 = time.perf_counter()
+        gpu = Predictor(model_dir, device="cuda", **levers)
+        gpu.warmup(max(REQUEST_SIZES))
+        init_s = time.perf_counter() - t0
+        try:
+            fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+            rows, lat = _timed_requests(gpu, requests)
+            launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches}
+            profile_request(gpu, requests[-1], "serve_levers", name)
+        finally:
+            gpu.close()
+        bf16 = bool(levers.get("bf16"))
+        want = {"fwd": 0 if bf16 else expect, "fwd_bf16": expect if bf16 else 0}
+        if launches != want or fa.bwd_launches:
+            raise RuntimeError(f"{name}: launches {launches}, expected {want}")
+        for k in total:
+            total[k] += launches[k]
+        cpu = Predictor(model_dir, device="cpu", **levers)
+        try:
+            cpu_rows = [cpu.predict(recs) for recs in requests]
+        finally:
+            cpu.close()
+        p, p32, pc = _values(rows), _values(f32["rows"]), _values(cpu_rows)
+        vs_f32, vs_cpu = float(np.abs(p - p32).max()), float(np.abs(p - pc).max())
+        labels = float(np.mean((p >= 0.5) == (p32 >= 0.5)))
+        cpu_tol = LEVER_VS_CPU if bf16 else PROB_ATOL
+        if not (np.isfinite(p).all() and vs_f32 <= LEVER_VS_F32 and labels >= LEVER_LABELS
+                and vs_cpu <= cpu_tol):
+            raise RuntimeError(f"{name}: vs f32 {vs_f32}, labels {labels}, vs its CPU run "
+                               f"{vs_cpu} (limit {cpu_tol})")
+        log("serve_levers", levers=name, launches=json.dumps(launches, separators=(",", ":")),
+            init_and_warmup_s=init_s, max_abs_vs_f32=vs_f32, labels_agree=labels,
+            max_abs_vs_own_cpu=vs_cpu,
+            median_latency_ms=json.dumps({n: round(1e3 * t, 3) for n, t in
+                                          zip(REQUEST_SIZES, lat)}),
+            f32_median_latency_ms=json.dumps({n: round(1e3 * t, 3) for n, t in
+                                              zip(REQUEST_SIZES, f32["latency_s"])}))
+    return total
+
+
+def phase_explain(model_dir, records):
+    """explain() by grad (against the CPU Predictor) and by shap (the
+    efficiency axiom), on the card."""
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    gpu = Predictor(model_dir, device="cuda")
+    cpu = Predictor(model_dir, device="cpu")
+    try:
+        gpu.warmup(len(records))
+        fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+        t0 = time.perf_counter()
+        grad = gpu.explain(records, method="grad", top_k=512)
+        grad_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shap = gpu.explain(records, method="shap", top_k=8)
+        shap_s = time.perf_counter() - t0
+        launches = fa.launches
+        ref = cpu.explain(records, method="grad", top_k=512)
+    finally:
+        gpu.close()
+        cpu.close()
+
+    def vector(row):
+        e = row["explain"]
+        v = np.zeros(514)
+        for d, x in e["top_fused_dims"]:
+            v[d] = x
+        v[512:] = e["aux"]["temporal_delay"], e["aux"]["emotion"]
+        return v
+
+    g, r = np.stack([vector(x) for x in grad]), np.stack([vector(x) for x in ref])
+    grad_rel = float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30))
+    axiom = max(abs(x["explain"]["base_value"] + x["explain"]["fused_signed_sum"]
+                    + x["explain"]["aux"]["temporal_delay"] + x["explain"]["aux"]["emotion"]
+                    - x["prob_fake"]) for x in shap)
+    methods = {x["explain"]["method"] for x in shap} | {x["explain"]["method"] for x in grad}
+    if methods != {"kernel-shap", "grad_x_input"} or not grad_rel <= PROB_ATOL \
+            or not axiom <= 1e-5 or not launches:
+        raise RuntimeError(f"explain: methods {methods}, grad vs CPU {grad_rel} of its "
+                           f"largest, axiom {axiom}, K2 launches {launches}")
+    log("explain", records=len(records), grad_s=grad_s, shap_s=shap_s, shap_method="kernel-shap",
+        grad_vs_cpu_rel=grad_rel, shap_efficiency_max_abs=axiom, launches=launches)
     return launches
+
+
+# The HTTP clients: a process of their own (its own interpreter lock), one
+# thread per client, each sending its records one request at a time.
+# argv: url, clients, requests per client; stdin: the records (JSON);
+# stdout: {"rows", "latency_s", "wall_s"} (JSON).
+HTTP_CLIENT = r"""
+import json, sys, threading, time, urllib.request
+url, clients, per = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+recs = json.load(sys.stdin)
+rows, lat = [None] * len(recs), [0.0] * len(recs)
+def client(c):
+    for i in range(c * per, (c + 1) * per):
+        req = urllib.request.Request(url + "/predict", data=json.dumps({"records": [recs[i]]}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        s = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            [rows[i]] = json.loads(resp.read())["predictions"]
+        lat[i] = time.perf_counter() - s
+t0 = time.perf_counter()
+threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=300)
+print(json.dumps({"rows": rows, "latency_s": lat, "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def phase_http(model_dir, requests, corpus):
+    """The HTTP server over the f32 GPU Predictor: 16 clients x 8 one-record
+    requests from another process, then one 300-record request and one
+    /explain."""
+    import threading
+    import urllib.request
+
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.server import make_server
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    pred = Predictor(model_dir, device="cuda")
+    pred.warmup(max(REQUEST_SIZES))
+    server = make_server(pred, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(url + path, data=json.dumps(payload).encode("utf-8"),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    singles = synthetic_records(HTTP_CLIENTS * HTTP_PER_CLIENT, corpus, np.random.default_rng(5))
+    try:
+        fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+        proc = subprocess.run(
+            [sys.executable, "-c", HTTP_CLIENT, url, str(HTTP_CLIENTS), str(HTTP_PER_CLIENT)],
+            input=json.dumps(singles, ensure_ascii=False), capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the HTTP client process failed:\n{proc.stderr[-3000:]}")
+        clients = json.loads(proc.stdout.strip().splitlines()[-1])
+        big = post("/predict", {"records": requests[-1]})["predictions"]
+        expl = post("/explain", {"records": requests[0][:1], "top_k": 4})["predictions"]
+        with urllib.request.urlopen(url + "/stats", timeout=30) as resp:
+            stats = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        launches = fa.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        thread.join(timeout=5)
+    direct, direct_big = pred.predict(singles), pred.predict(requests[-1])
+    pred.close()
+    got, lat = clients["rows"], clients["latency_s"]
+    if any(r is None for r in got):
+        raise RuntimeError("an HTTP client got no row")
+    gap = max(abs(a["prob_fake"] - b["prob_fake"]) for a, b in zip(got + big, direct + direct_big))
+    ids_ok = [r["id"] for r in got + big] == [r["id"] for r in direct + direct_big]
+    b = stats["batcher"]
+    n_requests = len(singles) + 1
+    if not (ids_ok and gap <= 1e-5 and b["dispatches"] < n_requests
+            and expl[0]["explain"]["method"] == "grad_x_input" and health["backend"] == "cuda"):
+        raise RuntimeError(f"http: ids {ids_ok}, gap {gap}, dispatches {b['dispatches']} for "
+                           f"{n_requests} requests, health {health}")
+    log("http", clients=HTTP_CLIENTS, requests_per_client=HTTP_PER_CLIENT,
+        client_process="separate", p50_ms=1e3 * float(np.percentile(lat, 50)),
+        p99_ms=1e3 * float(np.percentile(lat, 99)),
+        records_per_s=len(singles) / clients["wall_s"], dispatches=b["dispatches"],
+        requests=n_requests, records_per_dispatch=b["avg_records_per_dispatch"],
+        max_abs_vs_direct=gap, launches=launches, device_name=json.dumps(health["device_name"]))
+    return launches
+
+
+def phase_sparse_serve(model_dir, requests):
+    """A --sparse_graph model through both graph layouts."""
+    from ultrafnd_git_tpu_torch.serving import FORENSIC_KEYS, Predictor
+
+    rows = {}
+    for layout in (None, False):
+        pred = Predictor(model_dir, device="cuda", sparse_graph=layout)
+        try:
+            if pred.sparse_graph is not (layout is None):
+                raise RuntimeError("the sparse checkpoint did not serve sparse by default")
+            rows[layout] = [pred.predict(recs) for recs in requests]
+        finally:
+            pred.close()
+    gap = max(float(np.abs(_values(rows[None], k) - _values(rows[False], k)).max())
+              for k in ("prob_fake", *FORENSIC_KEYS))
+    if not gap <= 1e-5:
+        raise RuntimeError(f"sparse vs dense layout serving differ by {gap}")
+    log("sparse", served_layouts="sparse,dense", max_abs_between_layouts=gap,
+        records=sum(len(r) for r in requests))
 
 
 def main() -> int:
@@ -754,13 +1124,25 @@ def main() -> int:
     (REPO / "build").mkdir(exist_ok=True)
     ptxas = phase_build()
     flash = check_flash(dev)
+    flash_bf16 = check_flash_bf16(dev)
     k1 = check_adamw(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as root:
         seeded, served = Path(root) / "seeded_model", Path(root) / "trained_model"
         corpus = build_model_dir(str(seeded))
+        rng = np.random.default_rng(1)
+        requests = [synthetic_records(n, corpus, rng) for n in REQUEST_SIZES]
         train = phase_train(dev, seeded, Path(root) / "run")
         export_trained(str(Path(root) / "run"), "best", str(served), str(seeded))
-        serve_fwd = phase_serve(str(served), corpus)
+        serve = phase_serve(str(served), requests)
+        levers = phase_serve_levers(str(served), requests, serve)
+        explain = phase_explain(str(served), requests[0])
+        http = phase_http(str(served), requests, corpus)
+        sparse = phase_train(dev, seeded, Path(root) / "sparse_run", sparse_graph=True)
+        log("sparse", median_step_ms=sparse["median_step_ms"],
+            dense_median_step_ms=train["median_step_ms"])
+        sparse_served = Path(root) / "sparse_model"
+        export_trained(str(Path(root) / "sparse_run"), "best", str(sparse_served), str(seeded))
+        phase_sparse_serve(str(sparse_served), requests)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -768,23 +1150,31 @@ def main() -> int:
         raise RuntimeError(f"the run loaded modules of jax or the JAX package: {loaded[:10]}")
     src = "ultrafnd_git_tpu_torch/csrc/"
     ref = "ultrafnd_git_tpu/kernels/"
-    paths = lambda train_n, serve_n: {"train": train_n, "serve": serve_n}  # noqa: E731
+    tl, sl = train["launches"], sparse["launches"]
+
+    def paths(key, serve_n=0, levers_n=0, explain_n=0, http_n=0):
+        by = {"train": tl[key], "serve": serve_n, "serve_levers": levers_n, "explain": explain_n,
+              "http": http_n, "sparse_train": sl[key]}
+        return {"launches": sum(by.values()), "launches_by_path": by}
+
     print(json.dumps({"kernels": [
         {"name": "adamw", "route": "cuda", "source": src + "adamw.cu",
-         "replaces": ref + "adamw.py:114", "launches": train["adamw"],
-         "launches_by_path": paths(train["adamw"], 0), **k1, "ptxas": ptxas["adamw"]},
+         "replaces": ref + "adamw.py:114", **paths("adamw"), **k1, "ptxas": ptxas["adamw"]},
         {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
-         "replaces": ref + "flash_attention.py:162", "launches": train["fwd"] + serve_fwd,
-         "launches_by_path": paths(train["fwd"], serve_fwd), **flash["fwd"],
+         "replaces": ref + "flash_attention.py:162",
+         **paths("fwd", serve["launches"], levers["fwd"], explain, http), **flash["fwd"],
          "ptxas": ptxas["flash_attention_fwd"]},
+        {"name": "flash_attention_fwd_bf16", "route": "cuda",
+         "source": src + "flash_attention_fwd_bf16.cu",
+         "replaces": ref + "flash_attention.py:162 (mm_dtype=bfloat16)",
+         **paths("fwd_bf16", levers_n=levers["fwd_bf16"]), **flash_bf16,
+         "ptxas": ptxas["flash_attention_fwd_bf16"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:379",
-         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dq"],
-         "ptxas": ptxas["flash_attention_bwd"]},
+         **paths("bwd"), **flash["dq"], "ptxas": ptxas["flash_attention_bwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:412",
-         "launches": train["bwd"], "launches_by_path": paths(train["bwd"], 0), **flash["dkv"],
-         "ptxas": ptxas["flash_attention_bwd"]},
+         **paths("bwd"), **flash["dkv"], "ptxas": ptxas["flash_attention_bwd"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -22,6 +22,13 @@ and K's B fragment, 64-bit; V's B fragment, 32-bit) and of the backward
 the swizzle: no two lanes of one phase (32 lanes for 32-bit loads, 16 for
 64-bit) touch different words of one bank. P's A fragment is read from
 registers, never from shared memory.
+
+(c) K2's bf16 mode (csrc/flash_attention_fwd_bf16.cu), the same way: its
+m16n8k16 bf16 fragments gathered by emulated ldmatrix (.trans for V) from
+its 16-byte-chunk swizzle, P's C fragments packed to bf16 as the A
+fragment, held to `reference_attention_bf16` and to the Pallas forward in
+its bf16 mode at 8e-3 of max|ref| and lse at 1e-4; every ldmatrix phase
+and cp.async phase of the kernel touches 8 distinct 16-byte bank groups.
 """
 import re
 from pathlib import Path
@@ -320,3 +327,253 @@ def test_emulation_mirrors_the_kernel_sources():
                    "for (int n = 0; n < N; ++n) mma(c[n], al, bh[n]);"):
         assert needle in hdr, needle
     assert re.search(r'#include "tf32_mma\.cuh"', (CSRC / "flash_attention_bwd.cu").read_text())
+
+
+# ---------------------------------------------------------------------------
+# K2's bf16 mode (csrc/flash_attention_fwd_bf16.cu): mma.sync.m16n8k16 bf16
+# with f32 sums, operands by ldmatrix (.trans for V) from tiles swizzled in
+# 16-byte chunks, P packed from S's C fragments straight into the A fragment.
+# Held to `reference_attention_bf16` and to the JAX Pallas forward in its
+# bf16 mode at 8e-3 of max|ref| (one bf16 ulp at the top of the range) and
+# lse at 1e-4 (relative where |lse| > 1).
+
+def cfg_bf16(d):
+    """(WC, BQ, BK) of the bf16 kernel at head width d."""
+    wc = 1 if d <= 128 else 2
+    return wc, 16 * K_WARPS // wc, 64
+
+
+LR, LM = np.arange(32) & 7, np.arange(32) >> 3  # ldmatrix: lane -> (row, matrix)
+
+
+def swz16(r, c, w):
+    """Element offset of (r, c) in a swizzled bf16 (rows, w) tile."""
+    return r * w + (((c >> 3) ^ (r & 7)) << 3) + (c & 7)
+
+
+def to_bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, F32)).to(torch.bfloat16).float().numpy()
+
+
+def stage16(x, r0, rows):
+    """Rows [r0, r0 + rows) of x (BH, S, D) as swizzled bf16 tiles (BH, rows * D)."""
+    bh, s, d = x.shape
+    r = np.arange(rows)
+    tile = np.zeros((bh, rows, d), F32)
+    ok = r0 + r < s
+    tile[:, ok] = x[:, r0 + r[ok]]
+    sm = np.zeros((bh, rows * d), F32)
+    sm[:, swz16(r[:, None], np.arange(d)[None], d)] = tile
+    return sm
+
+
+def ldsm_x4(tile, addr, trans=False):
+    """ldmatrix.x4 from tiles (BH, n): `addr` (..., 32) is each lane's row
+    start (lanes 8i .. 8i + 7: the rows of matrix i). Returns each lane's
+    (..., 32, 4, 2) registers: matrix i, elements (g, 2t + e), or (2t + e, g)
+    transposed."""
+    rows = tile[:, addr[..., None] + np.arange(8)]  # (BH, ..., 32 src lanes, 8)
+    lane = np.arange(32)
+    src = 8 * np.arange(4)[None, :, None] + (lane // 4)[:, None, None]  # (32, 4, 1)
+    col = 2 * (lane % 4)[:, None, None] + np.arange(2)[None, None, :]  # (32, 1, 2)
+    if trans:  # row 2t + e of matrix i, column g
+        src = 8 * np.arange(4)[None, :, None] + col
+        col = (lane // 4)[:, None, None]
+    return rows[..., src, col]
+
+
+def mma16(c, a, b):
+    """mma.sync.m16n8k16 on lane fragments: c (..., 32, 4) += A B, A (16 x 16)
+    from a (..., 32, 4, 2), B (16 x 8) from b (..., 32, 2, 2); sums in f32."""
+    shape = np.broadcast_shapes(a.shape[:-3], b.shape[:-3], c.shape[:-2])
+    A = np.zeros(shape + (16, 16))
+    B = np.zeros(shape + (16, 8))
+    for e in range(2):
+        A[..., G, 2 * T + e], A[..., G + 8, 2 * T + e] = a[..., 0, e], a[..., 1, e]
+        A[..., G, 2 * T + 8 + e], A[..., G + 8, 2 * T + 8 + e] = a[..., 2, e], a[..., 3, e]
+        B[..., 2 * T + e, G], B[..., 2 * T + 8 + e, G] = b[..., 0, e], b[..., 1, e]
+    C = np.zeros(shape + (16, 8))
+    C[..., G, 2 * T], C[..., G, 2 * T + 1] = c[..., 0], c[..., 1]
+    C[..., G + 8, 2 * T], C[..., G + 8, 2 * T + 1] = c[..., 2], c[..., 3]
+    D = (C + A @ B).astype(F32)
+    return np.stack([D[..., G, 2 * T], D[..., G, 2 * T + 1],
+                     D[..., G + 8, 2 * T], D[..., G + 8, 2 * T + 1]], axis=-1)
+
+
+def pack_p(p, j):
+    """The A fragment of P V's k16 step j: 8-key tiles 2j and 2j + 1 of P's C
+    fragments, cast to bf16 in pairs (pack(c0, c1), pack(c2, c3) of each)."""
+    lo, hi = p[..., 2 * j, :, :], p[..., 2 * j + 1, :, :]
+    return to_bf16(np.stack([lo[..., 0:2], lo[..., 2:4], hi[..., 0:2], hi[..., 2:4]], axis=-2))
+
+
+def emulate_fwd_bf16(q, k, v, bias):
+    """K2's bf16 mode on lane fragments: q, k, v (B, H, S, D) and bias (B, S)
+    (rounded to bf16 here) -> (out (B, H, S, D) bf16 values as f32, lse)."""
+    b, h, s, d = q.shape
+    wc, bq, bk = cfg_bf16(d)
+    nt_s, dw = bk // 8, d // wc
+    nt_o = dw // 8
+    scale = F32(1.0) / np.sqrt(F32(d))
+    qf, kf, vf = (to_bf16(x).reshape(b * h, s, d) for x in (q, k, v))
+    brow = np.repeat(to_bf16(bias), h, axis=0)
+    warp = np.arange(K_WARPS)
+    m0, n0 = (warp // wc) * 16, (warp % wc) * dw
+    q_tiles, k_tiles = -(-s // bq), -(-s // bk)
+    out = np.zeros((b * h, q_tiles * bq, d), F32)
+    lse = np.zeros((b * h, q_tiles * bq), F32)
+    e_row = np.arange(4) >> 1
+    for qt in range(q_tiles):
+        qs = stage16(qf, qt * bq, bq)
+        m = np.full((b * h, K_WARPS, 32, 2), -np.inf, F32)
+        l = np.zeros((b * h, K_WARPS, 32, 2), F32)
+        o = np.zeros((b * h, K_WARPS, nt_o, 32, 4), F32)
+        for kt in range(k_tiles):
+            k0 = kt * bk
+            ks, vs = stage16(kf, k0, bk), stage16(vf, k0, bk)
+            sacc = np.zeros((b * h, K_WARPS, nt_s, 32, 4), F32)
+            for kk in range(0, d, 16):
+                a = ldsm_x4(qs, swz16(m0[:, None] + LR + 8 * (LM & 1), kk + 8 * (LM >> 1), d))
+                for n2 in range(nt_s // 2):
+                    bfr = ldsm_x4(ks, swz16(16 * n2 + LR + 8 * (LM >> 1), kk + 8 * (LM & 1), d))
+                    sacc[:, :, 2 * n2] = mma16(sacc[:, :, 2 * n2], a, bfr[:, None, :, 0:2])
+                    sacc[:, :, 2 * n2 + 1] = mma16(sacc[:, :, 2 * n2 + 1], a, bfr[:, None, :, 2:4])
+            keys = (k0 + 8 * np.arange(nt_s)[:, None, None] + 2 * T[None, :, None]
+                    + (np.arange(4) & 1)[None, None, :])
+            bval = brow[:, np.minimum(keys, s - 1)][:, None]
+            x = np.where(keys < s, ((sacc * scale).astype(F32) + bval).astype(F32), -np.inf)
+            x = x.astype(F32)
+            mx = np.full((b * h, K_WARPS, 32, 2), -np.inf, F32)
+            for n in range(nt_s):
+                for e in range(4):
+                    mx[..., e >> 1] = np.maximum(mx[..., e >> 1], x[:, :, n, :, e])
+            for off in (1, 2):
+                mx = np.maximum(mx, mx[:, :, np.arange(32) ^ off])
+            m_new = np.maximum(m, mx)
+            alpha = np.exp((m - m_new).astype(F32)).astype(F32)
+            m = m_new
+            p = np.exp((x - m[:, :, None, :, e_row]).astype(F32)).astype(F32)
+            tot = np.zeros((b * h, K_WARPS, 32, 2), F32)
+            for n in range(nt_s):
+                for e in range(4):
+                    tot[..., e >> 1] = (tot[..., e >> 1] + p[:, :, n, :, e]).astype(F32)
+            for off in (1, 2):
+                tot = (tot + tot[:, :, np.arange(32) ^ off]).astype(F32)
+            l = ((l * alpha).astype(F32) + tot).astype(F32)
+            o = (o * alpha[:, :, None, :, e_row]).astype(F32)
+            for j in range(bk // 16):
+                pa = pack_p(p, j)  # (BH, W, 32, 4, 2)
+                for n2 in range(nt_o // 2):
+                    cols = n0[:, None] + 16 * n2 + 8 * (LM >> 1)  # (W, 32)
+                    bfr = ldsm_x4(vs, swz16(16 * j + LR + 8 * (LM & 1), cols, d), trans=True)
+                    o[:, :, 2 * n2] = mma16(o[:, :, 2 * n2], pa, bfr[..., 0:2, :])
+                    o[:, :, 2 * n2 + 1] = mma16(o[:, :, 2 * n2 + 1], pa, bfr[..., 2:4, :])
+        for w in range(K_WARPS):
+            for hh in range(2):
+                rows = qt * bq + m0[w] + G + 8 * hh
+                for n in range(nt_o):
+                    for j in range(2):
+                        col = n0[w] + 8 * n + 2 * T + j
+                        out[:, rows, col] = to_bf16(o[:, w, n, :, 2 * hh + j] / l[:, w, :, hh])
+                lse[:, rows] = (m[:, w, :, hh] + np.log(l[:, w, :, hh]).astype(F32)).astype(F32)
+    return out[:, :s].reshape(b, h, s, d), lse[:, :s].reshape(b, h, s)
+
+
+BF16_CASES = {
+    "s64_d128": (2, 2, 64, 128, [64, 37]),
+    "ragged_s100_d64": (2, 2, 100, 64, [100, 63]),  # 2 key tiles, the second ragged
+    "fully_masked_row": (2, 2, 64, 128, [0, 17]),
+    "key_tiles_d192": (2, 1, 130, 192, [130, 45]),  # 3 key tiles, 5 query tiles, WC = 2
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_emulated_bf16_kernel_matches_twin_and_pallas(case):
+    b, h, s, d, lengths = BF16_CASES[case]
+    rng = np.random.default_rng(len(case) + d)
+    q, k, v = (to_bf16(rng.standard_normal((b, h, s, d))) for _ in range(3))
+    mask = (np.arange(s)[None] < np.asarray(lengths)[:, None]).astype(F32)
+    tbias = fa.padding_bias(torch.from_numpy(mask), torch.bfloat16)
+    out, lse = emulate_fwd_bf16(q, k, v, tbias.float().numpy().reshape(b, s))
+    twin = fa.reference_attention_bf16(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                                       tbias)
+    jout, jlse = _pallas_forward(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                 jax_padding_bias(jnp.asarray(mask), jnp.bfloat16),
+                                 block_q=128, interpret=True, mm_dtype=jnp.bfloat16)
+    for ref, ref_l in ((twin[0].float().numpy(), twin[1].numpy()),
+                       (np.asarray(jout.astype(jnp.float32)), np.asarray(jlse))):
+        assert np.abs(out - ref).max() <= 8e-3 * np.abs(ref).max()
+        np.testing.assert_allclose(lse, ref_l.reshape(lse.shape), rtol=1e-4, atol=1e-4)
+    assert np.isfinite(out).all() and np.isfinite(lse).all()
+
+
+def test_bf16_p_fragment_is_the_pv_a_fragment():
+    """S's C fragments of 8-key tiles 2j and 2j + 1, packed in pairs, are the
+    A fragment of P V's k16 step over those 16 keys; V's B fragment by
+    ldmatrix.trans from the swizzled key-major tile: exactly P V."""
+    rng = np.random.default_rng(0)
+    P = rng.integers(-8, 8, size=(16, 16)).astype(F32)  # exact in bf16
+    V = rng.integers(-8, 8, size=(16, 64)).astype(F32)
+    c = np.stack([np.stack([P[G, 8 * n + 2 * T], P[G, 8 * n + 2 * T + 1],
+                            P[G + 8, 8 * n + 2 * T], P[G + 8, 8 * n + 2 * T + 1]], -1)
+                  for n in range(2)])  # (2 tiles, 32, 4)
+    a = pack_p(c, 0)
+    vs = stage16(V[None], 0, 16)
+    for n2 in range(4):
+        bfr = ldsm_x4(vs, swz16(LR + 8 * (LM & 1), 16 * n2 + 8 * (LM >> 1), 64), trans=True)[0]
+        for half in range(2):
+            got = mma16(np.zeros((32, 4), F32), a, bfr[:, 2 * half:2 * half + 2])
+            want = P @ V[:, 16 * n2 + 8 * half:16 * n2 + 8 * half + 8]
+            np.testing.assert_array_equal(
+                got, np.stack([want[G, 2 * T], want[G, 2 * T + 1], want[G + 8, 2 * T],
+                               want[G + 8, 2 * T + 1]], axis=-1))
+
+
+def _bf16_loads(d):
+    """Every shared-memory access of the bf16 kernel at head width d: (name,
+    16-byte chunk index of each of the 8 lanes of one phase). ldmatrix reads
+    one 8 x 8 matrix a phase; cp.async writes 8 lanes' 16 bytes a phase."""
+    wc, bq, bk = cfg_bf16(d)
+    dw = d // wc
+    for w in range(K_WARPS):
+        m0, n0 = (w // wc) * 16, (w % wc) * dw
+        for kk in range(0, d, 16):
+            q = swz16(m0 + LR + 8 * (LM & 1), kk + 8 * (LM >> 1), d)
+            yield from ((f"Q w{w} kk{kk} m{i}", q[8 * i:8 * i + 8]) for i in range(4))
+            for n2 in range(bk // 16):
+                kx = swz16(16 * n2 + LR + 8 * (LM >> 1), kk + 8 * (LM & 1), d)
+                yield from ((f"K w{w} kk{kk} n{n2} m{i}", kx[8 * i:8 * i + 8]) for i in range(4))
+        for j in range(bk // 16):
+            for n2 in range(dw // 16):
+                vx = swz16(16 * j + LR + 8 * (LM & 1), n0 + 16 * n2 + 8 * (LM >> 1), d)
+                yield from ((f"V w{w} j{j} n{n2} m{i}", vx[8 * i:8 * i + 8]) for i in range(4))
+    c8 = d // 8
+    for i0 in range(0, max(bq, bk) * c8, 8):  # cp.async: thread i stages chunk i % C8 of row i / C8
+        i = i0 + np.arange(8)
+        yield f"stage i{i0}", swz16(i // c8, (i % c8) * 8, d)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_bf16_kernel_smem_accesses_are_free_of_bank_conflicts(d):
+    loads = list(_bf16_loads(d))
+    assert loads
+    for name, elems in loads:
+        assert (elems % 8 == 0).all(), name  # 16-byte aligned rows
+        groups = (elems * 2 // 16) % 8  # the 16-byte bank group of each lane's access
+        assert len(set(groups.tolist())) == 8, name
+
+
+def test_bf16_emulation_mirrors_the_kernel_source():
+    src = (CSRC / "flash_attention_fwd_bf16.cu").read_text()
+    for needle in ("constexpr int kWarps = 4;", "WC = D <= 128 ? 1 : 2;",
+                   "BQ = 16 * kWarps / WC;", "BK = 64;",
+                   "return r * W + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);",
+                   "ldsm_x4(a, Qs + swz(m0 + lr + 8 * (lm & 1), kk + 8 * (lm >> 1), D));",
+                   "ldsm_x4(b, Ks + swz(16 * np + lr + 8 * (lm >> 1), kk + 8 * (lm & 1), D));",
+                   "ldsm_x4_trans(b, Vs + swz(16 * j + lr + 8 * (lm & 1), n0 + 16 * np + 8 * (lm >> 1), D));",
+                   "pack(sacc[2 * j][0], sacc[2 * j][1]),", "pack(sacc[2 * j][2], sacc[2 * j][3]),",
+                   "pack(sacc[2 * j + 1][0], sacc[2 * j + 1][1]),",
+                   "pack(sacc[2 * j + 1][2], sacc[2 * j + 1][3])};",
+                   'asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(d) : "f"(hi), "f"(lo));',
+                   "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
+        assert needle in src, needle

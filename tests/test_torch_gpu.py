@@ -5,7 +5,8 @@ Every test here carries the `gpu` marker and skips with a reason where
 torch.cuda is unavailable. The file imports no jax, so it also runs on a
 GPU machine without it:
     python -m pytest --noconftest -o addopts="" tests/test_torch_gpu.py -q
-Tolerances: forward kernel atol = rtol = 2e-5 (both sides full-f32
+Tolerances: K2's bf16 mode out within 8e-3 of its plain twin's largest
+value and lse 1e-4; forward kernel atol = rtol = 2e-5 (both sides full-f32
 matmuls, TF32 off) and out within 1e-5 of the plain version's largest
 value (3xTF32 on the tensor cores); the fused backward atol = rtol = 5e-4 (the JAX suite's
 gradient tolerance) and dq, dk, dv within 1e-5 of the plain version's
@@ -109,8 +110,10 @@ def test_tower_on_gpu_matches_cpu_and_launches_per_layer(cuda):
     torch.testing.assert_close(gpu_out.cpu(), cpu_out, atol=1e-5, rtol=0)
 
 
-def test_predictor_on_gpu_matches_cpu(cuda, tmp_path):
-    from ultrafnd_git_tpu_torch.serving import Predictor, write_seeded_model_dir
+def _seeded_model_dir(root):
+    """A small seeded tower model (width 768, one block of 6 heads of 128)
+    over a 50-record corpus, and 20 records to score against it."""
+    from ultrafnd_git_tpu_torch.serving import write_seeded_model_dir
 
     meta = {
         "cfg": {"train_text_tower": True},
@@ -138,10 +141,17 @@ def test_predictor_on_gpu_matches_cpu(cuda, tmp_path):
         "ocr_sets": [set(rng.choice(words, size=5, replace=False)) for _ in range(n)],
         "split": (np.arange(n), np.arange(0), np.arange(0)),
     }
-    write_seeded_model_dir(str(tmp_path), meta, corpus)
+    write_seeded_model_dir(str(root), meta, corpus)
     records = [{"video_id": f"r{i}", "title": f"标题 {i} 外星人 警告",
                 "ocr": " ".join(sorted(corpus["ocr_sets"][i])) if i % 3 else "",
                 "comments": ["这是真的吗"] * (i % 2)} for i in range(20)]
+    return records
+
+
+def test_predictor_on_gpu_matches_cpu(cuda, tmp_path):
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    records = _seeded_model_dir(tmp_path)
     gpu = Predictor(str(tmp_path), batch_size=8, device="cuda")
     cpu = Predictor(str(tmp_path), batch_size=8, device="cpu")
     try:
@@ -316,3 +326,60 @@ def test_tower_backward_on_gpu_matches_cpu(cuda):
     for (n, a), b in zip(gpu_tower.named_parameters(), tower.parameters()):
         err = (a.grad.cpu() - b.grad).abs().max() / b.grad.abs().max().clamp_min(1e-30)
         assert err <= 1e-4, (n, float(err))
+
+
+@pytest.mark.parametrize("s", [1, 64, 100, 2048])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_flash_fwd_bf16_every_width(cuda, d, s):
+    """K2's bf16 mode at every head width, S from 1 to 2048, a fully masked
+    row: out within 8e-3 of the plain twin's largest value (one bf16 ulp at
+    the top of the range; the kernel rounds P against a running max), lse
+    within 1e-4, two calls bit for bit, one launch each."""
+    b, h = (2, 2) if s > 100 else (3, 4)
+    rng = np.random.default_rng(d + s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = 0  # a fully masked row
+    mask = torch.from_numpy((np.arange(s)[None] < lengths[:, None]).astype(np.float32))
+    bias = fa.padding_bias(mask.to(cuda), torch.bfloat16)
+    with torch.inference_mode():
+        before = fa.bf16_launches, fa.launches
+        out, lse = fa.flash_attention_fwd_bf16(q, k, v, bias)
+        out2, lse2 = fa.flash_attention_fwd_bf16(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert (fa.bf16_launches, fa.launches) == (before[0] + 2, before[1])
+        ref_out, ref_lse = fa.reference_attention_bf16(q, k, v, bias)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, out2) and torch.equal(lse, lse2)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    assert err <= 8e-3 * ref_out.float().abs().max().item(), err
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    uniform = v[0].float().mean(dim=1, keepdim=True).expand_as(v[0])
+    assert (out[0].float() - uniform).abs().max().item() <= 8e-3 * v[0].float().abs().max().item()
+
+
+@pytest.mark.parametrize("levers", [{"bf16": True}, {"quantize": True},
+                                    {"bf16": True, "quantize": True}],
+                         ids=["bf16", "quantize", "bf16_quantize"])
+def test_predictor_levers_on_gpu_match_cpu(cuda, tmp_path, levers):
+    """bf16 serving runs K2's bf16 mode (and no f32 K2), quantize alone the f32
+    K2; each GPU Predictor within 2e-2 of the same levers on the CPU (1e-4
+    for quantize alone, whose arithmetic is f32)."""
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    records = _seeded_model_dir(tmp_path)
+    gpu = Predictor(str(tmp_path), batch_size=8, device="cuda", **levers)
+    cpu = Predictor(str(tmp_path), batch_size=8, device="cpu", **levers)
+    try:
+        before = fa.launches, fa.bf16_launches
+        g_rows = gpu.predict(records)
+        launched = fa.launches - before[0], fa.bf16_launches - before[1]
+        c_rows = cpu.predict(records)
+    finally:
+        gpu.close()
+        cpu.close()
+    assert launched == ((0, 1) if levers.get("bf16") else (1, 0))
+    tol = 2e-2 if levers.get("bf16") else 1e-4
+    for key in ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity"):
+        np.testing.assert_allclose([r[key] for r in g_rows], [r[key] for r in c_rows],
+                                   atol=tol, err_msg=key)

@@ -141,25 +141,15 @@ def test_cuda_without_gpu_raises(exported, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "kwargs", [{"bf16": True}, {"quantize": True}, {"serve_dp": 2},
-               {"fused_align": False}],
-    ids=["bf16", "quantize", "serve_dp", "two_dispatch"],
+    "kwargs", [{"serve_dp": 2}, {"fused_align": False}],
+    ids=["serve_dp", "two_dispatch"],
 )
 def test_unported_options_raise(exported, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(exported, device="cpu", **kwargs)
 
 
-def test_explain_raises(exported):
-    pred = Predictor(exported, device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pred.explain([{"title": "x"}])
-    finally:
-        pred.close()
-
-
-@pytest.mark.parametrize("flag", ["use_evidence", "sparse_graph"])
+@pytest.mark.parametrize("flag", ["use_evidence"])
 def test_unported_checkpoint_kinds_raise(exported, tmp_path, flag):
     for name in ("weights.pt", "feature_cache.npz"):
         (tmp_path / name).symlink_to(Path(exported) / name)

@@ -3,13 +3,19 @@
 `flash_attention(q, k, v, bias)` is what the text tower calls: attention
 over (B, H, S, D) with an additive key-padding bias of shape (B, 1, 1, S),
 softmax in f32, differentiable in q, k, v (and bias when it asks for a
-gradient). It is a `torch.autograd.Function` with
+gradient) in f32. It is a `torch.autograd.Function` with
 
 * forward `flash_attention_fwd(q, k, v, bias) -> (out, lse)`, the
   counterpart of `ultrafnd_git_tpu/kernels/flash_attention.py::
-  _pallas_forward` (kernel `_make_fwd_kernel`, K2): on a CUDA tensor it
-  launches `csrc/flash_attention_fwd.cu`, products on the tensor cores
-  (3xTF32) with the online softmax in f32;
+  _pallas_forward` (kernel `_make_fwd_kernel`, K2) with f32 matmuls: on a
+  CUDA tensor it launches `csrc/flash_attention_fwd.cu`, products on the
+  tensor cores (3xTF32) with the online softmax in f32;
+* for bf16 q, k, v, forward `flash_attention_fwd_bf16(q, k, v, bias)`,
+  K2's bf16 mode (`mm_dtype=bfloat16`, the TPU kernel's default): on a
+  CUDA tensor it launches `csrc/flash_attention_fwd_bf16.cu`, both products
+  bf16 with f32 sums, the softmax in f32, P rounded to bf16 for P V, out
+  bf16 and lse f32. Its backward (K3/K4's bf16 mode) is not ported: a bf16
+  call that asks for a gradient raises;
 * backward `flash_attention_bwd(q, k, v, bias, out, lse, do) -> (dq, dk,
   dv, dbias)`, the counterpart of `_pallas_backward` (kernels
   `_make_bwd_dq_kernel`, K3, and `_make_bwd_dkv_kernel`, K4): on a CUDA
@@ -17,19 +23,20 @@ gradient). It is a `torch.autograd.Function` with
   tensor cores (3xTF32) that computes delta, dQ, dK, dV and the dbias
   partials together.
 
-Both build with nvcc for sm_90a at first use (`_build.py`) and raise on a
-failed build or launch; they never fall back. On a CPU tensor they run the
-plain PyTorch versions, `reference_attention` and
-`attention_bwd_reference`, which the tests hold against the JAX kernels.
-The backward recomputes P = exp(s - lse) as the TPU kernels do, so on a
+Each builds with nvcc for sm_90a at first use (`_build.py`) and raises on a
+failed build or launch; none falls back. On a CPU tensor they run the
+plain PyTorch versions, `reference_attention`, `reference_attention_bf16`
+and `attention_bwd_reference`, which the tests hold against the JAX
+kernels. The backward recomputes P = exp(s - lse) as the TPU kernels do, so on a
 row whose keys are all masked P is 1 per key rather than 1/S (see the
 note in `csrc/flash_attention_bwd.cu`); rows with a valid key agree with
 autograd of a softmax.
 
-`launches` counts forward kernel launches and `bwd_launches` backward
-launches (one per backward call, K3 and K4 fused), and nothing else, so
-a run can show that its path went through the kernels; the CPU path
-leaves both unchanged. Under `torch.inference_mode()` only K2 runs.
+`launches` counts f32 forward launches, `bf16_launches` bf16 forward
+launches and `bwd_launches` backward launches (one per backward call, K3
+and K4 fused), and nothing else, so a run can show that its path went
+through the kernels and in which mode; the CPU path leaves all three
+unchanged. Under `torch.inference_mode()` only K2 runs.
 """
 from __future__ import annotations
 
@@ -44,9 +51,11 @@ from ultrafnd_git_tpu_torch.kernels import _build
 NEG_INF = -1e9
 HEAD_DIMS = (64, 128, 192, 256)  # the kernel's compiled head widths
 
-launches = 0  # K2 launches since import (or since a caller reset it)
+launches = 0  # K2 (f32) launches since import (or since a caller reset it)
+bf16_launches = 0  # K2 bf16-mode launches
 bwd_launches = 0  # backward (K3 + K4 fused) launches, one per call
 _lib = None
+_bf16_lib = None
 _bwd_lib = None
 _bwd_block_keys = None
 
@@ -72,6 +81,28 @@ def reference_attention(
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v) / denom
     return out, (m + torch.log(denom)).squeeze(-1)
+
+
+def reference_attention_bf16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain attention in K2's bf16 mode: (out (B,H,S,D) bf16, lse (B,H,S) f32).
+
+    The Pallas kernel's `mm_dtype=bfloat16` arithmetic: bf16 q, k, v and bias,
+    both products with f32 sums, the softmax in f32 with each row's max over
+    all S, P rounded to bf16 for P V, out = O / sum(P) rounded to bf16.
+    """
+    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * _scale(q.shape[-1])
+    s = s + bias.to(torch.bfloat16).float()
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf)
+    return (o / denom).to(torch.bfloat16), (m + torch.log(denom)).squeeze(-1)
 
 
 def attention_bwd_reference(
@@ -115,6 +146,19 @@ def _kernel():
     return _lib
 
 
+def _bf16_kernel():
+    global _bf16_lib
+    if _bf16_lib is None:
+        fn = _build.load("flash_attention_fwd_bf16").ufnd_flash_attention_fwd_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_float,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _bf16_lib = fn
+    return _bf16_lib
+
+
 def _bwd_kernel():
     global _bwd_lib, _bwd_block_keys
     if _bwd_lib is None:
@@ -131,9 +175,9 @@ def _bwd_kernel():
     return _bwd_lib
 
 
-def _check(q, k, v, bias, *grads) -> None:
+def _check(q, k, v, bias, *grads, dtype=torch.float32) -> None:
     """Raise on anything the kernels do not take; `grads` are the backward's
-    extra (B, H, S, D) operands (out, dO)."""
+    extra (B, H, S, D) operands (out, dO); every operand must be `dtype`."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, S, D), got shape {tuple(q.shape)}")
     b, h, s, d = q.shape
@@ -154,14 +198,40 @@ def _check(q, k, v, bias, *grads) -> None:
     named = [("q", q), ("k", k), ("v", v), ("bias", bias)]
     named += [(f"grad operand {i}", t) for i, t in enumerate(grads)]
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
+
+
+def _launch_fwd(fn, name: str, q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a forward kernel's C entry `fn` on the current stream: (out in
+    q's dtype, lse f32); raises when the launch fails."""
+    b, h, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), lse.data_ptr(),
+            b, h, s, d, _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: cudaError {err} at shape {(b, h, s, d)}"
+        )
+    return out, lse
+
+
+def _default_bias(q: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    if bias is not None:
+        return bias
+    return torch.zeros((q.shape[0], 1, 1, q.shape[2]), dtype=q.dtype, device=q.device)
 
 
 def flash_attention_fwd(
@@ -178,33 +248,42 @@ def flash_attention_fwd(
     it raises on a shape, dtype, layout or launch it cannot take. A CPU
     call returns `reference_attention`.
     """
-    if bias is None:
-        bias = torch.zeros(
-            (q.shape[0], 1, 1, q.shape[2]), dtype=q.dtype, device=q.device
-        )
+    bias = _default_bias(q, bias)
     if q.device.type == "cpu":
         return reference_attention(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     _check(q, k, v, bias)
-    b, h, s, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
-            b, h, s, d, _scale(d),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd kernel launch failed: cudaError {err} "
-            f"at shape {(b, h, s, d)}"
-        )
+    out, lse = _launch_fwd(_kernel(), "flash_attention_fwd", q, k, v, bias)
     global launches
     launches += 1
+    return out, lse
+
+
+def flash_attention_fwd_bf16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's bf16 mode: (out (B,H,S,D) bf16, lse (B,H,S) f32).
+
+    q, k, v: (B, H, S, D) bfloat16, D in HEAD_DIMS; bias: (B, 1, 1, S)
+    bfloat16 additive mask (`padding_bias(mask, torch.bfloat16)`), None for
+    no mask. A CUDA call launches `csrc/flash_attention_fwd_bf16.cu` on the
+    current stream and adds one to `bf16_launches`; it raises on a shape,
+    dtype, layout or launch it cannot take. A CPU call returns
+    `reference_attention_bf16`.
+    """
+    bias = _default_bias(q, bias)
+    if q.device.type == "cpu":
+        return reference_attention_bf16(q, k, v, bias)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    _check(q, k, v, bias, dtype=torch.bfloat16)
+    out, lse = _launch_fwd(_bf16_kernel(), "flash_attention_fwd_bf16", q, k, v, bias)
+    global bf16_launches
+    bf16_launches += 1
     return out, lse
 
 
@@ -271,17 +350,24 @@ def flash_attention_bwd(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K2 forward, the fused K3 + K4 backward (their plain versions on the CPU)."""
+    """K2 forward (its bf16 mode for bf16 q), the fused K3 + K4 backward
+    (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
-        out, lse = flash_attention_fwd(q, k, v, bias)
+        fwd = flash_attention_fwd_bf16 if q.dtype == torch.bfloat16 else flash_attention_fwd
+        out, lse = fwd(q, k, v, bias)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, out, lse = ctx.saved_tensors
+        if q.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "the bf16 flash-attention backward (K3/K4's bf16 mode, bf16_compute "
+                "training) is not ported to ultrafnd_git_tpu_torch yet (see ROADMAP.md)"
+            )
         dq, dk, dv, dbias = flash_attention_bwd(
             q, k, v, bias, out, lse, do.contiguous(),
             with_dbias=ctx.needs_input_grad[3],
@@ -298,18 +384,17 @@ def flash_attention(
     """softmax(q k^T / sqrt(D) + bias) v, differentiable; (B, H, S, D).
 
     The entry the text tower calls. On a CUDA tensor, with or without
-    grad, it goes through the autograd Function: the forward launches K2,
-    a backward launches the fused K3 + K4 kernel. On a CPU tensor the same
-    Function runs the plain versions. bias (B, 1, 1, S) gets a gradient only when it
+    grad, it goes through the autograd Function: the forward launches K2
+    (its bf16 mode for bf16 q, k, v and bias), a backward launches the
+    fused K3 + K4 kernel (f32 only). On a CPU tensor the same Function runs
+    the plain versions. bias (B, 1, 1, S) gets a gradient only when it
     requires one (the trainer's mask bias does not).
     """
-    if bias is None:
-        bias = torch.zeros(
-            (q.shape[0], 1, 1, q.shape[2]), dtype=q.dtype, device=q.device
-        )
-    return _FlashAttention.apply(q, k, v, bias)
+    return _FlashAttention.apply(q, k, v, _default_bias(q, bias))
 
 
-def padding_bias(mask: torch.Tensor) -> torch.Tensor:
-    """(B, S) 1/0 validity mask -> additive (B, 1, 1, S) f32 bias."""
-    return ((1.0 - mask.to(torch.float32)) * NEG_INF)[:, None, None, :]
+def padding_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, S) 1/0 validity mask -> additive (B, 1, 1, S) bias in `dtype`
+    (`(1 - mask) * NEG_INF` computed in `dtype`: -1e9 rounds to
+    -998244352 in bf16, as in the JAX package)."""
+    return ((1.0 - mask.to(dtype)) * NEG_INF)[:, None, None, :]

@@ -8,6 +8,10 @@ Parameter names are the reference state-dict keys that
 `ultrafnd_git_tpu.utils.torch_transfer.classifier_state_dict_from_params`
 writes (`pre.0` / `.3`, `node.trees.{t}.gates.{k}`, `.thresh.{k}`,
 `.leaf_logits`, `.tau`, `bypass`, `temperature`).
+
+`dtype=torch.bfloat16` is the JAX module's `dtype=jnp.bfloat16`: the two
+pre-MLP Dense layers and their GELUs compute in bf16; the forest, the
+bypass and the calibrated softmax stay f32.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
+from ultrafnd_git_tpu_torch.models.layers import Dense
 from ultrafnd_git_tpu_torch.ops.trees import oblivious_forest_logits
 
 
@@ -75,22 +80,23 @@ class DeepTruthClassifier(nn.Module):
         temperature_init: float = 1.0,
         dropout: float = 0.1,
         node_dropout: float = 0.3,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.use_aux = use_aux
         self.dropout = dropout
         d_in = in_dim + (aux_dim if use_aux else 0)
         self.pre = nn.Sequential(
-            nn.Linear(d_in, hidden),
+            Dense(d_in, hidden, dtype),
             nn.GELU(),
             nn.Identity(),  # the reference's dropout slot (see forward)
-            nn.Linear(hidden, hidden),
+            Dense(hidden, hidden, dtype),
             nn.GELU(),
         )
         self.node = NODEEnsemble(
             hidden, num_classes, node_trees, node_depth, node_tau, node_dropout
         )
-        self.bypass = nn.Linear(hidden, num_classes)
+        self.bypass = Dense(hidden, num_classes)
         self.temperature = nn.Parameter(torch.tensor(float(temperature_init)))
 
     def forward(
@@ -104,7 +110,7 @@ class DeepTruthClassifier(nn.Module):
         if self.use_aux and aux is not None:
             x = torch.cat([x, aux], dim=-1)
         h = drop(F.gelu(self.pre[0](x)), self.dropout, gen)
-        h = drop(F.gelu(self.pre[3](h)), self.dropout, gen)
+        h = drop(F.gelu(self.pre[3](h)), self.dropout, gen).float()
         logits = self.node(h, gen) + self.bypass(h)
         t = self.temperature.clamp(0.5, 5.0)
         probs = torch.softmax(logits / t, dim=-1)

@@ -7,10 +7,14 @@ here). Parameter names are the reference state-dict keys that
 `ultrafnd_git_tpu.utils.torch_transfer.fusion_state_dict_from_params`
 writes (`fuse_mlp.0` / `.3`, `classifier`, `attn_*.evidence_proj.0` /
 `.2`), so that function carries JAX fusion params across unchanged.
+
+`dtype=torch.bfloat16` is the JAX module's `dtype=jnp.bfloat16`: every
+Dense but the logits head computes in bf16 (`models/layers.py`), and so do
+the evidence proxies, the co-attention and the pair features between them;
+`fused`, the logits and the forensic scalars come out f32.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import torch
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
+from ultrafnd_git_tpu_torch.models.layers import Dense
 
 
 def cos01(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -31,23 +36,26 @@ def cos01(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 class ForensicCoAttention(nn.Module):
     """Evidence-gated co-attention over two modality vectors."""
 
-    def __init__(self, hidden: int, evidence_dim: int = 3):
+    def __init__(self, hidden: int, evidence_dim: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.hidden = hidden
-        self.q = nn.Linear(hidden, hidden)
-        self.k = nn.Linear(hidden, hidden)
-        self.v = nn.Linear(hidden, hidden)
+        # sqrt(hidden) rounded in the compute dtype, as jnp.sqrt(asarray(H, dtype))
+        self.sqrt_hidden = float(torch.tensor(float(hidden), dtype=dtype or torch.float32).sqrt())
+        self.q = Dense(hidden, hidden, dtype)
+        self.k = Dense(hidden, hidden, dtype)
+        self.v = Dense(hidden, hidden, dtype)
         # exact GELU, as the JAX module (the index layout matches the
         # reference's evidence_proj.0 / .2 keys)
         self.evidence_proj = nn.Sequential(
-            nn.Linear(evidence_dim, hidden), nn.GELU(), nn.Linear(hidden, 1)
+            Dense(evidence_dim, hidden, dtype), nn.GELU(), Dense(hidden, 1, dtype)
         )
 
     def forward(
         self, x: torch.Tensor, y: torch.Tensor, evidence: torch.Tensor
     ) -> torch.Tensor:
         q, k, v = self.q(x), self.k(y), self.v(y)
-        score = (q * k).sum(dim=-1, keepdim=True) / math.sqrt(self.hidden)
+        score = (q * k).sum(dim=-1, keepdim=True) / self.sqrt_hidden
         attn = torch.sigmoid(score)  # (B, 1)
         gate = torch.sigmoid(self.evidence_proj(evidence))  # (B, 1)
         return gate * (attn * v) + (1.0 - gate) * 0.5 * (x + y)
@@ -66,28 +74,29 @@ class CrossModalTransformer(nn.Module):
         use_gnn: bool = True,
         gnn_dim: int = 128,
         dropout: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.use_gnn = use_gnn
         self.dropout = dropout
-        self.text_proj = nn.Linear(text_dim, hidden)
-        self.audio_proj = nn.Linear(audio_dim, hidden)
-        self.visual_proj = nn.Linear(visual_dim, hidden)
-        self.temporal_proj = nn.Linear(temporal_dim, hidden)
-        self.attn_tv = ForensicCoAttention(hidden)
-        self.attn_ta = ForensicCoAttention(hidden)
-        self.attn_vu = ForensicCoAttention(hidden)
+        self.text_proj = Dense(text_dim, hidden, dtype)
+        self.audio_proj = Dense(audio_dim, hidden, dtype)
+        self.visual_proj = Dense(visual_dim, hidden, dtype)
+        self.temporal_proj = Dense(temporal_dim, hidden, dtype)
+        self.attn_tv = ForensicCoAttention(hidden, dtype=dtype)
+        self.attn_ta = ForensicCoAttention(hidden, dtype=dtype)
+        self.attn_vu = ForensicCoAttention(hidden, dtype=dtype)
         n_parts = 15 + (1 if use_gnn else 0)  # t, a, v, u, 8 pairs, 3 co-attn
         if use_gnn:
-            self.gnn_proj = nn.Linear(gnn_dim, hidden)
+            self.gnn_proj = Dense(gnn_dim, hidden, dtype)
         self.fuse_mlp = nn.Sequential(
-            nn.Linear(n_parts * hidden, 2 * hidden),
+            Dense(n_parts * hidden, 2 * hidden, dtype),
             nn.GELU(),
             nn.Identity(),  # the reference's dropout slot (see forward)
-            nn.Linear(2 * hidden, hidden),
+            Dense(2 * hidden, hidden, dtype),
             nn.GELU(),
         )
-        self.classifier = nn.Linear(hidden, 2)
+        self.classifier = Dense(hidden, 2)  # the logits head stays f32
 
     def forward(
         self,
@@ -131,13 +140,13 @@ class CrossModalTransformer(nn.Module):
             parts.append(self.gnn_proj(feats["gnn_feat"]))
         mlp = self.fuse_mlp
         h = drop(F.gelu(mlp[0](torch.cat(parts, dim=-1))), self.dropout, gen)
-        fused = drop(F.gelu(mlp[3](h)), self.dropout, gen)
+        fused = drop(F.gelu(mlp[3](h)), self.dropout, gen).float()
         return {
             "fused": fused,
             "logits": self.classifier(fused),
             "forensic": {
-                "emotion_intensity": emo_proxy.squeeze(-1),
-                "semantic_conflict": semantic_conflict.squeeze(-1),
-                "temporal_delay": delay_proxy.squeeze(-1),
+                "emotion_intensity": emo_proxy.squeeze(-1).float(),
+                "semantic_conflict": semantic_conflict.squeeze(-1).float(),
+                "temporal_delay": delay_proxy.squeeze(-1).float(),
             },
         }

@@ -1,4 +1,4 @@
-"""Two-layer GCN (counterpart of `models/gnn.py:29-99`, dense branch).
+"""Two-layer GCN (counterpart of `models/gnn.py:29-99`), both graph layouts.
 
 Serving never runs the full-graph forward: the corpus side is precomputed
 (`ax = a_norm @ xg` on the host, `h_corpus = gelu(lin1(ax))` once per
@@ -6,6 +6,13 @@ Predictor) and a request's rows attach to it through `extend`. Training
 runs `propagate` with the trainer's `out_rows` shortcut: the first
 propagation `ax` is a constant, so only `a_norm[idx]` rows of the second
 are computed; dropout (0.2) hits `h` over all N rows (`gnn.py:93-99`).
+
+The sparse layout (`--sparse_graph`, `ops/graphctx.SparseGraphContext`)
+replaces each row of a normalised adjacency by K (index, weight) slots:
+a row's propagation is then a gather of K rows and their weighted sum
+(`gather_sum`, `gnn.py:81-92`), the same function summed in another order.
+`propagate_sparse` and `extend_sparse` are the sparse forms of `propagate`
+and `extend`.
 """
 from __future__ import annotations
 
@@ -17,6 +24,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
+
+
+def gather_sum(idx: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """sum_k w[r, k] h[idx[r, k]]: (R, K) slots over the rows of h (N, H)."""
+    return torch.einsum("rk,rkh->rh", w, h[idx])
 
 
 def normalize_adjacency(adj: np.ndarray) -> np.ndarray:
@@ -77,4 +89,32 @@ class SimpleGCN(nn.Module):
         ax_new = a_rows @ xg_corpus + self_w[:, None] * xg_new
         h_new = F.gelu(self.lin1(ax_new))
         prop = a_rows @ h_corpus + self_w[:, None] * h_new
+        return self.lin2(prop)
+
+    def propagate_sparse(
+        self,
+        nbr_idx: torch.Tensor,
+        nbr_w: torch.Tensor,
+        ax: torch.Tensor,
+        gen: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """`propagate` with the rows' neighbour lists (R, K) in place of
+        their adjacency rows: lin2(gather_sum(dropout(gelu(lin1(ax)))))."""
+        h = drop(F.gelu(self.lin1(ax)), self.dropout, gen)
+        return self.lin2(gather_sum(nbr_idx, nbr_w, h))
+
+    def extend_sparse(
+        self,
+        new_idx: torch.Tensor,
+        new_w: torch.Tensor,
+        self_w: torch.Tensor,
+        xg_new: torch.Tensor,
+        xg_corpus: torch.Tensor,
+        h_corpus: torch.Tensor,
+    ) -> torch.Tensor:
+        """`extend` with each new node's corpus links as (B, K) slots (index,
+        normalised weight; padding weighs 0) in place of its (B, N) row."""
+        ax_new = gather_sum(new_idx, new_w, xg_corpus) + self_w[:, None] * xg_new
+        h_new = F.gelu(self.lin1(ax_new))
+        prop = gather_sum(new_idx, new_w, h_corpus) + self_w[:, None] * h_new
         return self.lin2(prop)

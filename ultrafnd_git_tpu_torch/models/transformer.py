@@ -10,6 +10,12 @@ CUDA tensor its forward is K2 and its backward K3 + K4. Training mode
 block, after attention and after `mlp_out`, as the JAX block does; nothing
 inside attention is dropped. MoE blocks, remat, ring attention and coord
 dropout are not ported yet (ROADMAP.md): the trainer raises for them.
+
+`dtype=torch.bfloat16` is the JAX tower's `dtype=jnp.bfloat16` (serving's
+bf16 lever; params stay f32): the embedding rows, every Dense and the
+block layer norms' outputs are bf16 (`models/layers.py` mirrors Flax's
+casts), the padding bias is bf16, attention runs on K2's bf16 mode, and
+the final layer norm and the pooling are f32.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from ultrafnd_git_tpu_torch.kernels.flash_attention import (
     padding_bias,
 )
 from ultrafnd_git_tpu_torch.models.dropout import dropout
+from ultrafnd_git_tpu_torch.models.layers import Dense, LayerNorm
 from ultrafnd_git_tpu_torch.ops.hashing import basis_for_salt, fnv1a_64
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon (torch defaults to 1e-5)
@@ -78,13 +85,13 @@ def gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     """qkv Dense -> split in three -> (B, H, S, D) -> flash kernel -> out."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if width % heads:
             raise ValueError(f"width={width} not divisible by heads={heads}")
         self.width, self.heads = width, heads
-        self.qkv = nn.Linear(width, 3 * width)
-        self.out = nn.Linear(width, width)
+        self.qkv = Dense(width, 3 * width, dtype)
+        self.out = Dense(width, width, dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
@@ -95,7 +102,7 @@ class MultiHeadAttention(nn.Module):
             return t.reshape(b, s, self.heads, d).transpose(1, 2).contiguous()
 
         o = flash_attention(
-            heads_first(q), heads_first(k), heads_first(v), padding_bias(mask)
+            heads_first(q), heads_first(k), heads_first(v), padding_bias(mask, x.dtype)
         )  # (B, H, S, D)
         return self.out(o.transpose(1, 2).reshape(b, s, self.width))
 
@@ -104,15 +111,16 @@ class EncoderBlock(nn.Module):
     """Pre-LN block: x + drop(attn(ln1(x))); x + drop(mlp(ln2(x)))."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: int = 4,
-                 gelu: str = "tanh", dropout: float = 0.1):
+                 gelu: str = "tanh", dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.gelu = gelu
         self.dropout = dropout
-        self.ln1 = nn.LayerNorm(width, eps=LN_EPS)
-        self.attn = MultiHeadAttention(width, heads)
-        self.ln2 = nn.LayerNorm(width, eps=LN_EPS)
-        self.mlp_in = nn.Linear(width, mlp_ratio * width)
-        self.mlp_out = nn.Linear(mlp_ratio * width, width)
+        self.ln1 = LayerNorm(width, LN_EPS, dtype)
+        self.attn = MultiHeadAttention(width, heads, dtype)
+        self.ln2 = LayerNorm(width, LN_EPS, dtype)
+        self.mlp_in = Dense(width, mlp_ratio * width, dtype)
+        self.mlp_out = Dense(mlp_ratio * width, width, dtype)
 
     def forward(
         self,
@@ -137,16 +145,18 @@ class TextTransformer(nn.Module):
         max_len: int = 256,
         gelu: str = "tanh",
         dropout: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.tok_embed = nn.Embedding(vocab_size, width)
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, width))
-        self.ln_embed = nn.LayerNorm(width, eps=LN_EPS)
+        self.ln_embed = LayerNorm(width, LN_EPS, dtype)
         self.blocks = nn.ModuleList(
-            EncoderBlock(width, heads, gelu=gelu, dropout=dropout)
+            EncoderBlock(width, heads, gelu=gelu, dropout=dropout, dtype=dtype)
             for _ in range(depth)
         )
-        self.ln_final = nn.LayerNorm(width, eps=LN_EPS)
+        self.ln_final = LayerNorm(width, LN_EPS)  # f32, as the JAX tower's
 
     def forward(
         self,
@@ -155,8 +165,10 @@ class TextTransformer(nn.Module):
         gen: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """`gen` = None is eval mode; a generator turns dropout on."""
-        x = self.tok_embed(ids) + self.pos_embed[:, : ids.shape[1]]
-        x = self.ln_embed(x)
+        x = self.tok_embed(ids)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = self.ln_embed(x + self.pos_embed[:, : ids.shape[1]].to(x.dtype))
         for block in self.blocks:
             x = block(x, mask, gen)
         x = self.ln_final(x)

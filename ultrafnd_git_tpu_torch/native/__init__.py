@@ -1,4 +1,5 @@
-"""Host C++ ops bound with ctypes: hash embeddings, FNV-1a, dense Jaccard.
+"""Host C++ ops bound with ctypes: hash embeddings, FNV-1a, the Jaccard
+graph (dense adjacency and edge list).
 
 The port's copy of `ultrafnd_git_tpu/native/`, reduced to the bindings
 the port calls. Each source (`hashops.cpp`, `graphops.cpp`) is built with
@@ -16,7 +17,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "graphops": {
         "ufnd_jaccard_adj": (None, [_I64P, _I32P, ctypes.c_int64, ctypes.c_int64,
                                     ctypes.c_float, ctypes.c_int, _F32P]),
+        "ufnd_jaccard_edges": (ctypes.c_int64, [_I64P, _I32P, ctypes.c_int64, ctypes.c_int64,
+                                                ctypes.c_float, ctypes.c_int, ctypes.c_int64,
+                                                _I32P, _I32P, _F32P]),
     },
 }
 
@@ -139,6 +143,45 @@ def jaccard_adj_native(ocr_sets: Sequence, thresh: float, mode: int) -> Optional
         ctypes.c_float(float(thresh)), int(mode), out.ctypes.data_as(_F32P),
     )
     return out
+
+
+def jaccard_edges_native(
+    ocr_sets: Sequence, thresh: float, mode: int = 0
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Symmetric COO edge list (src, dst, w) in C++, both directions, no
+    diagonal, sorted by (src, dst); mode 0 weighs every edge 1, mode 1 by
+    its Jaccard value. None when the library is absent, or for mode 0 with
+    thresh <= 0 (see `jaccard_adj_native`).
+
+    Two passes: count, allocate exactly, fill. Raises RuntimeError when the
+    fill writes another count than the first pass gave (a check that
+    `python -O` keeps)."""
+    lib = get_lib("graphops")
+    if lib is None or (mode == 0 and thresh <= 0.0):
+        return None
+    n = len(ocr_sets)
+    src = np.zeros(0, np.int32)
+    dst = np.zeros(0, np.int32)
+    w = np.zeros(0, np.float32)
+    if n == 0:
+        return src, dst, w
+    row_off, tok, vocab_n = _csr_from_sets(ocr_sets)
+    args = (row_off.ctypes.data_as(_I64P), tok.ctypes.data_as(_I32P), n, vocab_n,
+            ctypes.c_float(float(thresh)), int(mode))
+    total = int(lib.ufnd_jaccard_edges(*args, 0, None, None, None))
+    if total:
+        src = np.empty(total, np.int32)
+        dst = np.empty(total, np.int32)
+        w = np.empty(total, np.float32)
+        wrote = int(lib.ufnd_jaccard_edges(*args, total, src.ctypes.data_as(_I32P),
+                                           dst.ctypes.data_as(_I32P), w.ctypes.data_as(_F32P)))
+        if wrote != total:
+            raise RuntimeError(
+                f"ufnd_jaccard_edges counted {total} entries but the fill pass gave {wrote}"
+            )
+        order = np.lexsort((dst, src))
+        src, dst, w = src[order], dst[order], w[order]
+    return src, dst, w
 
 
 def _csr_from_sets(ocr_sets: Sequence):

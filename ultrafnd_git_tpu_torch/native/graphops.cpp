@@ -1,7 +1,8 @@
-// Host C++: dense OCR-Jaccard adjacency by posting lists (plain C ABI, ctypes).
+// Host C++: OCR-Jaccard adjacency and edge list by posting lists (plain C
+// ABI, ctypes).
 //
 // The port's copy of ultrafnd_git_tpu/native/graphops.cpp, reduced to the
-// dense builder the port binds. Only pairs that share a token can have a
+// dense adjacency and the edge list the port binds. Only pairs that share a token can have a
 // nonzero intersection, so intersections are counted through per-token
 // posting lists in O(sum_t |d_t|^2) instead of the O(N^2 V) incidence
 // matmul of the numpy path in ops/jaccard.py.
@@ -67,6 +68,36 @@ void for_each_intersecting_pair(const int64_t* row_off, const int32_t* tok,
 }  // namespace
 
 extern "C" {
+
+// Symmetric COO edge list of the thresholded graph (both directions, no
+// diagonal) from CSR token-id rows, as ufnd_jaccard_adj's arguments.
+//   mode : 0 -> binary weights (1.0); 1 -> the Jaccard value as weight
+//   cap  : capacity of out_i / out_j / out_w (entries)
+// Returns the number of entries the full result needs; entries past `cap`
+// are counted but not written, so the caller counts (cap 0), allocates and
+// fills. Write order is deterministic (ascending i, then posting-list touch
+// order for j) but not sorted; the caller sorts.
+int64_t ufnd_jaccard_edges(const int64_t* row_off, const int32_t* tok, int64_t n,
+                           int64_t vocab, float thresh, int mode, int64_t cap,
+                           int32_t* out_i, int32_t* out_j, float* out_w) {
+  int64_t count = 0;
+  if (n <= 0) return 0;
+  for_each_intersecting_pair(row_off, tok, n, vocab, [&](int64_t i, int64_t j, float jac) {
+    if (jac < thresh) return;
+    const float w = mode == 1 ? jac : 1.0f;
+    if (w == 0.0f) return;
+    if (count + 2 <= cap) {
+      out_i[count] = static_cast<int32_t>(i);
+      out_j[count] = static_cast<int32_t>(j);
+      out_w[count] = w;
+      out_i[count + 1] = static_cast<int32_t>(j);
+      out_j[count + 1] = static_cast<int32_t>(i);
+      out_w[count + 1] = w;
+    }
+    count += 2;
+  });
+  return count;
+}
 
 // Dense (n, n) float32 Jaccard adjacency from CSR token-id rows.
 //   row_off : int64[n+1] CSR offsets into tok

@@ -1,8 +1,8 @@
 """OCR-Jaccard graph of a corpus, on the host.
 
 The port's copy of `ultrafnd_git_tpu/ops/jaccard.py`, reduced to
-`build_adj_from_ocr` and what it needs. The numpy path is two products of
-a binary record-by-token incidence matrix M:
+`build_adj_from_ocr`, `build_edges_from_ocr` and what they need. The numpy
+path is two products of a binary record-by-token incidence matrix M:
 
     inter   = M @ M.T
     union   = |s_i| + |s_j| - inter
@@ -14,7 +14,7 @@ taken when it builds.
 """
 from __future__ import annotations
 
-from typing import Sequence, Set
+from typing import Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -57,3 +57,43 @@ def build_adj_from_ocr(ocr_sets: Sequence[Set[str]], thresh: float = 0.12) -> np
     adj = (pairwise_jaccard(ocr_sets) >= thresh).astype(np.float32)
     np.fill_diagonal(adj, 1.0)
     return adj
+
+
+def build_edges_from_ocr(
+    ocr_sets: Sequence[Set[str]],
+    thresh: float = 0.12,
+    weighted: bool = False,
+    block_rows: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Symmetric COO edge list (src int32, dst int32, w f32) of the graph:
+    the off-diagonal nonzeros of `build_adj_from_ocr` (weights 1, or the
+    Jaccard value with `weighted`), both directions, sorted by (src, dst).
+    O(E) memory on the native path; the numpy path runs the incidence
+    product in row blocks of about 64 MB (`block_rows` pins the block), so
+    no (N, N) slab is built, but it holds the dense (N, V) incidence."""
+    n = len(ocr_sets)
+    if n == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, np.float32)
+    out = native.jaccard_edges_native(ocr_sets, thresh, mode=1 if weighted else 0)
+    if out is not None:
+        return out
+    m = incidence_matrix(ocr_sets)
+    sizes = m.sum(axis=1)
+    srcs, dsts, ws = [], [], []
+    block = block_rows or max(1, min(n, (1 << 24) // max(1, n)))
+    for s in range(0, n, block):
+        inter = m[s:s + block] @ m.T
+        union = sizes[s:s + block, None] + sizes[None, :] - inter
+        jac = (inter / (union + 1e-9)).astype(np.float32)
+        keep = jac >= thresh
+        if weighted:  # a weight of 0 is no edge, as on the native path
+            keep &= jac > 0
+        rows, cols = np.nonzero(keep)
+        off = (rows + s) != cols  # the diagonal never contributes an edge
+        rows, cols = rows[off], cols[off]
+        srcs.append((rows + s).astype(np.int32))
+        dsts.append(cols.astype(np.int32))
+        ws.append(jac[rows, cols] if weighted else np.ones(len(rows), np.float32))
+    src, dst, w = np.concatenate(srcs), np.concatenate(dsts), np.concatenate(ws)
+    order = np.lexsort((dst, src))
+    return src[order], dst[order], w[order]

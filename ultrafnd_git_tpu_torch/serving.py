@@ -1,27 +1,45 @@
 """Serving: score new records against an exported model directory.
 
-Counterpart of `ultrafnd_git_tpu/serving.py`'s `Predictor` on its default
-fused-align path, dense graph:
+Counterpart of `ultrafnd_git_tpu/serving.py`'s `Predictor` on its fused-align
+path, everything it serves on one device:
 
     predictor = Predictor(model_dir)          # device="cuda" by default
     rows = predictor.predict(records)         # [{id, prob_fake, label, ...}]
+    rows = predictor.explain(records, method="grad" | "shap")
 
-`model_dir` comes from `scripts/export_torch_model.py` (weights.pt,
-meta.json, feature_cache.npz). A request is featurized on the host (hash
-rungs), then one chunk runs the whole scoring program on the device:
-temporal alignment, delay and aux, the text tower (its attention on the
-flash kernel), the new-node GCN extension against the corpus graph,
-fusion and the classifier. A new record attaches to the corpus by its
-OCR-Jaccard row with self weight 2 / deg_new, exactly as a corpus node's
-A_hat entry; new nodes do not see each other.
+`model_dir` comes from `scripts/export_torch_model.py` or the port's own
+trainer (weights.pt, meta.json, feature_cache.npz). A request is
+featurized on the host (hash rungs), then one chunk runs the whole scoring
+program on the device: temporal alignment, delay and aux, the text tower
+(its attention on the flash kernel), the new-node GCN extension against
+the corpus graph, fusion and the classifier. A new record attaches to the
+corpus by its OCR-Jaccard row with self weight 2 / deg_new, exactly as a
+corpus node's A_hat entry; new nodes do not see each other, so scoring is
+row-independent (the HTTP server's batching relies on it).
+
+Levers, as the JAX Predictor's:
+* `bf16=True`: tower, fusion and classifier built with dtype bf16 (their
+  Dense layers, and the tower's attention on K2's bf16 mode); params stay
+  f32; the align MLP and the GCN stay f32.
+* `quantize=True`: every Dense and embedding matrix of at least 4096
+  elements held as int8 with per-channel scales (`ops/quant.py`),
+  dequantized right before use (to bf16 under bf16); the corpus GCN
+  context comes from the f32 dequantization. explain() uses the
+  full-precision modules.
+* `sparse_graph`: the corpus graph as (N, K) neighbour lists (a
+  `--sparse_graph` checkpoint's default; `sparse_graph=True/False`
+  overrides it either way, the GCN params being layout-free); new nodes
+  then attach through their (B, K) link lists instead of (B, N) rows.
 
 Not ported yet (each raises NotImplementedError; see ROADMAP.md): evidence
-checkpoints, the sparse graph layout, bf16, int8 weights, multi-device
-dispatch, explain() and the legacy two-dispatch path.
+checkpoints, multi-device dispatch (`serve_dp`) and the legacy
+two-dispatch path (`fused_align=False`).
 """
 from __future__ import annotations
 
+import copy
 import json
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Sequence
@@ -33,11 +51,16 @@ from ultrafnd_git_tpu_torch.data.cache import load_cache
 from ultrafnd_git_tpu_torch.data.featurize import featurize_records
 from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
 from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
-from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
+from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN, gather_sum
 from ultrafnd_git_tpu_torch.models.temporal import TemporalAlignMLP, _pad_or_trunc
 from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
-from ultrafnd_git_tpu_torch.ops.graphctx import SLICES, build_graph_context
+from ultrafnd_git_tpu_torch.ops.graphctx import (
+    SLICES,
+    build_graph_context,
+    build_sparse_graph_context,
+)
 from ultrafnd_git_tpu_torch.ops.hashing import set_hash_salt
+from ultrafnd_git_tpu_torch.ops.quant import quantize_modules
 from ultrafnd_git_tpu_torch.utils.device import resolve_device
 
 MAX_CHUNK_ROWS = 4096  # largest dispatch chunk on an accelerator
@@ -51,8 +74,11 @@ def _todo(what: str) -> NotImplementedError:
     )
 
 
-def build_modules(meta: Mapping[str, Any]) -> Dict[str, torch.nn.Module]:
-    """The port's modules for a model directory's meta.json (no weights)."""
+def build_modules(
+    meta: Mapping[str, Any], dtype: Optional[torch.dtype] = None
+) -> Dict[str, torch.nn.Module]:
+    """The port's modules for a model directory's meta.json (no weights);
+    `dtype` is the compute dtype of the tower, fusion and classifier."""
     f, c, a = meta["fusion"], meta["classifier"], meta["align"]
     mods: Dict[str, torch.nn.Module] = {
         "align": TemporalAlignMLP(a["in_dim"], a["out_dim"]),
@@ -64,6 +90,7 @@ def build_modules(meta: Mapping[str, Any]) -> Dict[str, torch.nn.Module]:
             temporal_dim=f["temporal_dim"],
             use_gnn=f["use_gnn"],
             gnn_dim=f["gnn_dim"],
+            dtype=dtype,
         ),
         "clf": DeepTruthClassifier(
             in_dim=f["hidden"],
@@ -75,6 +102,7 @@ def build_modules(meta: Mapping[str, Any]) -> Dict[str, torch.nn.Module]:
             node_depth=c["node_depth"],
             node_tau=c["node_tau"],
             temperature_init=c["temperature_init"],
+            dtype=dtype,
         ),
     }
     if f["use_gnn"]:
@@ -89,6 +117,7 @@ def build_modules(meta: Mapping[str, Any]) -> Dict[str, torch.nn.Module]:
             vocab_size=t["vocab_size"],
             max_len=t["max_len"],
             gelu=t["gelu"],
+            dtype=dtype,
         )
     return mods
 
@@ -125,10 +154,9 @@ class Predictor:
         quantize: bool = False,
         fused_align: bool = True,
         serve_dp: Optional[int] = None,
+        sparse_graph: Optional[bool] = None,
     ):
         for what, on in (
-            ("bf16 serving", bf16),
-            ("int8 (quantize) serving", quantize),
             ("the legacy two-dispatch path (fused_align=False)", not fused_align),
             ("multi-device dispatch (serve_dp)", serve_dp not in (None, 1)),
         ):
@@ -137,14 +165,16 @@ class Predictor:
         self.device = resolve_device(device)
         self.model_dir = Path(model_dir)
         self.batch_size = max(1, int(batch_size))
+        self.bf16, self.quantize = bool(bf16), bool(quantize)
         with open(self.model_dir / "meta.json", "r", encoding="utf-8") as fh:
             self.meta = json.load(fh)
         cfg = self.meta["cfg"]
         if cfg.get("use_evidence", False):
             raise _todo("an evidence (use_evidence) checkpoint")
         self.use_gnn = bool(self.meta["fusion"]["use_gnn"])
-        if cfg.get("sparse_graph", False) and self.use_gnn:
-            raise _todo("the sparse graph layout (a --sparse_graph checkpoint)")
+        if sparse_graph is None:
+            sparse_graph = bool(cfg.get("sparse_graph", False))
+        self.sparse_graph = bool(sparse_graph)
 
         # featurize under the hash draw the checkpoint was trained with;
         # the salt is process-wide, so featurize() sets it again per call
@@ -157,23 +187,47 @@ class Predictor:
         weights = torch.load(
             self.model_dir / "weights.pt", map_location="cpu", weights_only=True
         )
-        self.modules = build_modules(self.meta)
+        # full-precision modules (explain() and its background read these)
+        self.modules = build_modules(self.meta, torch.bfloat16 if self.bf16 else None)
         for name, mod in self.modules.items():
             mod.load_state_dict(weights[name])
             mod.to(self.device).eval()
-        self.align = self.modules["align"]
-        self.fusion = self.modules["fusion"]
-        self.clf = self.modules["clf"]
-        self.gnn = self.modules.get("gnn")
-        self.text_tower = self.modules.get("text_tower")
+        # the modules the scoring program runs: the same, or int8 copies
+        self.score_modules = dict(self.modules)
+        if self.quantize:
+            dq = torch.bfloat16 if self.bf16 else torch.float32
+            stats = {"quantized": 0, "kept": 0}
+            for name in self.score_modules.keys() - {"align"}:  # align: never quantized
+                self.score_modules[name] = copy.deepcopy(self.modules[name])
+                for k, v in quantize_modules(self.score_modules[name], dq).items():
+                    stats[k] += v
+            print(f"int8 serving weights: {stats['quantized']} matrices quantized, "
+                  f"{stats['kept']} small leaves kept f32", file=sys.stderr)
+        self.align = self.score_modules["align"]
+        self.fusion = self.score_modules["fusion"]
+        self.clf = self.score_modules["clf"]
+        self.gnn = self.score_modules.get("gnn")
+        self.text_tower = self.score_modules.get("text_tower")
 
         if self.use_gnn:
             # corpus context once: the graph and layer-1 activations are
             # fixed at serving time
-            gctx = build_graph_context(self.cache, self.thresh)
+            if self.sparse_graph:
+                gctx = build_sparse_graph_context(self.cache, self.thresh)
+                self.NBR_IDX = torch.from_numpy(gctx.nbr_idx).to(self.device, torch.int64)
+                self.NBR_W = torch.from_numpy(gctx.nbr_w).to(self.device)
+            else:
+                gctx = build_graph_context(self.cache, self.thresh)
+                self._a_norm = gctx.a_norm  # host copy, for explain()'s background
             self.XG = torch.from_numpy(gctx.xg).to(self.device)
+            corpus_gnn = self.gnn
+            if self.quantize and self.bf16:
+                # the corpus context uses the f32 dequantization, the
+                # requests the bf16 one (as the JAX Predictor)
+                corpus_gnn = copy.deepcopy(self.modules["gnn"])
+                quantize_modules(corpus_gnn, torch.float32)
             with torch.inference_mode():
-                self.H_CORPUS = self.gnn.corpus_hidden(
+                self.H_CORPUS = corpus_gnn.corpus_hidden(
                     torch.from_numpy(gctx.ax).to(self.device)
                 )
             self.corpus_deg = gctx.deg
@@ -189,14 +243,17 @@ class Predictor:
                 [len(s) for s in self.cache["ocr_sets"]], dtype=np.float32
             )
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._explain_bg: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
-    def _new_node_rows(self, ocr_sets: Sequence[set]):
-        """Normalised adjacency rows (B, N) of new nodes and self weights (B,)."""
+    def _new_node_links(self, ocr_sets: Sequence[set]) -> List[np.ndarray]:
+        """Per new record, the corpus rows whose OCR Jaccard with it is at
+        least the threshold (via the inverted index)."""
         n = len(self._corpus_sizes)
-        rows = np.zeros((len(ocr_sets), n), dtype=np.float32)
-        for i, s in enumerate(ocr_sets):
+        links = []
+        for s in ocr_sets:
             if not s:
+                links.append(np.zeros(0, dtype=np.int64))
                 continue
             inter = np.zeros(n, dtype=np.float32)
             for tok in s:
@@ -204,14 +261,35 @@ class Predictor:
                 if js is not None:
                     inter[js] += 1.0
             union = len(s) + self._corpus_sizes - inter
-            jac = inter / (union + 1e-9)
-            rows[i] = (jac >= self.thresh).astype(np.float32)
+            links.append(np.flatnonzero(inter / (union + 1e-9) >= self.thresh))
+        return links
+
+    def _new_node_rows(self, ocr_sets: Sequence[set]):
+        """Normalised adjacency rows (B, N) of new nodes and self weights (B,)."""
+        links = self._new_node_links(ocr_sets)
+        rows = np.zeros((len(links), len(self._corpus_sizes)), dtype=np.float32)
+        for i, js in enumerate(links):
+            rows[i, js] = 1.0
         # a corpus node's A_hat self weight is 2 (adjacency diagonal plus
         # the added I); the new node mirrors it: deg = links + 2
         deg_new = rows.sum(axis=1) + 2.0
         self_w = (2.0 / deg_new).astype(np.float32)
         rows = rows / np.sqrt(deg_new)[:, None] / np.sqrt(self.corpus_deg)[None, :]
         return rows, self_w
+
+    def _new_node_lists(self, ocr_sets: Sequence[set]):
+        """The same links as (B, K) neighbour lists: corpus ids (int64) and
+        normalised weights (0 on padding slots), and self weights (B,)."""
+        links = self._new_node_links(ocr_sets)
+        k = max(1, max((len(js) for js in links), default=0))
+        idx = np.zeros((len(links), k), dtype=np.int64)
+        w = np.zeros((len(links), k), dtype=np.float32)
+        deg_new = np.asarray([len(js) + 2.0 for js in links], dtype=np.float32)
+        for i, js in enumerate(links):
+            idx[i, :len(js)] = js
+            w[i, :len(js)] = (np.float32(1.0) / np.sqrt(deg_new[i])
+                              / np.sqrt(self.corpus_deg[js]))
+        return idx, w, (2.0 / deg_new).astype(np.float32)
 
     def featurize(
         self, records: Sequence[Dict[str, Any]], id_offset: int = 0
@@ -241,8 +319,21 @@ class Predictor:
         chunk N. On the CPU a chunk is batch_size rows; on a GPU it grows
         along batch_size, 2x, 4x, ... up to MAX_CHUNK_ROWS.
         """
+        return self._pipeline(records, collect_fused=False)[0]
+
+    def predict_featurized(self, feats: Dict[str, Any], count: int) -> List[Dict[str, Any]]:
+        """Score the first `count` rows of one featurize() output in one
+        chunk: the scoring half that the HTTP batcher runs under its device
+        lock while it featurizes the next window outside it. Rows equal
+        predict()'s for a window that fits one chunk."""
+        return self._score_chunk(feats, count)
+
+    def _pipeline(self, records: Sequence[Dict[str, Any]], collect_fused: bool):
+        """The featurize -> score loop behind predict() and explain():
+        (rows, fused (n, H), aux (n, 2)); the last two are None unless
+        collect_fused."""
         if not records:
-            return []
+            return [], None, None
         records = list(records)
         n = len(records)
         max_rows = self.batch_size
@@ -254,15 +345,23 @@ class Predictor:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="featurize"
             )
-        out: List[Dict[str, Any]] = []
+        rows: List[Dict[str, Any]] = []
+        fused_parts, aux_parts = [], []
         fut = self._pool.submit(self.featurize, records[bounds[0][0]:bounds[0][1]], 0)
         for ci, (s, e) in enumerate(bounds):
             feats = fut.result()
             if ci + 1 < len(bounds):
                 ns, ne = bounds[ci + 1]
                 fut = self._pool.submit(self.featurize, records[ns:ne], ns)
-            out.extend(self._score_chunk(feats, e - s))
-        return out
+            out = self._score_chunk(feats, e - s, collect_fused)
+            if collect_fused:
+                out, f, a = out
+                fused_parts.append(f)
+                aux_parts.append(a)
+            rows.extend(out)
+        if collect_fused:
+            return rows, np.concatenate(fused_parts), np.concatenate(aux_parts)
+        return rows, None, None
 
     def warmup(self, max_records: int = 64) -> int:
         """Run predict() once per bucket size up to the first power of two
@@ -275,9 +374,6 @@ class Predictor:
             self.predict([{"title": "warmup", "ocr": "", "comments": []}] * n)
         return len(sizes)
 
-    def explain(self, *args, **kwargs):
-        raise _todo("explain()")
-
     def close(self) -> None:
         """Stop the featurize worker thread."""
         if self._pool is not None:
@@ -285,8 +381,9 @@ class Predictor:
             self._pool = None
 
     # ------------------------------------------------------------------
-    def _score_chunk(self, feats: Dict[str, Any], count: int) -> List[Dict[str, Any]]:
-        """Score the first `count` rows of one featurized chunk in one pass."""
+    def _score_chunk(self, feats: Dict[str, Any], count: int, collect_fused: bool = False):
+        """Score the first `count` rows of one featurized chunk in one pass;
+        with collect_fused, (rows, fused (count, H), aux (count, 2)) numpy."""
         bucket = self.batch_size
         while bucket < count:
             bucket *= 2
@@ -331,17 +428,27 @@ class Predictor:
                 by_key = {"text": t_raw, "audio": audio, "visual": visual, "temporal": u}
                 xg_new = torch.cat([by_key[k][:, :w] for k, w in SLICES], dim=1)
                 xg_new = xg_new / (xg_new.norm(dim=1, keepdim=True) + 1e-9)
-                a_rows, self_w = self._new_node_rows(feats["ocr_sets"][:count])
-                model_in["gnn_feat"] = self.gnn.extend(
-                    take(a_rows), take(self_w), xg_new, self.XG, self.H_CORPUS
-                )
+                ocr_sets = feats["ocr_sets"][:count]
+                if self.sparse_graph:
+                    idx, w, self_w = self._new_node_lists(ocr_sets)
+                    model_in["gnn_feat"] = self.gnn.extend_sparse(
+                        take(idx, torch.int64), take(w), take(self_w), xg_new, self.XG,
+                        self.H_CORPUS)
+                else:
+                    a_rows, self_w = self._new_node_rows(ocr_sets)
+                    model_in["gnn_feat"] = self.gnn.extend(
+                        take(a_rows), take(self_w), xg_new, self.XG, self.H_CORPUS
+                    )
             fo = self.fusion(model_in)
             probs = self.clf(fo["fused"], aux)["probs"]
             # one device -> host copy for everything the rows need
             host = torch.stack(
                 [probs[:, 1]] + [fo["forensic"][k] for k in FORENSIC_KEYS]
             )[:, :count].cpu().numpy()
-        return [
+            if collect_fused:
+                fused_np = fo["fused"][:count].cpu().numpy()
+                aux_np = aux[:count].cpu().numpy()
+        rows = [
             {
                 "id": str(feats["ids"][i]),
                 "prob_fake": float(host[0, i]),
@@ -350,3 +457,105 @@ class Predictor:
             }
             for i in range(count)
         ]
+        return (rows, fused_np, aux_np) if collect_fused else rows
+
+    # ------------------------------------------------------------------
+    def _explain_background(self, k: int) -> np.ndarray:
+        """(K, hidden + 2) SHAP background from the training corpus: evenly
+        spaced corpus rows through the full-precision fusion, with their
+        transductive GCN embeddings and the tower's text features on tower
+        checkpoints, beside their cached aux. Computed once, cached.
+        Explaining a request against itself would make attributions depend
+        on the rest of the request, and vanish for a single record."""
+        if self._explain_bg is not None and self._explain_bg.shape[0] >= k:
+            return self._explain_bg[:k]
+        n = int(self.cache["labels"].shape[0])
+        idx = np.unique(np.linspace(0, n - 1, num=min(k, n)).astype(np.int64))
+
+        def rows(key, dtype=torch.float32):
+            return torch.from_numpy(np.asarray(self.cache[key][idx])).to(self.device, dtype)
+
+        m = self.modules
+        with torch.inference_mode():
+            feats = {
+                "audio_features": rows("audio"),
+                "visual_features": rows("visual"),
+                "temporal_features": rows("temporal"),
+                "text_features": (
+                    m["text_tower"](rows("text_ids", torch.int64), rows("text_mask"))
+                    if "text_tower" in m else rows("text")
+                ),
+            }
+            if self.use_gnn:
+                if self.sparse_graph:
+                    sel = torch.from_numpy(idx).to(self.device)
+                    agg = gather_sum(self.NBR_IDX[sel], self.NBR_W[sel], self.H_CORPUS)
+                else:
+                    agg = torch.from_numpy(self._a_norm[idx]).to(self.device) @ self.H_CORPUS
+                feats["gnn_feat"] = m["gnn"].lin2(agg)
+            fused = m["fusion"](feats)["fused"].cpu().numpy()
+        self._explain_bg = np.concatenate(
+            [fused, self.cache["aux"][idx].astype(np.float32)], axis=1)
+        return self._explain_bg
+
+    def explain(
+        self,
+        records: Sequence[Dict[str, Any]],
+        method: str = "grad",
+        top_k: int = 8,
+        n_coalitions: Optional[int] = None,
+        background_size: int = 32,
+    ) -> List[Dict[str, Any]]:
+        """Score records and attach the classifier's attributions per record.
+
+        Attributions are over the classifier's input, the fused embedding
+        plus the two aux scalars [temporal_delay, emotion], with the
+        full-precision modules. `method`:
+          * "grad": Gradient x Input on the class-1 logit (one backward);
+          * "shap": KernelSHAP of the class-1 probability against a fixed
+            corpus background (`training/interpret.explain_shap`); for a
+            "kernel-shap" result base_value + sum(values) == prob_fake (under
+            quantize, the full-precision classifier's probability of the
+            served fused row, as in the JAX Predictor).
+        Each row gains "explain": {method, aux: {...}, top_fused_dims:
+        [[dim, value], ...], fused_attr_l1, fused_signed_sum, and
+        base_value for kernel-shap}.
+        """
+        from ultrafnd_git_tpu_torch.training import interpret
+
+        if method not in ("grad", "shap"):
+            raise ValueError(f"unknown explain method: {method!r}")
+        if not records:
+            return []
+        rows, fused, aux = self._pipeline(list(records), collect_fused=True)
+        clf = self.modules["clf"]
+        base_values = None
+        if method == "grad":
+            values, _ = interpret.feature_importance(clf, fused, aux)
+            method_used = "grad_x_input"
+        else:
+            out = interpret.explain_shap(
+                clf, fused, aux, max_samples=len(rows), n_coalitions=n_coalitions,
+                background=self._explain_background(background_size),
+            )
+            values, method_used = out["values"], out["method"]
+            base_values = out.get("base_values")
+        h = fused.shape[1]
+        for i, row in enumerate(rows):
+            v = np.asarray(values[i])
+            fused_v, aux_v = v[:h], v[h:]
+            order = np.argsort(-np.abs(fused_v))[: max(0, int(top_k))]
+            info = {
+                "method": method_used,
+                "aux": {
+                    "temporal_delay": float(aux_v[0]) if aux_v.size else 0.0,
+                    "emotion": float(aux_v[1]) if aux_v.size > 1 else 0.0,
+                },
+                "top_fused_dims": [[int(d), float(fused_v[d])] for d in order],
+                "fused_attr_l1": float(np.abs(fused_v).sum()),
+                "fused_signed_sum": float(fused_v.sum()),
+            }
+            if base_values is not None:
+                info["base_value"] = float(base_values[i])
+            row["explain"] = info
+        return rows

@@ -2,7 +2,7 @@
 
     python -m ultrafnd_git_tpu_torch.train --model_dir D --out_dir O \
         [--epochs 12] [--batch_size 16] [--train_text_tower] [--fused_adamw] \
-        [--device cuda|cpu] [--export_model_dir M]
+        [--sparse_graph] [--device cuda|cpu] [--export_model_dir M]
 
 `--model_dir` is a model directory from `scripts/export_torch_model.py`:
 the run's feature cache comes from it (unless out_dir already has one)
@@ -34,6 +34,9 @@ def parse_args(argv=None):
     p.add_argument("--no_gnn", action="store_true", help="Disable GNN features")
     p.add_argument("--freeze_gnn", action="store_true",
                    help="Keep the GCN frozen after its degree-recon pretrain")
+    p.add_argument("--sparse_graph", action="store_true",
+                   help="the corpus graph as padded (N, K) neighbour lists: "
+                        "no (N, N) adjacency is built")
     p.add_argument("--grad_accum", type=int, default=1)
     p.add_argument("--fused_adamw", action="store_true",
                    help="accepted for run_train_eval.py parity; no effect: "
@@ -72,6 +75,7 @@ def main(argv=None) -> dict:
         seed=args.seed,
         use_gnn=not args.no_gnn,
         train_gnn=not args.freeze_gnn,
+        sparse_graph=args.sparse_graph,
         grad_accum=args.grad_accum,
         fused_adamw=args.fused_adamw,
         train_text_tower=args.train_text_tower,

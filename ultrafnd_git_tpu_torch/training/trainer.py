@@ -6,7 +6,9 @@
     results = trainer.test()      # the JAX trainer's test_* keys
 
 Feature cache -> transductive OCR-Jaccard graph + GCN (trained in the
-step, the `out_rows` shortcut) -> optional trainable text tower (its
+step, the `out_rows` shortcut; dense (N, N) `a_norm`, or with
+`sparse_graph` padded (N, K) neighbour lists and no (N, N) object, as the
+JAX trainer's `--sparse_graph`) -> optional trainable text tower (its
 attention on K2, K3 and K4 on a GPU) -> fusion -> NODE classifier; masked
 mean cross-entropy, `grad_accum` as a sum of microbatch gradients over the
 step's valid rows, AdamW with global-norm clipping and the epoch-staircase
@@ -50,7 +52,7 @@ from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
 from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
 from ultrafnd_git_tpu_torch.models.initializers import jax_init_
 from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
-from ultrafnd_git_tpu_torch.ops.graphctx import build_graph_context
+from ultrafnd_git_tpu_torch.ops.graphctx import build_graph_context, build_sparse_graph_context
 from ultrafnd_git_tpu_torch.training import checkpoint as ckpt
 from ultrafnd_git_tpu_torch.training.loop import (
     ImprovementTracker,
@@ -144,7 +146,7 @@ def _unsupported(cfg: TrainConfig) -> list:
             ("dp", cfg.dp is not None), ("tp", cfg.tp > 1), ("dcn", cfg.dcn > 1),
             ("sp", cfg.sp > 1), ("pp", cfg.pp > 1),
             ("shard_corpus", cfg.shard_corpus), ("shard_graph", cfg.shard_graph),
-            ("sparse_graph", cfg.sparse_graph), ("use_evidence", cfg.use_evidence),
+            ("use_evidence", cfg.use_evidence),
             ("moe_experts", cfg.moe_experts > 0), ("remat_tower", cfg.remat_tower),
             ("bf16_compute", cfg.bf16_compute),
             ("save_every_steps", cfg.save_every_steps > 0),
@@ -244,7 +246,12 @@ class ForensicTrainer:
             self.corpus["text_mask"] = put(self.cache["text_mask"])
         else:
             self.corpus["text"] = put(self.cache["text"])
-        if cfg.use_gnn:
+        if cfg.use_gnn and cfg.sparse_graph:
+            sctx = build_sparse_graph_context(self.cache, cfg.gnn_overlap_thresh)
+            self.corpus["nbr_idx"] = put(sctx.nbr_idx, torch.int64)
+            self.corpus["nbr_w"] = put(sctx.nbr_w)
+            self.corpus["ax"] = put(sctx.ax)
+        elif cfg.use_gnn:
             gctx = build_graph_context(self.cache, cfg.gnn_overlap_thresh)
             self.corpus["a_norm"] = put(gctx.a_norm)
             self.corpus["ax"] = put(gctx.ax)
@@ -322,10 +329,17 @@ class ForensicTrainer:
     def pretrain_loss(self, gnn: SimpleGCN, head: torch.Tensor,
                       gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """Degree reconstruction over the full graph: mean squared error of
-        sigmoid(gcn(x) @ head) against the normalised degree."""
-        a_norm = self.corpus["a_norm"]
-        target = a_norm.sum(dim=-1, keepdim=True) / max(1.0, float(self.n_total))
-        z = gnn.propagate(a_norm, self.corpus["ax"], gen)
+        sigmoid(gcn(x) @ head) against the normalised degree (a row's sum of
+        a_norm, or of its neighbour weights under sparse_graph: the same
+        nonzeros)."""
+        c = self.corpus
+        if self.cfg.sparse_graph:
+            deg = c["nbr_w"].sum(dim=-1, keepdim=True)
+            z = gnn.propagate_sparse(c["nbr_idx"], c["nbr_w"], c["ax"], gen)
+        else:
+            deg = c["a_norm"].sum(dim=-1, keepdim=True)
+            z = gnn.propagate(c["a_norm"], c["ax"], gen)
+        target = deg / max(1.0, float(self.n_total))
         return ((torch.sigmoid(z @ head) - target) ** 2).mean()
 
     def _pretrain_gnn(self, gnn: SimpleGCN, gen: torch.Generator, epochs: int = 2) -> None:
@@ -361,8 +375,12 @@ class ForensicTrainer:
         if cfg.use_gnn:
             # frozen-GNN mode: no backward through the graph channel
             with nullcontext() if cfg.train_gnn else torch.no_grad():
-                feats["gnn_feat"] = params["gnn"].propagate(
-                    c["a_norm"][idx], c["ax"], gen)
+                if cfg.sparse_graph:
+                    feats["gnn_feat"] = params["gnn"].propagate_sparse(
+                        c["nbr_idx"][idx], c["nbr_w"][idx], c["ax"], gen)
+                else:
+                    feats["gnn_feat"] = params["gnn"].propagate(
+                        c["a_norm"][idx], c["ax"], gen)
         fo = params["fusion"](feats, gen)
         co = params["clf"](fo["fused"], c["aux"][idx], gen)
         ce = F.cross_entropy(co["logits"], c["labels"][idx], reduction="none")
