@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build, check and time its kernels, train
-a full-width text-tower model through them, then serve the trained model on
+a full-width text-tower model through them (in f32 and under --bf16), then
+serve the trained model on
 every single-device lever (f32, bf16, int8), explain it, put it behind the
 HTTP server, and train and serve it again on the sparse graph layout.
 
@@ -19,19 +20,24 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      max|plain| and lse within 1e-4, bit-identical over two calls; the fused
      K3/K4 backward
      at atol = rtol 5e-4 and dq, dk, dv within 1e-5 of max|plain|,
-     bit-identical over two calls; K1 (AdamW over the full-width parameter
-     tree, 3 steps) bit for bit, no leaf on its scalar path. Each is timed
+     bit-identical over two calls; K3/K4's bf16 mode at the training shape
+     and D = 64, 192, 256 x S = 64, 100, 512, dq, dk, dv and dbias within
+     8e-3 of max|twin|, bit-identical over two calls; K1 (AdamW over the
+     full-width parameter tree, 3 steps) bit for bit, no leaf on its scalar
+     path. Each is timed
      (CUDA events around blocks of calls that start behind a
      torch.cuda._sleep lead, median of blocks) against its plain version
      and against one PyTorch library call that computes the same function
      (its yardstick, never called by the port): SDPA's memory-efficient f32
      kernels for K2 and for K3/K4's backward, SDPA with bf16 inputs and the
-     same bias (the backend it picks, named) for K2's bf16 mode,
+     same bias (the backend it picks, named) for K2's bf16 mode and, its
+     backward, for K3/K4's (printed beside the f32 fused backward),
      torch._fused_adamw_ for K1;
      each gets its bound, the larger of its bytes over 3.35 TB/s and its
      operations over the peak rate of their type (H100 SXM data sheet):
      the flash kernels' products as the three TF32 products of 3xTF32 over
-     495 TFLOP/s, K2-bf16's two bf16 products over 989 TFLOP/s, K1's f32
+     495 TFLOP/s, K2-bf16's two and K3/K4-bf16's five bf16 products over
+     989 TFLOP/s, K1's f32
      arithmetic over 67 TFLOP/s, computed from this
      run's shapes. K1 and its library call are also timed with the host's
      work included (no lead). K2 is swept over S and D (B * S = 16384);
@@ -44,6 +50,13 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      finite, launch counts K2 = depth x (steps + eval chunks), K3/K4 =
      depth x steps, K1 = steps; one gradient with dropout off on the GPU
      and on the CPU (plain versions) agree to 1e-4 of each leaf's largest;
+ 4b. bf16_train — the same under --bf16 (bf16_compute): launches K2 = K3/K4 =
+     0, K2-bf16 = depth x (steps + eval chunks), K3/K4-bf16 = depth x steps,
+     K1 = steps; the median step beside the f32 step, a profiled step; the
+     GPU-vs-CPU gradient over one batch (512 rows) within 5e-2 in relative
+     L2 and 1e-1 of each leaf's largest (the CPU test's bounds against the
+     JAX bf16 step); the
+     best slot exported and served once through Predictor(bf16=True);
   5. serve   — the trained `best` slot exported (align weights from the
      seeded model directory the cache came with) answers three predict()
      requests (8, 64, 300 records, each sent five times after a warm-up);
@@ -108,6 +121,15 @@ BF16_LSE = 1e-4  # K2-bf16 lse, atol = rtol
 ADAMW_FLOP = 18  # f32 operations per parameter in csrc/adamw.cu's body (clipped step)
 PROB_ATOL = 1e-4  # GPU vs CPU-plain, each served value
 GRAD_RTOL = 1e-4  # GPU vs CPU-plain gradient, relative to each leaf's largest
+# bf16_compute, GPU vs CPU-plain gradient: the CPU test's bounds against the
+# JAX bf16 step (tests/test_torch_bf16_training.py): each leaf's relative L2
+# error, and its largest error relative to its largest value; over one
+# training batch of rows, not 64: the evidence gates' leaves difference two
+# near-equal bf16 terms, and over 64 rows their rounding alone moved the
+# GPU-vs-CPU gap to 5.9e-2 of a leaf's largest value (4.8e-2 in L2)
+BF16_GRAD_L2 = 5e-2
+BF16_GRAD_MAX = 1e-1
+BWD_BF16_REL = 8e-3  # K3/K4-bf16 dq, dk, dv, dbias: max|kernel - twin| / max|twin|
 TRAIN_BATCH = 512
 SERVING_SHAPE = (256, 6, 64, 128)
 TRAIN_SHAPE = (TRAIN_BATCH, 6, 64, 128)
@@ -142,7 +164,9 @@ HTTP_CLIENTS, HTTP_PER_CLIENT = 16, 8
 SWEEP = ((128, 64), (128, 256), (128, 1024), (128, 2048), (64, 64), (64, 2048),
          (192, 512), (256, 512))  # (D, S) of K2's sweep
 TOWER = dict(width=768, depth=2, heads=6, vocab_size=32768, max_len=64, gelu="tanh")
-KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd", "adamw")
+KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd",
+           "flash_attention_bwd_bf16", "adamw")
+BWD_BF16_SHAPES = (TRAIN_SHAPE,) + tuple((4, 4, s, d) for d in (64, 192, 256) for s in (64, 100, 512))
 CJK_WORDS = ("外星人", "入侵", "地球", "警告", "辟谣", "谣言", "不实", "疫苗",
              "危险", "致命", "隐瞒", "专家", "证据", "科学", "视频", "记录")
 
@@ -198,7 +222,7 @@ def phase_build():
 
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         seconds = dict(zip(KERNELS, pool.map(timed, KERNELS)))
-    fa._kernel(), fa._bf16_kernel(), fa._bwd_kernel(), aw._kernel()  # load them with ctypes
+    fa._kernel(), fa._bf16_kernel(), fa._bwd_kernel(), fa._bwd_bf16_kernel(), aw._kernel()
     ptxas = {}
     for name, s in seconds.items():
         log("build", kernel=name, seconds=s,
@@ -511,6 +535,88 @@ def check_flash_bf16(dev):
     return res
 
 
+def _bwd_bf16_bound(shape) -> dict:
+    b, h, s, d = shape  # q, k, v, out, dO, bias bf16 and lse f32 in; dq, dk, dv bf16 out; 5 bf16 products
+    return _bound(2 * (8 * b * h * s * d + b * s) + 4 * b * h * s, 10 * b * h * s * s * d, BF16_FLOPS)
+
+
+def check_flash_bwd_bf16(dev, f32_bwd_ms):
+    """K3/K4's bf16 mode against its plain twin (BWD_BF16_SHAPES, a fully
+    masked row in each, dbias on), twice for bit identity; timed at the
+    training shape (no dbias, as the trainer calls it) against the twin, its
+    bound, the backward of `_sdpa_bf16`'s call and the f32 fused backward."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+
+    res = {"max_abs_err": 0.0, "rel_err": 0.0, "dbias_max_abs_err": 0.0, "dbias_rel_err": 0.0}
+    with torch.no_grad():
+        for i, shape in enumerate(BWD_BF16_SHAPES):
+            q, k, v, do, mask = (t.to(torch.bfloat16) for t in _attention_inputs(shape, 400 + i, dev))
+            bias = fa.padding_bias(mask.float(), torch.bfloat16)
+            out, lse = fa.flash_attention_fwd_bf16(q, k, v, bias)
+            got = fa.flash_attention_bwd_bf16(q, k, v, bias, out, lse, do)
+            again = fa.flash_attention_bwd_bf16(q, k, v, bias, out, lse, do)
+            ref = fa.attention_bwd_reference_bf16(q, k, v, bias, out, lse, do)
+            torch.cuda.synchronize()
+            rel = {}
+            for name, a, a2, r in zip(("dq", "dk", "dv", "dbias"), got, again, ref):
+                if not torch.isfinite(a.float()).all():
+                    raise RuntimeError(f"non-finite K3/K4-bf16 {name} at {shape}")
+                if not torch.equal(a, a2):
+                    raise RuntimeError(f"K3/K4-bf16 {name} differs between two calls at {shape}")
+                err = _max_err(a.float(), r.float())
+                rel[name] = err / max(r.float().abs().max().item(), 1e-30)
+                if not rel[name] <= BWD_BF16_REL:
+                    raise RuntimeError(f"K3/K4-bf16 {name} at {shape}: {rel[name]} of max|twin|")
+                key = "dbias_" if name == "dbias" else ""
+                res[key + "max_abs_err"] = max(res[key + "max_abs_err"], err)
+                res[key + "rel_err"] = max(res[key + "rel_err"], rel[name])
+            log("kernels", check="flash_attention_bwd_bf16", shape=shape, bit_identical_repeat=True,
+                rel_err=json.dumps({k: round(x, 7) for k, x in rel.items()}, separators=(",", ":")))
+
+        q, k, v, do, mask = (t.to(torch.bfloat16) for t in _attention_inputs(TRAIN_SHAPE, 398, dev))
+        bias = fa.padding_bias(mask.float(), torch.bfloat16)
+        out, lse = fa.flash_attention_fwd_bf16(q, k, v, bias)
+        ms = _median_ms(lambda: fa.flash_attention_bwd_bf16(q, k, v, bias, out, lse, do,
+                                                            with_dbias=False), runs=20)
+        plain_ms = _median_ms(lambda: fa.attention_bwd_reference_bf16(q, k, v, bias, out, lse, do),
+                              runs=20)
+    backend = _sdpa_backend(q, k, v, bias)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    library_ms, lib_err, lib_note, lib_nonfinite = None, None, "", None
+    try:
+        lib_out = _sdpa_bf16(qg, kg, vg, bias)  # the bias takes no gradient, as in the trainer
+        lib_grads = torch.autograd.grad(lib_out, (qg, kg, vg), do, retain_graph=True)
+        ref = fa.attention_bwd_reference_bf16(q, k, v, bias, out, lse, do)
+        # on fully masked rows the twin follows the TPU kernels (P = 1 per
+        # key) and SDPA need not: compare the batches with a valid key, and
+        # count SDPA's non-finite gradients on the others
+        valid = mask.sum(dim=-1) > 0
+        lib_err = max(_max_err(a[valid].float(), r[valid].float()) for a, r in zip(lib_grads, ref))
+        lib_nonfinite = {"masked_batches": int((~valid).sum()), "nonfinite": sum(
+            int((~torch.isfinite(a[~valid].float())).sum()) for a in lib_grads)}
+        library_ms = _median_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                            retain_graph=True), runs=20)
+        del lib_out, lib_grads
+    except RuntimeError as exc:  # a yardstick only: the port never calls SDPA
+        lib_note = f"{type(exc).__name__}: {str(exc)[:200]}"
+    bound = _bwd_bf16_bound(TRAIN_SHAPE)
+    res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
+               f32_bwd_ms=f32_bwd_ms, **bound,
+               library_call="torch.autograd.grad of _sdpa_bf16's call (SDPA with bf16 q, k, v "
+                            "and the bias, the backend it picks) for q, k, v",
+               shared="one fused kernel computes K3's and K4's outputs: launches and ms are the "
+                      "one kernel's (delta included, no dbias, as the trainer calls it)")
+    log("kernels", time="flash_attention_bwd_bf16 (fused K3+K4, delta, no dbias)",
+        shape=TRAIN_SHAPE, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        f32_bwd_ms=f32_bwd_ms, **bound, library=f"SDPA bf16 backward, backend {backend}",
+        library_max_abs_err_vs_twin_valid_rows=lib_err,
+        library_fully_masked=json.dumps(lib_nonfinite), library_error=json.dumps(lib_note),
+        timing="median of 20 blocks of 10 calls behind a sleep lead")
+    return res
+
+
 def full_width_params(dev):
     """The trainer's parameter tree at full width (about 52 M parameters)."""
     import torch
@@ -681,31 +787,35 @@ def build_model_dir(root):
     return corpus
 
 
-def _train_cfg(out_dir, model_dir, sparse_graph=False):
+def _train_cfg(out_dir, model_dir, sparse_graph=False, bf16=False):
     from ultrafnd_git_tpu_torch.training.trainer import TrainConfig
 
     return TrainConfig(out_dir=str(out_dir), model_dir=str(model_dir),
                        batch_size=TRAIN_BATCH, epochs=1, seed=0, train_text_tower=True,
                        text_tower_depth=TOWER["depth"], text_tower_heads=TOWER["heads"],
-                       tower_gelu=TOWER["gelu"], fused_adamw=True, sparse_graph=sparse_graph)
+                       tower_gelu=TOWER["gelu"], fused_adamw=True, sparse_graph=sparse_graph,
+                       bf16_compute=bf16)
 
 
-def _grad_gap(gpu, cpu):
-    """Largest leaf error of one dropout-off gradient, GPU against CPU, over
-    64 training rows, relative to the leaf's largest CPU value."""
+def _grad_gap(gpu, cpu, rows=64):
+    """One dropout-off gradient, GPU against CPU, over `rows` training rows:
+    ((largest leaf error relative to the leaf's largest CPU value, leaf),
+    (largest relative L2 error of a leaf, leaf))."""
     import torch
 
-    idx = torch.from_numpy(np.asarray(gpu.tr_idx[:64], np.int64))
-    mask = torch.ones(64)
+    idx = torch.from_numpy(np.asarray(gpu.tr_idx[:rows], np.int64))
+    mask = torch.ones(rows)
     _, g_gpu, _ = gpu.grads_of(idx.to(gpu.device), mask.to(gpu.device))
     _, g_cpu, _ = cpu.grads_of(idx, mask)
-    worst = (0.0, "")
+    worst, worst_l2 = (0.0, ""), (0.0, "")
     for part, leaves in g_cpu.items():
         for name, c in leaves.items():
-            err = (g_gpu[part][name].cpu() - c).abs().max().item()
-            rel = err / max(c.abs().max().item(), 1e-30)
+            d = g_gpu[part][name].cpu() - c
+            rel = d.abs().max().item() / max(c.abs().max().item(), 1e-30)
+            l2 = d.norm().item() / max(c.norm().item(), 1e-30)
             worst = max(worst, (rel, f"{part}.{name}"))
-    return worst
+            worst_l2 = max(worst_l2, (l2, f"{part}.{name}"))
+    return worst, worst_l2
 
 
 def profile_step(trainer, median_step_ms, rows=12):
@@ -756,18 +866,24 @@ def profile_request(pred, recs, phase, label, rows=4):
                                 for e in top], ensure_ascii=False))
 
 
-def phase_train(dev, model_dir, out_dir, sparse_graph=False):
+def _reset_counts():
+    from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
+
+    fa.launches = fa.bf16_launches = fa.bwd_launches = fa.bwd_bf16_launches = aw.launches = 0
+
+
+def phase_train(dev, model_dir, out_dir, sparse_graph=False, bf16=False, f32_step_ms=None):
     """fit() one epoch and test() on the card, launches counted; the profile
-    of a step (dense run only); the GPU-vs-CPU gradient. Returns {launches,
-    median_step_ms}."""
+    of a step (dense runs); the GPU-vs-CPU gradient. `bf16` is the
+    `--bf16` (bf16_compute) run. Returns {launches, median_step_ms}."""
     import torch
 
     from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
     from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer
 
-    phase = "sparse" if sparse_graph else "train"
+    phase = "sparse" if sparse_graph else ("bf16_train" if bf16 else "train")
     t0 = time.perf_counter()
-    trainer = ForensicTrainer(_train_cfg(out_dir, model_dir, sparse_graph), device="cuda")
+    trainer = ForensicTrainer(_train_cfg(out_dir, model_dir, sparse_graph, bf16), device="cuda")
     if sparse_graph and ("a_norm" in trainer.corpus or "nbr_idx" not in trainer.corpus):
         raise RuntimeError("the --sparse_graph trainer did not build the neighbour lists alone")
     log(phase, init_s=time.perf_counter() - t0, corpus=trainer.n_total,
@@ -786,20 +902,21 @@ def phase_train(dev, model_dir, out_dir, sparse_graph=False):
         return out
 
     trainer.train_step = timed_step
-    fa.launches = fa.bf16_launches = fa.bwd_launches = aw.launches = 0  # this path's run only
+    _reset_counts()  # this path's run only
     t1 = time.perf_counter()
     trainer.fit()
     results = trainer.test()
     fit_test_s = time.perf_counter() - t1
     launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches, "bwd": fa.bwd_launches,
-                "adamw": aw.launches}
+                "bwd_bf16": fa.bwd_bf16_launches, "adamw": aw.launches}
     trainer.train_step = train_step
 
     steps = len(step_ms)
     chunks = sum(-(-len(s) // TRAIN_BATCH) for s in (trainer.va_idx, trainer.te_idx))
     depth = TOWER["depth"]
-    expect = {"fwd": depth * (steps + chunks), "fwd_bf16": 0, "bwd": depth * steps,
-              "adamw": steps}
+    fwd, bwd = depth * (steps + chunks), depth * steps
+    expect = {"fwd": 0 if bf16 else fwd, "fwd_bf16": fwd if bf16 else 0,
+              "bwd": 0 if bf16 else bwd, "bwd_bf16": bwd if bf16 else 0, "adamw": steps}
     if steps != -(-len(trainer.tr_idx) // TRAIN_BATCH) or launches != expect:
         raise RuntimeError(f"launches {launches} over {steps} steps, expected {expect}")
     log_rows = [json.loads(ln) for ln in (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
@@ -816,23 +933,51 @@ def phase_train(dev, model_dir, out_dir, sparse_graph=False):
         first_step_ms=step_ms[0], median_step_ms=median_step,
         samples_per_s=TRAIN_BATCH * 1e3 / median_step,
         fit_and_test_s=fit_test_s, losses=json.dumps([round(x, 6) for x in losses]),
-        test_auc=results["test_auc"])
+        test_auc=results["test_auc"],
+        **({"f32_median_step_ms": f32_step_ms,
+            "f32_samples_per_s": TRAIN_BATCH * 1e3 / f32_step_ms} if f32_step_ms else {}))
 
     if not sparse_graph:
         profile_step(trainer, median_step)
 
     t2 = time.perf_counter()
-    cfg = _train_cfg(Path(out_dir).parent / f"cpu_{phase}", model_dir, sparse_graph)
+    cfg = _train_cfg(Path(out_dir).parent / f"cpu_{phase}", model_dir, sparse_graph, bf16)
     cfg.cache_to_disk = False
     cpu = ForensicTrainer(cfg, cache=trainer.cache, device="cpu")
     for part, mod in cpu.state.params.items():
         mod.load_state_dict({k: v.cpu() for k, v in trainer.state.params[part].state_dict().items()})
-    rel, leaf = _grad_gap(trainer, cpu)
-    if not rel <= GRAD_RTOL:
-        raise RuntimeError(f"GPU vs CPU-plain gradient of {leaf} differs by {rel} of its max")
-    log(phase, gpu_vs_cpu_grad_max_rel=rel, worst_leaf=leaf, rows=64,
+    rows = TRAIN_BATCH if bf16 else 64
+    (rel, leaf), (l2, l2_leaf) = _grad_gap(trainer, cpu, rows)
+    bounds = (BF16_GRAD_MAX, BF16_GRAD_L2) if bf16 else (GRAD_RTOL, float("inf"))
+    if not (rel <= bounds[0] and l2 <= bounds[1]):
+        raise RuntimeError(f"GPU vs CPU-plain gradient: {leaf} differs by {rel} of its max, "
+                           f"{l2_leaf} by {l2} in L2 (bounds {bounds})")
+    log(phase, gpu_vs_cpu_grad_max_rel=rel, worst_leaf=leaf, gpu_vs_cpu_grad_l2_rel=l2,
+        worst_l2_leaf=l2_leaf, bounds=json.dumps(bounds), rows=rows,
         check_s=time.perf_counter() - t2)
     return {"launches": launches, "median_step_ms": median_step}
+
+
+def phase_bf16_serve(model_dir, requests):
+    """The bf16_compute model's best slot, exported, answers one request
+    through Predictor(bf16=True): finite rows, K2-bf16 launches only."""
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    pred = Predictor(model_dir, device="cuda", bf16=True)
+    try:
+        _reset_counts()  # this check's run only
+        rows = pred.predict(requests[1])
+        launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches}
+    finally:
+        pred.close()
+    p = np.array([r["prob_fake"] for r in rows])
+    if len(rows) != len(requests[1]) or not np.isfinite(p).all() or launches["fwd"] \
+            or launches["fwd_bf16"] != TOWER["depth"]:
+        raise RuntimeError(f"bf16 serving of the bf16_compute model: launches {launches}, "
+                           f"prob_fake {p[:4]}")
+    log("bf16_train", served_request=len(rows), launches=json.dumps(launches),
+        prob_min=float(p.min()), prob_max=float(p.max()))
 
 
 def _timed_requests(pred, requests):
@@ -862,10 +1007,10 @@ def phase_serve(model_dir, requests):
     gpu.warmup(max(REQUEST_SIZES))  # every bucket the requests use
     log("serve", predictor_init_and_warmup_s=time.perf_counter() - t1, corpus=N_CORPUS)
     try:
-        fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+        _reset_counts()  # this path's run only
         rows, lat = _timed_requests(gpu, requests)
         launches = fa.launches
-        if fa.bwd_launches or fa.bf16_launches:
+        if fa.bwd_launches or fa.bf16_launches or fa.bwd_bf16_launches:
             raise RuntimeError("f32 serving launched the backward or the bf16 kernel")
         profile_request(gpu, requests[-1], "serve", "f32")
     finally:
@@ -918,7 +1063,7 @@ def phase_serve_levers(model_dir, requests, f32):
         gpu.warmup(max(REQUEST_SIZES))
         init_s = time.perf_counter() - t0
         try:
-            fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+            _reset_counts()  # this path's run only
             rows, lat = _timed_requests(gpu, requests)
             launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches}
             profile_request(gpu, requests[-1], "serve_levers", name)
@@ -926,7 +1071,7 @@ def phase_serve_levers(model_dir, requests, f32):
             gpu.close()
         bf16 = bool(levers.get("bf16"))
         want = {"fwd": 0 if bf16 else expect, "fwd_bf16": expect if bf16 else 0}
-        if launches != want or fa.bwd_launches:
+        if launches != want or fa.bwd_launches or fa.bwd_bf16_launches:
             raise RuntimeError(f"{name}: launches {launches}, expected {want}")
         for k in total:
             total[k] += launches[k]
@@ -963,7 +1108,7 @@ def phase_explain(model_dir, records):
     cpu = Predictor(model_dir, device="cpu")
     try:
         gpu.warmup(len(records))
-        fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+        _reset_counts()  # this path's run only
         t0 = time.perf_counter()
         grad = gpu.explain(records, method="grad", top_k=512)
         grad_s = time.perf_counter() - t0
@@ -1052,7 +1197,7 @@ def phase_http(model_dir, requests, corpus):
 
     singles = synthetic_records(HTTP_CLIENTS * HTTP_PER_CLIENT, corpus, np.random.default_rng(5))
     try:
-        fa.launches = fa.bf16_launches = fa.bwd_launches = 0  # this path's run only
+        _reset_counts()  # this path's run only
         proc = subprocess.run(
             [sys.executable, "-c", HTTP_CLIENT, url, str(HTTP_CLIENTS), str(HTTP_PER_CLIENT)],
             input=json.dumps(singles, ensure_ascii=False), capture_output=True, text=True,
@@ -1125,6 +1270,7 @@ def main() -> int:
     ptxas = phase_build()
     flash = check_flash(dev)
     flash_bf16 = check_flash_bf16(dev)
+    bwd_bf16 = check_flash_bwd_bf16(dev, flash["dq"]["ms"])
     k1 = check_adamw(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as root:
         seeded, served = Path(root) / "seeded_model", Path(root) / "trained_model"
@@ -1132,6 +1278,11 @@ def main() -> int:
         rng = np.random.default_rng(1)
         requests = [synthetic_records(n, corpus, rng) for n in REQUEST_SIZES]
         train = phase_train(dev, seeded, Path(root) / "run")
+        bf16 = phase_train(dev, seeded, Path(root) / "bf16_run", bf16=True,
+                           f32_step_ms=train["median_step_ms"])
+        bf16_served = Path(root) / "bf16_model"
+        export_trained(str(Path(root) / "bf16_run"), "best", str(bf16_served), str(seeded))
+        phase_bf16_serve(str(bf16_served), requests)
         export_trained(str(Path(root) / "run"), "best", str(served), str(seeded))
         serve = phase_serve(str(served), requests)
         levers = phase_serve_levers(str(served), requests, serve)
@@ -1150,11 +1301,12 @@ def main() -> int:
         raise RuntimeError(f"the run loaded modules of jax or the JAX package: {loaded[:10]}")
     src = "ultrafnd_git_tpu_torch/csrc/"
     ref = "ultrafnd_git_tpu/kernels/"
-    tl, sl = train["launches"], sparse["launches"]
+    tl, bl, sl = train["launches"], bf16["launches"], sparse["launches"]
 
     def paths(key, serve_n=0, levers_n=0, explain_n=0, http_n=0):
-        by = {"train": tl[key], "serve": serve_n, "serve_levers": levers_n, "explain": explain_n,
-              "http": http_n, "sparse_train": sl[key]}
+        by = {"train": tl[key], "bf16_train": bl[key], "serve": serve_n,
+              "serve_levers": levers_n, "explain": explain_n, "http": http_n,
+              "sparse_train": sl[key]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [
@@ -1175,6 +1327,14 @@ def main() -> int:
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:412",
          **paths("bwd"), **flash["dkv"], "ptxas": ptxas["flash_attention_bwd"]},
+        {"name": "flash_attention_bwd_dq_bf16", "route": "cuda",
+         "source": src + "flash_attention_bwd_bf16.cu",
+         "replaces": ref + "flash_attention.py:379 (mm_dtype=bfloat16)",
+         **paths("bwd_bf16"), **bwd_bf16, "ptxas": ptxas["flash_attention_bwd_bf16"]},
+        {"name": "flash_attention_bwd_dkv_bf16", "route": "cuda",
+         "source": src + "flash_attention_bwd_bf16.cu",
+         "replaces": ref + "flash_attention.py:412 (mm_dtype=bfloat16)",
+         **paths("bwd_bf16"), **bwd_bf16, "ptxas": ptxas["flash_attention_bwd_bf16"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -79,13 +79,22 @@ def test_bf16_padding_bias_equals_jax():
 
 
 def test_bf16_attention_counts_no_launch_on_cpu_and_has_no_backward():
+    """(The name predates K3/K4's bf16 mode.) On the CPU the bf16 attention
+    and its backward run the plain twins and count no launch of any mode;
+    the gradient is the twin's (`attention_bwd_reference_bf16`)."""
     q = torch.randn(2, 2, 16, 64).to(torch.bfloat16).requires_grad_(True)
     bias = fa.padding_bias(torch.ones(2, 16), torch.bfloat16)
-    before = (fa.launches, fa.bf16_launches)
+    before = (fa.launches, fa.bf16_launches, fa.bwd_launches, fa.bwd_bf16_launches)
     out = fa.flash_attention(q, q, q, bias)
-    assert out.dtype == torch.bfloat16 and (fa.launches, fa.bf16_launches) == before
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.float().sum().backward()
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert (fa.launches, fa.bf16_launches, fa.bwd_launches, fa.bwd_bf16_launches) == before
+    x = q.detach()
+    o, lse = fa.reference_attention_bf16(x, x, x, bias)
+    dq, dk, dv, _ = fa.attention_bwd_reference_bf16(x, x, x, bias, o, lse, torch.ones_like(o))
+    # q is q, k and v at once: its gradient is the sum of the three
+    assert q.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(q.grad.float(), (dq + dk + dv).float(), atol=1e-2, rtol=1e-2)
 
 
 def test_dense_and_layer_norm_cast_like_flax():

@@ -29,6 +29,17 @@ its 16-byte-chunk swizzle, P's C fragments packed to bf16 as the A
 fragment, held to `reference_attention_bf16` and to the Pallas forward in
 its bf16 mode at 8e-3 of max|ref| and lse at 1e-4; every ldmatrix phase
 and cp.async phase of the kernel touches 8 distinct 16-byte bank groups.
+
+(d) K3/K4's bf16 mode (csrc/flash_attention_bwd_bf16.cu), the same way:
+S and dP by ldmatrix, P and dS rounded to bf16 into swizzled query-major
+tiles (a second swizzle for the 4-chunk rows of BK = 32), their transposed
+A fragments for dV = P^T dO and dK = dS^T Q by ldmatrix.trans, dO and Q as
+B by ldmatrix.trans, dQ = dS K with K by ldmatrix.trans, the dbias sums by
+the kernel's shuffles, held to `attention_bwd_reference_bf16` and to the
+Pallas bf16 backward in interpret mode at 8e-3 of max|ref|; every ldmatrix
+and cp.async phase touches 8 distinct 16-byte bank groups and every P/dS
+store 32 distinct banks. Breaking a pairing (matrix order, .trans) or the
+BK = 32 swizzle fails these tests.
 """
 import re
 from pathlib import Path
@@ -576,4 +587,316 @@ def test_bf16_emulation_mirrors_the_kernel_source():
                    "pack(sacc[2 * j + 1][2], sacc[2 * j + 1][3])};",
                    'asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(d) : "f"(hi), "f"(lo));',
                    "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
+        assert needle in src, needle
+
+
+# ---------------------------------------------------------------------------
+# K3/K4's bf16 mode (csrc/flash_attention_bwd_bf16.cu): one pass per (batch *
+# head, key block), m16n8k16 bf16 fragments with f32 sums. S and dP by
+# ldmatrix (Q, dO rows as A; K, V rows as B); P and dS rounded to bf16 into
+# query-major tiles; dV = P^T dO and dK = dS^T Q with the transposed A
+# fragments by ldmatrix.trans of those tiles and dO, Q by ldmatrix.trans;
+# dQ = dS K with dS by ldmatrix and K by ldmatrix.trans. Held to the twin
+# `attention_bwd_reference_bf16` and to `jax.vjp` of the Pallas bf16 mode in
+# interpret mode at 8e-3 of max|ref|.
+
+BWD_WARPS = 8
+BWD_BQ = 64
+
+
+def cfg_bwd_bf16(d):
+    """(BK, NT_A, KG, NPART, NT_C, NCH) of the bf16 backward at head width d."""
+    bk = 64 if d <= 128 else 32
+    kg = bk // 16
+    npart = BWD_WARPS // kg
+    return bk, bk // 16, kg, npart, d // (8 * npart), d // 64
+
+
+def swzb(r, c, w):
+    """Element offset of (r, c) in a swizzled bf16 (rows, w) tile of the
+    backward: chunk ^ (r % 8) for w >= 64, chunk ^ ((r / 2) % 4) for w = 32."""
+    shift, mask = (0, 7) if w >= 64 else (1, 3)
+    return r * w + (((c >> 3) ^ ((r >> shift) & mask)) << 3) + (c & 7)
+
+
+def stage_b(x, r0, rows):
+    """Rows [r0, r0 + rows) of x (BH, S, W) as swizzled bf16 tiles, zero past S."""
+    bh, s, w = x.shape
+    r = np.arange(rows)
+    tile = np.zeros((bh, rows, w), F32)
+    ok = r0 + r < s
+    tile[:, ok] = x[:, r0 + r[ok]]
+    sm = np.zeros((bh, rows * w), F32)
+    sm[:, swzb(r[:, None], np.arange(w)[None], w)] = tile
+    return sm
+
+
+def emulate_bwd_bf16(q, k, v, bias, out, lse, do):
+    """The bf16 backward on lane fragments: q, k, v, out, dO (B, H, S, D)
+    bf16 values, bias (B, S) bf16 values, lse (B, H, S) f32 -> (dq, dk, dv
+    bf16 values as f32, dbias (B, S) f32), the wrapper's sums included."""
+    b, h, s, d = q.shape
+    bk, nt_a, kg, npart, nt_c, nch = cfg_bwd_bf16(d)
+    scale = F32(1.0) / np.sqrt(F32(d))
+    qf, kf, vf, of, dof = (to_bf16(x).reshape(b * h, s, d) for x in (q, k, v, out, do))
+    lsef = lse.reshape(b * h, s).astype(F32)
+    brow = np.repeat(to_bf16(bias), h, axis=0)
+    warp = np.arange(BWD_WARPS)
+    a_m0, a_n0 = (warp >> 1) * 16, (warp & 1) * (bk // 2)
+    c_m0, c_n0 = (warp % kg) * 16, (warp // kg) * (d // npart)
+    e_n0 = (warp & 1) * (d // 2)
+    key_blocks = -(-s // bk)
+    n_bh = b * h
+    dq_slab = np.zeros((key_blocks, n_bh, s, d), F32)
+    dk = np.zeros((n_bh, s, d), F32)
+    dv = np.zeros((n_bh, s, d), F32)
+    dbias_part = np.zeros((n_bh, s), F32)
+    e_row, e_col = np.arange(4) >> 1, np.arange(4) & 1
+    for kb in range(key_blocks):
+        k0 = kb * bk
+        ks, vs = stage_b(kf, k0, bk), stage_b(vf, k0, bk)
+        kval = np.zeros((n_bh, bk), F32)
+        kval[:, : min(bk, s - k0)] = brow[:, k0:k0 + bk]
+        dk_acc = np.zeros((n_bh, BWD_WARPS, nt_c, 32, 4), F32)
+        dv_acc = np.zeros((n_bh, BWD_WARPS, nt_c, 32, 4), F32)
+        db = np.zeros((n_bh, BWD_WARPS, nt_a, 32, 2), F32)
+        for q0 in range(0, s, BWD_BQ):
+            qs, dos = stage_b(qf, q0, BWD_BQ), stage_b(dof, q0, BWD_BQ)
+            rows_ok = q0 + np.arange(BWD_BQ) < s
+            rr = np.minimum(q0 + np.arange(BWD_BQ), s - 1)
+            delta = np.where(rows_ok, (dof[:, rr] * of[:, rr]).sum(-1, dtype=F32), 0).astype(F32)
+            lsev = np.where(rows_ok, lsef[:, rr], 0).astype(F32)
+            # S = Q K^T, dP = dO V^T
+            sacc = np.zeros((n_bh, BWD_WARPS, nt_a, 32, 4), F32)
+            pacc = np.zeros_like(sacc)
+            for kk in range(0, d, 16):
+                ar = swzb(a_m0[:, None] + LR + 8 * (LM & 1), kk + 8 * (LM >> 1), d)
+                aq, ado = ldsm_x4(qs, ar), ldsm_x4(dos, ar)
+                for n2 in range(nt_a // 2):
+                    br = swzb(a_n0[:, None] + 16 * n2 + LR + 8 * (LM >> 1), kk + 8 * (LM & 1), d)
+                    bkf, bvf = ldsm_x4(ks, br), ldsm_x4(vs, br)
+                    for half in range(2):
+                        sacc[:, :, 2 * n2 + half] = mma16(sacc[:, :, 2 * n2 + half], aq,
+                                                          bkf[..., 2 * half:2 * half + 2, :])
+                        pacc[:, :, 2 * n2 + half] = mma16(pacc[:, :, 2 * n2 + half], ado,
+                                                          bvf[..., 2 * half:2 * half + 2, :])
+            # P and dS on the fragments; bf16 copies into the (BQ, BK) tiles
+            r = a_m0[:, None, None, None] + G[None, None, :, None] + 8 * e_row  # (W, 1, 32, 4)
+            c = (a_n0[:, None, None, None] + 8 * np.arange(nt_a)[None, :, None, None]
+                 + 2 * T[None, None, :, None] + e_col)  # (W, NT_A, 32, 4)
+            r = np.broadcast_to(r, c.shape)
+            x = ((sacc * scale).astype(F32) + kval[:, c]).astype(F32)
+            ok = rows_ok[r] & (k0 + c < s)
+            p = np.where(ok, np.exp((x - lsev[:, r]).astype(F32)), 0).astype(F32)
+            ds = (p * (pacc - delta[:, r]).astype(F32)).astype(F32)
+            ps, dss = np.zeros((n_bh, BWD_BQ * bk), F32), np.zeros((n_bh, BWD_BQ * bk), F32)
+            ps[:, swzb(r, c, bk)] = to_bf16(p)
+            dss[:, swzb(r, c, bk)] = to_bf16(ds)
+            col = (ds[..., 0:2] + ds[..., 2:4]).astype(F32)  # (BH, W, NT_A, 32, 2)
+            for off in (4, 8, 16):
+                col = (col + col[..., np.arange(32) ^ off, :]).astype(F32)
+            db = (db + col).astype(F32)
+            # dV += P^T dO, dK += dS^T Q
+            for kq in range(0, BWD_BQ, 16):
+                pa_addr = swzb(kq + LR + 8 * (LM >> 1), c_m0[:, None] + 8 * (LM & 1), bk)
+                pa, sa = ldsm_x4(ps, pa_addr, trans=True), ldsm_x4(dss, pa_addr, trans=True)
+                for n2 in range(nt_c // 2):
+                    baddr = swzb(kq + LR + 8 * (LM & 1), c_n0[:, None] + 16 * n2 + 8 * (LM >> 1), d)
+                    bdo, bq = ldsm_x4(dos, baddr, trans=True), ldsm_x4(qs, baddr, trans=True)
+                    for half in range(2):
+                        sl = slice(2 * half, 2 * half + 2)
+                        dv_acc[:, :, 2 * n2 + half] = mma16(dv_acc[:, :, 2 * n2 + half], pa, bdo[..., sl, :])
+                        dk_acc[:, :, 2 * n2 + half] = mma16(dk_acc[:, :, 2 * n2 + half], sa, bq[..., sl, :])
+            # dQ = dS K, 32 columns at a time
+            sfrag = [ldsm_x4(dss, swzb(a_m0[:, None] + LR + 8 * (LM & 1), 16 * j + 8 * (LM >> 1), bk))
+                     for j in range(bk // 16)]
+            for ch in range(nch):
+                qacc = np.zeros((n_bh, BWD_WARPS, 4, 32, 4), F32)
+                for j in range(bk // 16):
+                    for n2 in range(2):
+                        kb_ = ldsm_x4(ks, swzb(16 * j + LR + 8 * (LM & 1),
+                                               e_n0[:, None] + 32 * ch + 16 * n2 + 8 * (LM >> 1), d),
+                                      trans=True)
+                        for half in range(2):
+                            qacc[:, :, 2 * n2 + half] = mma16(qacc[:, :, 2 * n2 + half], sfrag[j],
+                                                              kb_[..., 2 * half:2 * half + 2, :])
+                for w in range(BWD_WARPS):
+                    for hh in range(2):
+                        row = q0 + a_m0[w] + G + 8 * hh
+                        keep = row < s
+                        for n in range(4):
+                            for jj in range(2):
+                                colq = e_n0[w] + 32 * ch + 8 * n + 2 * T + jj
+                                val = (qacc[:, w, n, :, 2 * hh + jj] * scale).astype(F32)
+                                dq_slab[kb][:, row[keep], colq[keep]] = val[:, keep]
+        for w in range(BWD_WARPS):
+            for hh in range(2):
+                key = k0 + c_m0[w] + G + 8 * hh
+                keep = key < s
+                for n in range(nt_c):
+                    for jj in range(2):
+                        colk = c_n0[w] + 8 * n + 2 * T + jj
+                        dk[:, key[keep], colk[keep]] = to_bf16(
+                            (dk_acc[:, w, n, :, 2 * hh + jj] * scale).astype(F32))[:, keep]
+                        dv[:, key[keep], colk[keep]] = to_bf16(dv_acc[:, w, n, :, 2 * hh + jj])[:, keep]
+        part = np.zeros((n_bh, 4, bk), F32)  # the four row groups' sums, lanes 0..3 of each warp
+        for w in range(BWD_WARPS):
+            for n in range(nt_a):
+                for jj in range(2):
+                    part[:, w >> 1, a_n0[w] + 8 * n + 2 * T[:4] + jj] = db[:, w, n, :4, jj]
+        tot = (((part[:, 0] + part[:, 1]).astype(F32) + part[:, 2]).astype(F32) + part[:, 3]).astype(F32)
+        nk = min(bk, s - k0)
+        dbias_part[:, k0:k0 + nk] = tot[:, :nk]
+    dq = to_bf16(dq_slab.sum(0, dtype=F32)) if key_blocks > 1 else to_bf16(dq_slab[0])
+    dbias = dbias_part.reshape(b, h, s).sum(1, dtype=F32)
+    return (dq.reshape(b, h, s, d), dk.reshape(b, h, s, d), dv.reshape(b, h, s, d), dbias)
+
+
+BWD_BF16_CASES = {
+    "s64_d128": (2, 2, 64, 128, [64, 37]),  # the training shape's tiling: one CTA per (b, h)
+    "ragged_s100_d64": (2, 1, 100, 64, [100, 63]),  # 2 key blocks, 2 query tiles, dq slabs
+    "fully_masked_row": (2, 1, 64, 64, [0, 17]),
+    "key_blocks_d192": (2, 1, 80, 192, [80, 45]),  # BK = 32 (the 4-chunk swizzle), 3 key blocks
+    "s40_d256": (1, 2, 40, 256, [33]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_BF16_CASES))
+def test_emulated_bwd_bf16_kernel_matches_twin_and_pallas(case):
+    import jax
+
+    from ultrafnd_git_tpu.kernels.flash_attention import flash_attention as jax_flash
+
+    b, h, s, d, lengths = BWD_BF16_CASES[case]
+    rng = np.random.default_rng(len(case) + d + s)
+    q, k, v, do = (to_bf16(rng.standard_normal((b, h, s, d))) for _ in range(4))
+    mask = (np.arange(s)[None] < np.asarray(lengths)[:, None]).astype(F32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    tbias = fa.padding_bias(torch.from_numpy(mask), torch.bfloat16)
+    out, lse = fa.reference_attention_bf16(tq, tk, tv, tbias)
+    got = emulate_bwd_bf16(q, k, v, tbias.float().numpy().reshape(b, s), out.float().numpy(),
+                           lse.numpy(), do)
+    twin = [x.float().numpy() for x in fa.attention_bwd_reference_bf16(tq, tk, tv, tbias, out, lse, tdo)]
+    twin[3] = twin[3].reshape(b, s)
+    jbias = jax_padding_bias(jnp.asarray(mask), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda *a: jax_flash(*a, backend="interpret", mm_dtype=jnp.bfloat16),
+                     *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), jbias)
+    pallas = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, jnp.bfloat16))]
+    pallas[3] = pallas[3].reshape(b, s)
+    for ref in (twin, pallas):
+        for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            assert np.isfinite(a).all(), name
+            assert np.abs(a - r).max() <= 8e-3 * np.abs(r).max(), (name, np.abs(a - r).max())
+
+
+def test_bwd_bf16_transposed_fragments_are_the_products():
+    """ldmatrix.trans of a query-major (BQ, BK) tile gives P^T's A fragment,
+    ldmatrix.trans of a row-major (rows, D) tile gives the B fragment whose
+    reduction index is the row: one k16 step is exactly P^T dO; and dS's A
+    fragment by ldmatrix with K's B fragment by ldmatrix.trans is dS K."""
+    rng = np.random.default_rng(0)
+    for bk in (64, 32):
+        P = rng.integers(-8, 8, size=(16, bk)).astype(F32)  # exact in bf16: 16 queries x BK keys
+        dO = rng.integers(-8, 8, size=(16, 64)).astype(F32)
+        K = rng.integers(-8, 8, size=(bk, 64)).astype(F32)
+        ps, dos, ks = (stage_b(x[None], 0, x.shape[0]) for x in (P, dO, K))
+        for km in range(0, bk, 16):
+            pa = ldsm_x4(ps, swzb(LR + 8 * (LM >> 1), km + 8 * (LM & 1), bk), trans=True)[0]
+            for n2 in range(4):
+                bfr = ldsm_x4(dos, swzb(LR + 8 * (LM & 1), 16 * n2 + 8 * (LM >> 1), 64), trans=True)[0]
+                for half in range(2):
+                    got = mma16(np.zeros((32, 4), F32), pa, bfr[:, 2 * half:2 * half + 2])
+                    want = P[:, km:km + 16].T @ dO[:, 16 * n2 + 8 * half:16 * n2 + 8 * half + 8]
+                    np.testing.assert_array_equal(got, np.stack(
+                        [want[G, 2 * T], want[G, 2 * T + 1], want[G + 8, 2 * T], want[G + 8, 2 * T + 1]], -1))
+        for j in range(bk // 16):
+            sa = ldsm_x4(ps, swzb(LR + 8 * (LM & 1), 16 * j + 8 * (LM >> 1), bk))[0]
+            bfr = ldsm_x4(ks, swzb(16 * j + LR + 8 * (LM & 1), 8 * (LM >> 1), 64), trans=True)[0]
+            got = mma16(np.zeros((32, 4), F32), sa, bfr[:, 0:2])
+            want = P[:, 16 * j:16 * j + 16] @ K[16 * j:16 * j + 16, 0:8]
+            np.testing.assert_array_equal(got, np.stack(
+                [want[G, 2 * T], want[G, 2 * T + 1], want[G + 8, 2 * T], want[G + 8, 2 * T + 1]], -1))
+
+
+def _bwd_bf16_accesses(d):
+    """Every shared-memory access of the bf16 backward at head width d:
+    (name, 16-byte chunk of each of the 8 lanes of one phase) for ldmatrix
+    and cp.async, and (name, 4-byte word of each of the 32 lanes) for the
+    P and dS stores."""
+    bk, nt_a, kg, npart, nt_c, nch = cfg_bwd_bf16(d)
+    for w in range(BWD_WARPS):
+        a_m0, a_n0 = (w >> 1) * 16, (w & 1) * (bk // 2)
+        c_m0, c_n0 = (w % kg) * 16, (w // kg) * (d // npart)
+        e_n0 = (w & 1) * (d // 2)
+        mats = []
+        for kk in range(0, d, 16):
+            mats.append((f"Q/dO w{w} kk{kk}", swzb(a_m0 + LR + 8 * (LM & 1), kk + 8 * (LM >> 1), d)))
+            for n2 in range(nt_a // 2):
+                mats.append((f"K/V w{w} kk{kk} n{n2}",
+                             swzb(a_n0 + 16 * n2 + LR + 8 * (LM >> 1), kk + 8 * (LM & 1), d)))
+        for kq in range(0, BWD_BQ, 16):
+            mats.append((f"P^T/dS^T w{w} kq{kq}", swzb(kq + LR + 8 * (LM >> 1), c_m0 + 8 * (LM & 1), bk)))
+            for n2 in range(nt_c // 2):
+                mats.append((f"dO/Q trans w{w} kq{kq} n{n2}",
+                             swzb(kq + LR + 8 * (LM & 1), c_n0 + 16 * n2 + 8 * (LM >> 1), d)))
+        for j in range(bk // 16):
+            mats.append((f"dS w{w} j{j}", swzb(a_m0 + LR + 8 * (LM & 1), 16 * j + 8 * (LM >> 1), bk)))
+            for ch in range(nch):
+                for n2 in range(2):
+                    mats.append((f"K trans w{w} j{j} ch{ch} n{n2}", swzb(
+                        16 * j + LR + 8 * (LM & 1), e_n0 + 32 * ch + 16 * n2 + 8 * (LM >> 1), d)))
+        for name, addr in mats:
+            yield from ((f"{name} m{i}", "chunks", addr[8 * i:8 * i + 8]) for i in range(4))
+        for n in range(nt_a):
+            for hh in range(2):
+                yield (f"P/dS store w{w} n{n} h{hh}", "words",
+                       swzb(a_m0 + G + 8 * hh, a_n0 + 8 * n + 2 * T, bk) // 2)
+    c8 = d // 8
+    for i0 in range(0, BWD_BQ * c8, 8):
+        i = i0 + np.arange(8)
+        yield f"stage i{i0}", "chunks", swzb(i // c8, (i % c8) * 8, d)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_bwd_bf16_smem_accesses_are_free_of_bank_conflicts(d):
+    seen = 0
+    for name, unit, elems in _bwd_bf16_accesses(d):
+        seen += 1
+        if unit == "chunks":
+            assert (elems % 8 == 0).all(), name  # 16-byte aligned rows
+            assert len(set(((elems * 2 // 16) % 8).tolist())) == 8, name
+        else:
+            assert len(set(elems.tolist())) == 32 and len(set((elems % 32).tolist())) == 32, name
+    assert seen
+
+
+def test_bwd_bf16_emulation_mirrors_the_kernel_source():
+    src = (CSRC / "flash_attention_bwd_bf16.cu").read_text()
+    for needle in (
+        "constexpr int kWarps = 8;", "constexpr int kBlockQ = 64;",
+        "BK = D <= 128 ? 64 : 32;", "NT_A = BK / 16;", "KG = BK / 16;",
+        "NPART = kWarps / KG;", "NT_C = D / (8 * NPART);", "NCH = D / 64;",
+        "constexpr int kShift = W >= 64 ? 0 : 1, kMask = W >= 64 ? 7 : 3;",
+        "return r * W + (((c >> 3) ^ ((r >> kShift) & kMask)) << 3) + (c & 7);",
+        "const int a_m0 = (warp >> 1) * 16;", "const int a_n0 = (warp & 1) * (BK / 2);",
+        "const int c_m0 = (warp % C::KG) * 16;", "const int c_n0 = (warp / C::KG) * (D / C::NPART);",
+        "const int e_n0 = (warp & 1) * (D / 2);",
+        "const int ar = a_m0 + lrow + 8 * (lmat & 1), ac = kk + 8 * (lmat >> 1);",
+        "ldsm_x4(b, Ks + swz<D>(a_n0 + 16 * np + lrow + 8 * (lmat >> 1), kk + 8 * (lmat & 1)));",
+        "ldsm_x4(b, Vs + swz<D>(a_n0 + 16 * np + lrow + 8 * (lmat >> 1), kk + 8 * (lmat & 1)));",
+        "const int pr = kq + lrow + 8 * (lmat >> 1), pc = c_m0 + 8 * (lmat & 1);",
+        "ldsm_x4_trans(pa, Ps + swz<BK>(pr, pc));", "ldsm_x4_trans(sa, dSs + swz<BK>(pr, pc));",
+        "const int br = kq + lrow + 8 * (lmat & 1), bc = c_n0 + 16 * np + 8 * (lmat >> 1);",
+        "ldsm_x4_trans(b, dOs + swz<D>(br, bc));", "ldsm_x4_trans(b, Qs + swz<D>(br, bc));",
+        "ldsm_x4(sfrag[j], dSs + swz<BK>(a_m0 + lrow + 8 * (lmat & 1), 16 * j + 8 * (lmat >> 1)));",
+        "ldsm_x4_trans(b, Ks + swz<D>(16 * j + lrow + 8 * (lmat & 1),",
+        "e_n0 + 32 * ch + 16 * np + 8 * (lmat >> 1)));",
+        "*reinterpret_cast<uint32_t*>(Ps + swz<BK>(r, c)) = pack(p[0], p[1]);",
+        "*reinterpret_cast<uint32_t*>(dSs + swz<BK>(r, c)) = pack(ds[0], ds[1]);",
+        "for (int off = 4; off < 32; off <<= 1) col[j] += __shfl_xor_sync(0xffffffffu, col[j], off);",
+        "((part[tid] + part[BK + tid]) + part[2 * BK + tid]) + part[3 * BK + tid];",
+        'asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(d) : "f"(hi), "f"(lo));',
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+    ):
         assert needle in src, needle

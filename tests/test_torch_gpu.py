@@ -6,7 +6,10 @@ torch.cuda is unavailable. The file imports no jax, so it also runs on a
 GPU machine without it:
     python -m pytest --noconftest -o addopts="" tests/test_torch_gpu.py -q
 Tolerances: K2's bf16 mode out within 8e-3 of its plain twin's largest
-value and lse 1e-4; forward kernel atol = rtol = 2e-5 (both sides full-f32
+value and lse 1e-4; K3/K4's bf16 mode dq, dk, dv and dbias within 8e-3 of
+the twin's largest value (one bf16 ulp at the top of the range); the
+bf16_compute step's gradient, GPU against CPU, within 5e-2 in relative L2
+and 1e-1 of each leaf's largest (the CPU test's bounds against JAX); forward kernel atol = rtol = 2e-5 (both sides full-f32
 matmuls, TF32 off) and out within 1e-5 of the plain version's largest
 value (3xTF32 on the tensor cores); the fused backward atol = rtol = 5e-4 (the JAX suite's
 gradient tolerance) and dq, dk, dv within 1e-5 of the plain version's
@@ -110,9 +113,10 @@ def test_tower_on_gpu_matches_cpu_and_launches_per_layer(cuda):
     torch.testing.assert_close(gpu_out.cpu(), cpu_out, atol=1e-5, rtol=0)
 
 
-def _seeded_model_dir(root):
+def _seeded_model_dir(root, tokens=False):
     """A small seeded tower model (width 768, one block of 6 heads of 128)
-    over a 50-record corpus, and 20 records to score against it."""
+    over a 50-record corpus (with tower token ids when `tokens`), and 20
+    records to score against it."""
     from ultrafnd_git_tpu_torch.serving import write_seeded_model_dir
 
     meta = {
@@ -141,6 +145,10 @@ def _seeded_model_dir(root):
         "ocr_sets": [set(rng.choice(words, size=5, replace=False)) for _ in range(n)],
         "split": (np.arange(n), np.arange(0), np.arange(0)),
     }
+    if tokens:
+        lengths = rng.integers(1, 65, size=n)
+        corpus["text_mask"] = (np.arange(64)[None] < lengths[:, None]).astype(np.float32)
+        corpus["text_ids"] = (rng.integers(1, 32768, size=(n, 64)) * corpus["text_mask"]).astype(np.int32)
     write_seeded_model_dir(str(root), meta, corpus)
     records = [{"video_id": f"r{i}", "title": f"标题 {i} 外星人 警告",
                 "ocr": " ".join(sorted(corpus["ocr_sets"][i])) if i % 3 else "",
@@ -383,3 +391,75 @@ def test_predictor_levers_on_gpu_match_cpu(cuda, tmp_path, levers):
     for key in ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity"):
         np.testing.assert_allclose([r[key] for r in g_rows], [r[key] for r in c_rows],
                                    atol=tol, err_msg=key)
+
+
+@pytest.mark.parametrize("with_dbias", [True, False], ids=["dbias", "no_dbias"])
+@pytest.mark.parametrize("s", [64, 100, 512])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_flash_bwd_bf16_matches_twin(cuda, d, s, with_dbias):
+    """K3/K4's bf16 mode at every head width, one or several key blocks,
+    ragged tiles, a fully masked row: within 8e-3 of the twin's largest
+    value, one launch a call, no f32 backward launch."""
+    args = [t.to(torch.bfloat16) for t in _bwd_case(cuda, (2, 3, s, d), seed=d + s)]
+    args[4], args[5] = fa.flash_attention_fwd_bf16(*args[:4])  # bf16 out, f32 lse
+    with torch.no_grad():
+        before = fa.bwd_bf16_launches, fa.bwd_launches
+        got = fa.flash_attention_bwd_bf16(*args, with_dbias=with_dbias)
+        torch.cuda.synchronize()
+        assert (fa.bwd_bf16_launches, fa.bwd_launches) == (before[0] + 1, before[1])
+        ref = fa.attention_bwd_reference_bf16(*args)
+    assert (got[3] is None) == (not with_dbias)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if a is None:
+            continue
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= 8e-3 * r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("shape", [(512, 6, 64, 128), (2, 2, 512, 64), (2, 2, 100, 192)])
+def test_flash_bwd_bf16_is_deterministic(cuda, shape):
+    """Two calls give the same bits (fixed-order sums of the dq slabs and
+    the dbias partials, no float atomics)."""
+    args = [t.to(torch.bfloat16) for t in _bwd_case(cuda, shape, seed=9)]
+    args[4], args[5] = fa.flash_attention_fwd_bf16(*args[:4])
+    with torch.no_grad():
+        first = fa.flash_attention_bwd_bf16(*args)
+        second = fa.flash_attention_bwd_bf16(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_bf16_compute_train_step_on_gpu(cuda, tmp_path):
+    """One bf16_compute step on the card runs K2-bf16 and K3/K4-bf16 once a
+    block and K1 once, no f32 attention kernel; its gradient against the
+    same trainer on the CPU."""
+    from ultrafnd_git_tpu_torch.kernels import adamw as aw
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+    _seeded_model_dir(tmp_path / "model", tokens=True)
+
+    def trainer(device, out):
+        cfg = TrainConfig(out_dir=str(tmp_path / out), model_dir=str(tmp_path / "model"),
+                          batch_size=16, epochs=1, seed=0, train_text_tower=True,
+                          text_tower_depth=1, text_tower_heads=6, bf16_compute=True)
+        return ForensicTrainer(cfg, device=device)
+
+    gpu, cpu = trainer("cuda", "gpu"), trainer("cpu", "cpu")
+    for part, mod in cpu.state.params.items():
+        mod.load_state_dict({k: v.cpu() for k, v in gpu.state.params[part].state_dict().items()})
+    idx, mask = torch.arange(50), torch.ones(50)  # every row: bf16 noise averages over rows
+    _, g_gpu, _ = gpu.grads_of(idx.to(cuda), mask.to(cuda))
+    _, g_cpu, _ = cpu.grads_of(idx, mask)
+    for part, leaves in g_cpu.items():
+        for name, c in leaves.items():
+            d = g_gpu[part][name].float().cpu() - c
+            assert d.norm().item() <= 5e-2 * c.norm().item() + 1e-30, (part, name)
+            assert d.abs().max().item() <= 1e-1 * c.abs().max().item() + 1e-30, (part, name)
+    counts = lambda: (fa.launches, fa.bf16_launches, fa.bwd_launches,  # noqa: E731
+                      fa.bwd_bf16_launches, aw.launches)
+    before = counts()
+    gpu.train_step(np.arange(16), np.ones(16, np.float32))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 1, 0, 1, 1)

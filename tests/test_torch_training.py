@@ -348,7 +348,7 @@ def test_cuda_without_gpu_raises(model_dir, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [
     {"dp": 2}, {"tp": 2}, {"sp": 2}, {"pp": 2},
     {"use_evidence": True}, {"moe_experts": 4}, {"remat_tower": True},
-    {"bf16_compute": True}, {"save_every_steps": 5}, {"profile_dir": "p"},
+    {"debug_nans": True}, {"save_every_steps": 5}, {"profile_dir": "p"},
 ], ids=lambda f: next(iter(f)))
 def test_unported_flags_raise(model_dir, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -22,11 +23,28 @@ TOWER_IDS_LEN = 64  # tokens kept per record for the tower
 TOWER_VOCAB = 32768  # stable-hash vocabulary
 
 
-def load_cache(path: str) -> Dict[str, Any]:
+def _fingerprint_features(fp: str) -> Optional[int]:
+    """The feature-code version a JSON fingerprint carries ('features',
+    absent = v1); None for a non-JSON one ('injected', pre-fingerprint
+    empty), as `_parse_fingerprint` of the JAX package reads it."""
+    try:
+        d = json.loads(fp)
+    except ValueError:
+        return None
+    return int(d.get("features", 1)) if isinstance(d, dict) else None
+
+
+def load_cache(path: str, stale_features: str = "rebuild") -> Dict[str, Any]:
     """Read a cache written by the JAX package (or `save_cache`).
 
     Raises FileNotFoundError when absent and ValueError for a version this
     reader does not know; a v2 cache (no token ids) loads with zero ids.
+    A cache built by other feature code (its `features_version`, else the
+    version in its fingerprint) is decided as the JAX loader decides it
+    (`data/cache.py:496-511`): with `stale_features="reuse"` (a checkpoint
+    in the run's out_dir was trained on it) it loads with the JAX warning;
+    otherwise the JAX loader rebuilds it, which the port cannot, so it
+    raises NotImplementedError.
     """
     p = Path(path)
     if not p.exists():
@@ -35,6 +53,29 @@ def load_cache(path: str) -> Dict[str, Any]:
         version = int(z["version"])
         if version not in (2, CACHE_VERSION):
             raise ValueError(f"cache at {p} has unknown version {version}")
+        if version == 2:
+            print(f"note: cache at {p} is v2 (no token ids); "
+                  "--train_text_tower needs a rebuilt cache")
+        stored_feat = _fingerprint_features(str(z["fingerprint"]) if "fingerprint" in z else "")
+        if "features_version" in z:
+            stored_feat = int(z["features_version"])
+        if stored_feat is not None and stored_feat != FEATURES_VERSION:
+            if stale_features != "reuse":
+                raise NotImplementedError(
+                    f"cache at {p} was built by older feature code (v{stored_feat}, "
+                    f"current v{FEATURES_VERSION}) and the JAX trainer would rebuild "
+                    "it; building a feature cache is not ported to "
+                    "ultrafnd_git_tpu_torch yet (see the port's module list in "
+                    "ROADMAP.md)"
+                )
+            print(
+                f"⚠️  cache at {p} was built by older feature code "
+                f"(v{stored_feat}, current v{FEATURES_VERSION}); "
+                "reusing it because the checkpoint in this out_dir "
+                "was trained on exactly these features. NOTE: serving "
+                "featurizes NEW records with current code — delete "
+                "feature_cache.npz and retrain to refresh"
+            )
         n = z["labels"].shape[0]
         ocr_sets: List[set] = [set(json.loads(s)) for s in z["ocr_sets"]]
         return {
@@ -96,11 +137,16 @@ def bootstrap_cache(
     model_dir: Optional[str] = None,
     cache: Optional[Dict[str, Any]] = None,
     cache_to_disk: bool = True,
-) -> Dict[str, Any]:
-    """The trainer's feature cache: injected > `<out_dir>/feature_cache.npz`
-    > `<model_dir>/feature_cache.npz` (a model directory written by
-    `scripts/export_torch_model.py`, copied into out_dir so the run's
-    checkpoints travel with their cache).
+    reuse_stale_features: bool = False,
+) -> Tuple[Dict[str, Any], str]:
+    """The trainer's feature cache and where it came from ("injected",
+    "out_dir" or "model_dir"): injected > `<out_dir>/feature_cache.npz` >
+    `<model_dir>/feature_cache.npz` (a model directory written by
+    `scripts/export_torch_model.py`, copied byte for byte into out_dir so
+    the run's checkpoints travel with their cache, fingerprint and feature
+    version included). `reuse_stale_features` (eval_only, resume) is
+    `load_cache`'s `stale_features="reuse"` for out_dir's own cache, the
+    one a checkpoint there was trained on.
 
     Building a cache from a raw data_root is not ported: its align MLP is a
     `jax.random.PRNGKey(seed)` draw (`models/temporal.py:140`) that torch
@@ -110,14 +156,18 @@ def bootstrap_cache(
     if cache is not None:
         if cache_to_disk and not own.exists():
             save_cache(cache, str(own))
-        return cache
+        return cache, "injected"
     if own.exists():
-        return load_cache(str(own))
-    if model_dir is not None and (Path(model_dir) / "feature_cache.npz").exists():
-        cache = load_cache(str(Path(model_dir) / "feature_cache.npz"))
+        return load_cache(str(own), "reuse" if reuse_stale_features else "rebuild"), "out_dir"
+    src = Path(model_dir) / "feature_cache.npz" if model_dir is not None else None
+    if src is not None and src.exists():
+        cache = load_cache(str(src))  # no checkpoint of out_dir was trained on it
         if cache_to_disk:
-            save_cache(cache, str(own))
-        return cache
+            own.parent.mkdir(parents=True, exist_ok=True)
+            tmp = own.with_name(f".{own.name}.tmp-{os.getpid()}.npz")
+            shutil.copyfile(src, tmp)
+            os.replace(tmp, own)  # readers see old-or-complete, never partial
+        return cache, "model_dir"
     raise NotImplementedError(
         f"no feature_cache.npz in {out_dir}"
         + (f" or {model_dir}" if model_dir else "")

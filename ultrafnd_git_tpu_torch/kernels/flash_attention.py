@@ -3,7 +3,7 @@
 `flash_attention(q, k, v, bias)` is what the text tower calls: attention
 over (B, H, S, D) with an additive key-padding bias of shape (B, 1, 1, S),
 softmax in f32, differentiable in q, k, v (and bias when it asks for a
-gradient) in f32. It is a `torch.autograd.Function` with
+gradient), in f32 or in bf16. It is a `torch.autograd.Function` with
 
 * forward `flash_attention_fwd(q, k, v, bias) -> (out, lse)`, the
   counterpart of `ultrafnd_git_tpu/kernels/flash_attention.py::
@@ -14,29 +14,34 @@ gradient) in f32. It is a `torch.autograd.Function` with
   K2's bf16 mode (`mm_dtype=bfloat16`, the TPU kernel's default): on a
   CUDA tensor it launches `csrc/flash_attention_fwd_bf16.cu`, both products
   bf16 with f32 sums, the softmax in f32, P rounded to bf16 for P V, out
-  bf16 and lse f32. Its backward (K3/K4's bf16 mode) is not ported: a bf16
-  call that asks for a gradient raises;
+  bf16 and lse f32;
 * backward `flash_attention_bwd(q, k, v, bias, out, lse, do) -> (dq, dk,
   dv, dbias)`, the counterpart of `_pallas_backward` (kernels
   `_make_bwd_dq_kernel`, K3, and `_make_bwd_dkv_kernel`, K4): on a CUDA
   tensor it launches `csrc/flash_attention_bwd.cu`, one pass on the
   tensor cores (3xTF32) that computes delta, dQ, dK, dV and the dbias
-  partials together.
+  partials together;
+* for bf16 q, k, v, backward `flash_attention_bwd_bf16(...)`, K3's and
+  K4's bf16 mode: on a CUDA tensor it launches
+  `csrc/flash_attention_bwd_bf16.cu`, the same fused pass with bf16
+  products and f32 sums, dS and P rounded to bf16 before they enter a
+  product, dq, dk, dv bf16 and dbias in the bias's dtype.
 
 Each builds with nvcc for sm_90a at first use (`_build.py`) and raises on a
 failed build or launch; none falls back. On a CPU tensor they run the
-plain PyTorch versions, `reference_attention`, `reference_attention_bf16`
-and `attention_bwd_reference`, which the tests hold against the JAX
-kernels. The backward recomputes P = exp(s - lse) as the TPU kernels do, so on a
-row whose keys are all masked P is 1 per key rather than 1/S (see the
-note in `csrc/flash_attention_bwd.cu`); rows with a valid key agree with
-autograd of a softmax.
+plain PyTorch versions, `reference_attention`, `reference_attention_bf16`,
+`attention_bwd_reference` and `attention_bwd_reference_bf16`, which the
+tests hold against the JAX kernels. The backward recomputes P = exp(s -
+lse) as the TPU kernels do, so on a row whose keys are all masked P is 1
+per key rather than 1/S (see the note in `csrc/flash_attention_bwd.cu`);
+rows with a valid key agree with autograd of a softmax.
 
 `launches` counts f32 forward launches, `bf16_launches` bf16 forward
-launches and `bwd_launches` backward launches (one per backward call, K3
-and K4 fused), and nothing else, so a run can show that its path went
-through the kernels and in which mode; the CPU path leaves all three
-unchanged. Under `torch.inference_mode()` only K2 runs.
+launches, `bwd_launches` f32 backward launches and `bwd_bf16_launches` bf16
+backward launches (one per backward call, K3 and K4 fused), and nothing
+else, so a run can show that its path went through the kernels and in which
+mode; the CPU path leaves all four unchanged. Under
+`torch.inference_mode()` only K2 runs.
 """
 from __future__ import annotations
 
@@ -53,11 +58,14 @@ HEAD_DIMS = (64, 128, 192, 256)  # the kernel's compiled head widths
 
 launches = 0  # K2 (f32) launches since import (or since a caller reset it)
 bf16_launches = 0  # K2 bf16-mode launches
-bwd_launches = 0  # backward (K3 + K4 fused) launches, one per call
+bwd_launches = 0  # f32 backward (K3 + K4 fused) launches, one per call
+bwd_bf16_launches = 0  # bf16-mode backward launches, one per call
 _lib = None
 _bf16_lib = None
 _bwd_lib = None
 _bwd_block_keys = None
+_bwd_bf16_lib = None
+_bwd_bf16_block_keys = None
 
 
 def _scale(dim: int) -> float:
@@ -132,6 +140,41 @@ def attention_bwd_reference(
     return dq, dk, dv, ds.sum(dim=(1, 2), keepdim=True)
 
 
+def attention_bwd_reference_bf16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward in K3/K4's bf16 mode: (dq, dk, dv) bf16, dbias in the
+    bias's dtype.
+
+    The Pallas kernels' `mm_dtype=bfloat16` arithmetic on bf16 q, k, v, out
+    and dO, bf16 bias and f32 lse: s = q k^T (f32 sums) * scale + bias and
+    dP = dO v^T in f32, P = exp(s - lse), delta = rowsum(dO * O) in f32,
+    dS = P (dP - delta); dS and P rounded to bf16 before dQ = dS k * scale,
+    dK = dS^T q * scale and dV = P^T dO, which sum in f32 and round to bf16
+    once; dbias sums the unrounded dS over heads and query rows in f32.
+    """
+    qf, kf, vf, of, dof = (t.to(torch.bfloat16).float() for t in (q, k, v, out, do))
+    scale = _scale(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale + bias.float()
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    pb, dsb = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsb, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsb, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", pb, dof)
+    bf16 = torch.bfloat16
+    return (dq.to(bf16), dk.to(bf16), dv.to(bf16),
+            ds.sum(dim=(1, 2), keepdim=True).to(bias.dtype))
+
+
 def _kernel():
     global _lib
     if _lib is None:
@@ -173,6 +216,29 @@ def _bwd_kernel():
         keys.argtypes, keys.restype = [ctypes.c_int], ctypes.c_int
         _bwd_lib, _bwd_block_keys = fn, keys
     return _bwd_lib
+
+
+def _bwd_bf16_kernel():
+    global _bwd_bf16_lib, _bwd_bf16_block_keys
+    if _bwd_bf16_lib is None:
+        lib = _build.load("flash_attention_bwd_bf16")
+        fn = lib.ufnd_flash_attention_bwd_bf16
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+            ctypes.c_float,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        keys = lib.ufnd_flash_attention_bwd_bf16_block_keys
+        keys.argtypes, keys.restype = [ctypes.c_int], ctypes.c_int
+        _bwd_bf16_lib, _bwd_bf16_block_keys = fn, keys
+    return _bwd_bf16_lib
+
+
+def _check_lse(q, lse) -> None:
+    b, h, s, _ = q.shape
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(f"lse must be contiguous f32 {(b, h, s)}, got {tuple(lse.shape)}")
 
 
 def _check(q, k, v, bias, *grads, dtype=torch.float32) -> None:
@@ -316,10 +382,8 @@ def flash_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     _check(q, k, v, bias, out, do)
+    _check_lse(q, lse)
     b, h, s, d = q.shape
-    if (lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous()
-            or lse.device != q.device):
-        raise ValueError(f"lse must be contiguous f32 {(b, h, s)}, got {tuple(lse.shape)}")
     fn = _bwd_kernel()
     key_blocks = -(-s // _bwd_block_keys(d))
     dk, dv = torch.empty_like(q), torch.empty_like(q)
@@ -349,9 +413,72 @@ def flash_attention_bwd(
     return dq, dk, dv, dbias
 
 
+def flash_attention_bwd_bf16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    with_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K3/K4's bf16 mode: (dq, dk, dv) bf16 and dbias in the bias's dtype.
+
+    Same operands as `flash_attention_fwd_bf16` plus out and dO (B, H, S, D)
+    bf16 and lse (B, H, S) f32. A CUDA call launches
+    `csrc/flash_attention_bwd_bf16.cu` once on the current stream (delta is
+    computed in it) and adds one to `bwd_bf16_launches`; it raises on a
+    shape, dtype, layout or launch it cannot take. When S exceeds the
+    kernel's key block, dq is its per-key-block f32 partials summed and
+    then rounded to bf16 once; dbias (B, 1, 1, S) is the f32 per-(b, h)
+    partials summed over heads, then cast to the bias's dtype; both sums
+    are torch reductions in a fixed order, so two calls give the same
+    bits. `with_dbias=False` skips dbias and returns None. A CPU call
+    returns `attention_bwd_reference_bf16`.
+    """
+    if q.device.type == "cpu":
+        dq, dk, dv, dbias = attention_bwd_reference_bf16(q, k, v, bias, out, lse, do)
+        return dq, dk, dv, dbias if with_dbias else None
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    _check(q, k, v, bias, out, do, dtype=torch.bfloat16)
+    _check_lse(q, lse)
+    b, h, s, d = q.shape
+    fn = _bwd_bf16_kernel()
+    key_blocks = -(-s // _bwd_bf16_block_keys(d))
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    # dq in bf16, or one f32 dq slab per key block when S spans several
+    dq = (torch.empty((key_blocks, *q.shape), dtype=torch.float32, device=q.device)
+          if key_blocks > 1 else torch.empty_like(q))
+    part = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_dbias else None
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dq.data_ptr() if key_blocks == 1 else None,
+            dq.data_ptr() if key_blocks > 1 else None,
+            dk.data_ptr(), dv.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            b, h, s, d, _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd_bf16 kernel launch failed: cudaError {err} "
+            f"at shape {(b, h, s, d)}"
+        )
+    global bwd_bf16_launches
+    bwd_bf16_launches += 1
+    if key_blocks > 1:
+        dq = dq.sum(dim=0).to(torch.bfloat16)
+    dbias = part.sum(dim=1).view(b, 1, 1, s).to(bias.dtype) if part is not None else None
+    return dq, dk, dv, dbias
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K2 forward (its bf16 mode for bf16 q), the fused K3 + K4 backward
-    (their plain versions on the CPU)."""
+    """K2 forward and the fused K3 + K4 backward, each in its bf16 mode for
+    bf16 q (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
@@ -363,12 +490,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        if q.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "the bf16 flash-attention backward (K3/K4's bf16 mode, bf16_compute "
-                "training) is not ported to ultrafnd_git_tpu_torch yet (see ROADMAP.md)"
-            )
-        dq, dk, dv, dbias = flash_attention_bwd(
+        bwd = flash_attention_bwd_bf16 if q.dtype == torch.bfloat16 else flash_attention_bwd
+        dq, dk, dv, dbias = bwd(
             q, k, v, bias, out, lse, do.contiguous(),
             with_dbias=ctx.needs_input_grad[3],
         )
@@ -384,9 +507,9 @@ def flash_attention(
     """softmax(q k^T / sqrt(D) + bias) v, differentiable; (B, H, S, D).
 
     The entry the text tower calls. On a CUDA tensor, with or without
-    grad, it goes through the autograd Function: the forward launches K2
-    (its bf16 mode for bf16 q, k, v and bias), a backward launches the
-    fused K3 + K4 kernel (f32 only). On a CPU tensor the same Function runs
+    grad, it goes through the autograd Function: the forward launches K2,
+    a backward the fused K3 + K4 kernel, each in its bf16 mode for bf16 q,
+    k, v and bias. On a CPU tensor the same Function runs
     the plain versions. bias (B, 1, 1, S) gets a gradient only when it
     requires one (the trainer's mask bias does not).
     """

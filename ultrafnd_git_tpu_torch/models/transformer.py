@@ -12,10 +12,14 @@ inside attention is dropped. MoE blocks, remat, ring attention and coord
 dropout are not ported yet (ROADMAP.md): the trainer raises for them.
 
 `dtype=torch.bfloat16` is the JAX tower's `dtype=jnp.bfloat16` (serving's
-bf16 lever; params stay f32): the embedding rows, every Dense and the
-block layer norms' outputs are bf16 (`models/layers.py` mirrors Flax's
-casts), the padding bias is bf16, attention runs on K2's bf16 mode, and
-the final layer norm and the pooling are f32.
+bf16 lever and the trainer's `bf16_compute`; params stay f32): the
+embedding rows, every Dense and the block layer norms' outputs are bf16
+(`models/layers.py` mirrors Flax's casts), the padding bias is bf16,
+attention runs on K2's bf16 mode and its backward on K3/K4's, and the
+final layer norm and the pooling are f32. The bf16 tower is differentiable
+(gradients reach the f32 params through the casts); a fully masked record
+keeps finite gradients (its rows' P is 1 per key in the backward, and the
+pooling gives them no gradient).
 """
 from __future__ import annotations
 

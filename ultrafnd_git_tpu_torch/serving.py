@@ -182,7 +182,9 @@ class Predictor:
         set_hash_salt(self._hash_salt)
         self._ocr_clean = cfg.get("ocr_phrase_pkl") is not None
         self.thresh = float(cfg.get("gnn_overlap_thresh", 0.12))
-        self.cache = load_cache(str(self.model_dir / "feature_cache.npz"))
+        # the checkpoint was trained on exactly this cache: keep it across a
+        # feature-code bump, as the JAX Predictor does
+        self.cache = load_cache(str(self.model_dir / "feature_cache.npz"), stale_features="reuse")
 
         weights = torch.load(
             self.model_dir / "weights.pt", map_location="cpu", weights_only=True

@@ -2,7 +2,8 @@
 
     python -m ultrafnd_git_tpu_torch.train --model_dir D --out_dir O \
         [--epochs 12] [--batch_size 16] [--train_text_tower] [--fused_adamw] \
-        [--sparse_graph] [--device cuda|cpu] [--export_model_dir M]
+        [--sparse_graph] [--bf16] [--hash_salt S] [--device cuda|cpu] \
+        [--export_model_dir M]
 
 `--model_dir` is a model directory from `scripts/export_torch_model.py`:
 the run's feature cache comes from it (unless out_dir already has one)
@@ -45,6 +46,21 @@ def parse_args(argv=None):
     p.add_argument("--text_tower_depth", type=int, default=2)
     p.add_argument("--text_tower_heads", type=int, default=6)
     p.add_argument("--tower_gelu", choices=("tanh", "exact"), default="tanh")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 matmul activations with f32 master params "
+                        "(single MXU pass; numerics within the bf16 "
+                        "envelope); on a GPU the tower's attention runs the "
+                        "bf16 modes of the flash-attention kernels")
+    p.add_argument("--hash_salt", type=str, default="",
+                   help="Salt for every stable-hash featurization (offline "
+                        "hash embeddings, proxies, tower token ids). The "
+                        "hash features are a random projection whose "
+                        "collision draw measurably moves acc/F1 "
+                        "(BASELINE.md accuracy-parity notes); the salt "
+                        "makes the draw tunable like a seed. Recorded in "
+                        "the cache fingerprint + checkpoint; eval/serving "
+                        "adopt it automatically. A cache taken from "
+                        "--model_dir brings its own salt, which is adopted")
     p.add_argument("--select_metric", default="auc",
                    choices=("auc", "acc", "f1", "precision", "recall"))
     p.add_argument("--resume", action="store_true",
@@ -82,6 +98,8 @@ def main(argv=None) -> dict:
         text_tower_depth=args.text_tower_depth,
         text_tower_heads=args.text_tower_heads,
         tower_gelu=args.tower_gelu,
+        bf16_compute=args.bf16,
+        hash_salt=args.hash_salt,
         select_metric=args.select_metric,
         resume=args.resume,
         eval_only=args.eval_only,
@@ -93,6 +111,7 @@ def main(argv=None) -> dict:
     print(f"Epochs:          {args.epochs}")
     print(f"Batch size:      {args.batch_size}")
     print(f"Use GNN:         {not args.no_gnn}")
+    print(f"bf16 compute:    {args.bf16}")
     print("=============================")
     trainer = ForensicTrainer(cfg, device=args.device)
     if not args.eval_only:

@@ -17,6 +17,27 @@ metric, `best` / `latest` checkpoints, `--resume` and `--eval_only` with
 the JAX trainer's checkpoint-field adoption. The batch orders are the JAX
 trainer's: `np.random.seed(cfg.seed)` then one shuffle per epoch.
 
+`bf16_compute` is the JAX trainer's (`trainer.py:536-542`, `:598`): the
+fusion, the classifier and the tower compute in bf16 (`dtype=torch.bfloat16`,
+Flax's casts, `models/layers.py`), so on a GPU the tower's attention runs
+K2's and K3/K4's bf16 modes in training, val and test alike; the GCN, the
+params, their gradients, the AdamW state (K1) and the checkpoints stay f32,
+and the cross-entropy is taken on the classifier's f32 logits. One known
+difference: JAX's `flash_attention(backend="auto")` sends S < 512 to XLA's
+`reference_attention` (`kernels/flash_attention.py:529-533`), whose
+softmax runs in bf16, so at the tower's S = 64 the JAX trainer never runs
+the Pallas bf16 backward, on a TPU or on the CPU; the port sends every S
+to its kernels (ROADMAP.md's ground rules). The tests hold the port's
+bf16 tower and step to a JAX tower cloned with
+`attention_backend="interpret"`, which runs the Pallas bf16 forward and
+backward.
+
+The featurization of new records must follow the corpus: when the cache
+is taken from `model_dir`, the run adopts that directory's `hash_salt`
+and `ocr_phrase_pkl` (its meta.json cfg), sets the salt as the JAX trainer
+does (`trainer.py:362`), and its checkpoints (and so `export_trained`)
+carry them.
+
 Differences that are the port's own: one step per Python call (no
 `lax.scan`, so `scan_epoch` has no effect), one `torch.Generator` for the
 dropout masks (so `fast_dropout_rng` has no effect), one AdamW route (K1
@@ -38,6 +59,7 @@ import os
 import time
 from contextlib import nullcontext
 from dataclasses import asdict, dataclass
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -53,6 +75,7 @@ from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
 from ultrafnd_git_tpu_torch.models.initializers import jax_init_
 from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
 from ultrafnd_git_tpu_torch.ops.graphctx import build_graph_context, build_sparse_graph_context
+from ultrafnd_git_tpu_torch.ops.hashing import set_hash_salt
 from ultrafnd_git_tpu_torch.training import checkpoint as ckpt
 from ultrafnd_git_tpu_torch.training.loop import (
     ImprovementTracker,
@@ -148,7 +171,6 @@ def _unsupported(cfg: TrainConfig) -> list:
             ("shard_corpus", cfg.shard_corpus), ("shard_graph", cfg.shard_graph),
             ("use_evidence", cfg.use_evidence),
             ("moe_experts", cfg.moe_experts > 0), ("remat_tower", cfg.remat_tower),
-            ("bf16_compute", cfg.bf16_compute),
             ("save_every_steps", cfg.save_every_steps > 0),
             ("profile_dir", cfg.profile_dir is not None),
             ("debug_nans", cfg.debug_nans),
@@ -187,7 +209,9 @@ def _adopt_checkpoint_fields(cfg: TrainConfig) -> None:
             print(f"note: checkpoint tower was trained with tower_gelu={saved_gelu}; "
                   "adopting it")
             cfg.tower_gelu = saved_gelu
-    for field, default in (("train_gnn", True), ("fused_adamw", False)):
+    # bf16_compute too: the slot's function was trained (and is scored) in
+    # that arithmetic
+    for field, default in (("train_gnn", True), ("fused_adamw", False), ("bf16_compute", False)):
         if saved and bool(saved.get(field, default)) != getattr(cfg, field):
             print(f"note: checkpoint was trained with {field}="
                   f"{saved.get(field, default)}; adopting it")
@@ -196,6 +220,25 @@ def _adopt_checkpoint_fields(cfg: TrainConfig) -> None:
         print(f"note: checkpoint was trained with hash_salt="
               f"{saved.get('hash_salt', '')!r}; adopting it")
         cfg.hash_salt = str(saved.get("hash_salt", ""))
+
+
+def _adopt_model_dir_fields(cfg: TrainConfig) -> None:
+    """The featurization fields of the corpus whose cache this run took from
+    `model_dir` (its meta.json cfg): new records must be hashed under the
+    same salt and their OCR tokenized the same way (the exported cfg tells
+    the Predictor how)."""
+    saved: Dict[str, Any] = {}
+    try:
+        with open(Path(cfg.model_dir) / "meta.json", "r", encoding="utf-8") as fh:
+            saved = json.load(fh).get("cfg", {})
+    except (OSError, ValueError):
+        saved = {}
+    for field, default in (("hash_salt", ""), ("ocr_phrase_pkl", None)):
+        value = saved.get(field, default)
+        if saved and value != getattr(cfg, field):
+            print(f"note: the cache of {cfg.model_dir} was featurized with "
+                  f"{field}={value!r}; adopting it")
+            setattr(cfg, field, value)
 
 
 class ForensicTrainer:
@@ -224,7 +267,13 @@ class ForensicTrainer:
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
         # ---- feature cache and device-resident corpus ----------------------
-        self.cache = bootstrap_cache(cfg.out_dir, cfg.model_dir, cache, cfg.cache_to_disk)
+        self.cache, source = bootstrap_cache(
+            cfg.out_dir, cfg.model_dir, cache, cfg.cache_to_disk,
+            # a restored checkpoint was trained on the out_dir's cache
+            reuse_stale_features=bool(cfg.eval_only or cfg.resume))
+        if source == "model_dir":
+            _adopt_model_dir_fields(cfg)
+        set_hash_salt(cfg.hash_salt)
         self.tr_idx, self.va_idx, self.te_idx = (np.asarray(s) for s in self.cache["split"])
         self.n_total = int(self.cache["labels"].shape[0])
 
@@ -258,6 +307,8 @@ class ForensicTrainer:
 
         # ---- modules (the JAX package's initial distributions) -------------
         widths = {k: int(self.cache[k].shape[1]) for k in ("audio", "visual", "temporal")}
+        # bf16-compute / f32-master (JAX trainer.py:536-542, :598); the GCN stays f32
+        dtype = torch.bfloat16 if cfg.bf16_compute else None
         self.model_meta: Dict[str, Any] = {
             "fusion": {"hidden": FUSION_HIDDEN, "use_gnn": cfg.use_gnn,
                        "gnn_dim": cfg.gnn_dim, "text_dim": text_width,
@@ -272,8 +323,8 @@ class ForensicTrainer:
                 hidden=FUSION_HIDDEN, text_dim=text_width,
                 audio_dim=widths["audio"], visual_dim=widths["visual"],
                 temporal_dim=widths["temporal"], use_gnn=cfg.use_gnn,
-                gnn_dim=cfg.gnn_dim, dropout=FUSION_DROPOUT),
-            "clf": DeepTruthClassifier(in_dim=FUSION_HIDDEN, **CLASSIFIER),
+                gnn_dim=cfg.gnn_dim, dropout=FUSION_DROPOUT, dtype=dtype),
+            "clf": DeepTruthClassifier(in_dim=FUSION_HIDDEN, **CLASSIFIER, dtype=dtype),
         }
         if cfg.use_gnn:
             in_dim = int(self.corpus["ax"].shape[1])
@@ -285,7 +336,7 @@ class ForensicTrainer:
                          heads=cfg.text_tower_heads, vocab_size=TOWER_VOCAB,
                          max_len=int(self.cache["text_ids"].shape[1]),
                          gelu=cfg.tower_gelu)
-            params["text_tower"] = TextTransformer(**tower)
+            params["text_tower"] = TextTransformer(**tower, dtype=dtype)
             self.model_meta["text_tower"] = tower
         init_gen = torch.Generator().manual_seed(cfg.seed)  # same draws on any device
         for part, mod in params.items():
@@ -383,6 +434,8 @@ class ForensicTrainer:
                         c["a_norm"][idx], c["ax"], gen)
         fo = params["fusion"](feats, gen)
         co = params["clf"](fo["fused"], c["aux"][idx], gen)
+        # the logits are f32 under bf16_compute too (the forest and bypass
+        # stay f32), as optax's CE takes them (trainer.py:909)
         ce = F.cross_entropy(co["logits"], c["labels"][idx], reduction="none")
         f = fo["forensic"]
         forensic = torch.stack(
