@@ -17,7 +17,8 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      fully masked rows): K2 forward at atol = rtol 2e-5 and out within 1e-5
      of max|plain|, bit-identical over two calls; K2's bf16 mode at the
      serving buckets, D = 192, S = 100, 512 and 2048, out within 8e-3 of
-     max|plain| and lse within 1e-4, bit-identical over two calls; the fused
+     max|plain| and lse within 1e-4, bit-identical over two calls, and its
+     dynamic shared memory at each width; the fused
      K3/K4 backward
      at atol = rtol 5e-4 and dq, dk, dv within 1e-5 of max|plain|,
      bit-identical over two calls; K3/K4's bf16 mode at the training shape
@@ -39,8 +40,10 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      495 TFLOP/s, K2-bf16's two and K3/K4-bf16's five bf16 products over
      989 TFLOP/s, K1's f32
      arithmetic over 67 TFLOP/s, computed from this
-     run's shapes. K1 and its library call are also timed with the host's
-     work included (no lead). K2 is swept over S and D (B * S = 16384);
+     run's shapes. K1, K2's bf16 mode (its tensor maps are encoded on the
+     host every call) and their library calls are also timed with the
+     host's work included (no lead). K2 and its bf16 mode are swept over S
+     and D (B * S = 16384);
      the ptxas report (registers, spills) of every kernel is printed;
   4. train   — ForensicTrainer on a synthetic corpus of N = 5376 at full
      width (tower 768 x 2 layers x 6 heads, S = 64, vocab 32768, fusion
@@ -429,26 +432,35 @@ def check_flash(dev):
     return res
 
 
-def sweep_flash(dev):
-    """K2 across S at B x 6 heads with B * S = 16384: kernel, plain and
-    SDPA ms at D = 128 (S = 64 ... 2048), D = 64 (S = 64, 2048) and the
-    wide heads (D = 192, 256 at S = 512)."""
+def sweep_flash(dev, bf16=False):
+    """K2 (or its bf16 mode) across S at B x 6 heads with B * S = 16384:
+    kernel, plain and SDPA ms at D = 128 (S = 64 ... 2048), D = 64 (S = 64,
+    2048) and the wide heads (D = 192, 256 at S = 512)."""
     import torch
 
     from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
 
+    if bf16:
+        name, kernel, plain, library = ("flash_attention_fwd_bf16", fa.flash_attention_fwd_bf16,
+                                        fa.reference_attention_bf16, _sdpa_bf16)
+        dtype, bound = torch.bfloat16, _fwd_bf16_bound
+    else:
+        name, kernel, plain, library = ("flash_attention_fwd", fa.flash_attention_fwd,
+                                        fa.reference_attention, _sdpa)
+        dtype, bound = torch.float32, _fwd_bound
     rows = []
     with torch.no_grad():
         for d, s in SWEEP:
             shape = (16384 // s, 6, s, d)
             q, k, v, _, mask = _attention_inputs(shape, s + d, dev)
-            bias = fa.padding_bias(mask)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            bias = fa.padding_bias(mask, dtype)
             row = {"shape": list(shape),
-                   "ms": _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), runs=10),
-                   "plain_ms": _median_ms(lambda: fa.reference_attention(q, k, v, bias), runs=10),
-                   "library_ms": _median_ms(lambda: _sdpa(q, k, v, bias), runs=10)}
-            row.update((key, _fwd_bound(shape)[key]) for key in ("bound_ms", "bound_by"))
-            log("kernels", sweep="flash_attention_fwd", **row)
+                   "ms": _median_ms(lambda: kernel(q, k, v, bias), runs=10),
+                   "plain_ms": _median_ms(lambda: plain(q, k, v, bias), runs=10),
+                   "library_ms": _median_ms(lambda: library(q, k, v, bias), runs=10)}
+            row.update((key, bound(shape)[key]) for key in ("bound_ms", "bound_by"))
+            log("kernels", sweep=name, **row)
             rows.append(row)
             del q, k, v, mask, bias
     return rows
@@ -519,19 +531,29 @@ def check_flash_bf16(dev):
             backend = _sdpa_backend(q, k, v, bias)
             lib_err = _max_err(_sdpa_bf16(q, k, v, bias).float(),
                                fa.reference_attention_bf16(q, k, v, bias)[0].float())
-            t = {"ms": _median_ms(lambda: fa.flash_attention_fwd_bf16(q, k, v, bias)),
+            call = lambda: fa.flash_attention_fwd_bf16(q, k, v, bias)  # noqa: E731
+            t = {"ms": _median_ms(call),
+                 # the wrapper's checks and the four tensor maps' encode included
+                 "ms_host_included": _median_ms(call, lead=False),
                  "plain_ms": _median_ms(lambda: fa.reference_attention_bf16(q, k, v, bias)),
                  "library_ms": _median_ms(lambda: _sdpa_bf16(q, k, v, bias)),
+                 "library_ms_host_included": _median_ms(lambda: _sdpa_bf16(q, k, v, bias),
+                                                        lead=False),
                  **_fwd_bf16_bound(shape)}
             log("kernels", time="flash_attention_fwd_bf16", shape=shape, **t,
                 library=f"SDPA bf16, backend {backend}", library_max_abs_err_vs_plain=lib_err,
-                timing="median of 30 blocks of 10 calls behind a sleep lead")
+                timing="median of 30 blocks of 10 calls behind a sleep lead; "
+                       "host_included without one")
             if key == "serve":
                 res.update(t, library_backend=backend)
             else:
                 res["train_shape"] = {"shape": list(shape), "library_backend": backend, **t}
     res["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(q, k, v, "
                            "attn_mask=bias) with bf16 q, k, v and bias, the backend it picks")
+    res["design"] = ("persistent warp-specialised: TMA loads (128-byte swizzle, mbarrier ring), "
+                     "wgmma S = Q K^T and O += P V (P from registers), TMA-store epilogue")
+    res["smem_bytes"] = {d: fa._bf16_smem(d) for d in fa.HEAD_DIMS}
+    res["sweep"] = sweep_flash(dev, bf16=True)
     return res
 
 

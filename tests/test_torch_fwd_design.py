@@ -23,12 +23,17 @@ the swizzle: no two lanes of one phase (32 lanes for 32-bit loads, 16 for
 64-bit) touch different words of one bank. P's A fragment is read from
 registers, never from shared memory.
 
-(c) K2's bf16 mode (csrc/flash_attention_fwd_bf16.cu), the same way: its
-m16n8k16 bf16 fragments gathered by emulated ldmatrix (.trans for V) from
-its 16-byte-chunk swizzle, P's C fragments packed to bf16 as the A
-fragment, held to `reference_attention_bf16` and to the Pallas forward in
-its bf16 mode at 8e-3 of max|ref| and lse at 1e-4; every ldmatrix phase
-and cp.async phase of the kernel touches 8 distinct 16-byte bank groups.
+(c) K2's bf16 mode (csrc/flash_attention_fwd_bf16.cu), a TMA + wgmma
+kernel: the shared-memory image as its tensor maps' 128-byte swizzle
+writes it, every wgmma operand read back through descriptors built from
+the kernel's own constants (parsed from the source), the online softmax
+on the m64 accumulator fragments, P packed to bf16 as the register A
+fragment of P V, out through the swizzled staging tile and a clipping
+TMA store; held to `reference_attention_bf16` and to the Pallas forward
+in its bf16 mode at 8e-3 of max|ref| and lse at 1e-4. The descriptors
+give back Q, K and V exactly at every width, and each width's ring fits
+the SM. A wrong LBO, SBO, k-step, swizzle mode or transpose bit fails
+these tests.
 
 (d) K3/K4's bf16 mode (csrc/flash_attention_bwd_bf16.cu), the same way:
 S and dP by ldmatrix, P and dS rounded to bf16 into swizzled query-major
@@ -341,41 +346,345 @@ def test_emulation_mirrors_the_kernel_sources():
 
 
 # ---------------------------------------------------------------------------
-# K2's bf16 mode (csrc/flash_attention_fwd_bf16.cu): mma.sync.m16n8k16 bf16
-# with f32 sums, operands by ldmatrix (.trans for V) from tiles swizzled in
-# 16-byte chunks, P packed from S's C fragments straight into the A fragment.
-# Held to `reference_attention_bf16` and to the JAX Pallas forward in its
-# bf16 mode at 8e-3 of max|ref| (one bf16 ulp at the top of the range) and
-# lse at 1e-4 (relative where |lse| > 1).
-
-def cfg_bf16(d):
-    """(WC, BQ, BK) of the bf16 kernel at head width d."""
-    wc = 1 if d <= 128 else 2
-    return wc, 16 * K_WARPS // wc, 64
-
+# K2's bf16 mode (csrc/flash_attention_fwd_bf16.cu): TMA loads into tiles
+# with the 128-byte swizzle, S = Q K^T and O += P V by wgmma through shared
+# memory descriptors (V MN-major by the transpose bit), P from S's
+# accumulator fragments in registers, out through a swizzled staging tile
+# and a TMA store. The emulation below writes the shared-memory image as the
+# tensor map's swizzle lays it out, reads every wgmma operand back through
+# descriptors built from the kernel's own constants (parsed from the source:
+# a mutated LBO, SBO, swizzle mode, transpose bit or map swizzle changes
+# what it reads), runs the online softmax on the m64 accumulator fragments
+# and feeds the packed P fragment to the second product. Held to
+# `reference_attention_bf16` and to the JAX Pallas forward in its bf16 mode
+# at 8e-3 of max|ref| (one bf16 ulp at the top of the range) and lse at
+# 1e-4 (relative where |lse| > 1).
 
 LR, LM = np.arange(32) & 7, np.arange(32) >> 3  # ldmatrix: lane -> (row, matrix)
-
-
-def swz16(r, c, w):
-    """Element offset of (r, c) in a swizzled bf16 (rows, w) tile."""
-    return r * w + (((c >> 3) ^ (r & 7)) << 3) + (c & 7)
+FWD16 = CSRC / "flash_attention_fwd_bf16.cu"
+SWIZZLE_BITS = {0: 0, 1: 3, 2: 2, 3: 1}  # descriptor layout type -> XOR bits
+MAP_BITS = {128: 3, 64: 2, 32: 1}  # CU_TENSOR_MAP_SWIZZLE_<n>B -> XOR bits
 
 
 def to_bf16(x):
     return torch.from_numpy(np.ascontiguousarray(x, F32)).to(torch.bfloat16).float().numpy()
 
 
-def stage16(x, r0, rows):
-    """Rows [r0, r0 + rows) of x (BH, S, D) as swizzled bf16 tiles (BH, rows * D)."""
-    bh, s, d = x.shape
-    r = np.arange(rows)
-    tile = np.zeros((bh, rows, d), F32)
-    ok = r0 + r < s
-    tile[:, ok] = x[:, r0 + r[ok]]
-    sm = np.zeros((bh, rows * d), F32)
-    sm[:, swz16(r[:, None], np.arange(d)[None], d)] = tile
-    return sm
+def kernel_constants():
+    """The bf16 forward's box, atom and descriptor constants, and its tensor
+    maps' swizzle, read from its source."""
+    src = FWD16.read_text()
+    names = ("kBox", "kAtomBytes", "kSwizzleMode", "kQKLbo", "kQKSbo", "kKStepBytes",
+             "kVLbo", "kVSbo", "kVStepBytes", "kTnspV")
+    out = {}
+    for name in names:
+        m = re.search(rf"constexpr (?:uint32_t|int) {name} = (\d+);", src)
+        assert m, name
+        out[name] = int(m.group(1))
+    maps = set(re.findall(r"CU_TENSOR_MAP_SWIZZLE_(\d+)B", src))
+    assert len(maps) == 1, maps
+    out["map_bits"] = MAP_BITS[int(maps.pop())]
+    return out
+
+
+def swizzle(addr, bits):
+    """XOR byte-address bits [4, 4 + bits) with bits [7, 7 + bits)."""
+    return addr ^ (((addr >> 7) & ((1 << bits) - 1)) << 4)
+
+
+def make_desc(addr, lbo, sbo, mode):
+    """The kernel's `desc`: a wgmma shared-memory matrix descriptor."""
+    return ((addr & 0x3FFFF) >> 4) | (lbo >> 4) << 16 | (sbo >> 4) << 32 | mode << 62
+
+
+def desc_read(img, desc, mn, tnsp):
+    """The (mn, 16) operand a wgmma reads through `desc` from the images
+    img (BH, bytes / 2): row i of M or N, column k of K. K-major: rows of
+    one swizzle span, 8-row groups SBO apart. MN-major (the transpose bit):
+    MN runs of one span, LBO apart; K rows one span apart, 8-row groups SBO
+    apart. Addresses swizzle by the descriptor's layout type."""
+    start, lbo = (desc & 0x3FFF) << 4, ((desc >> 16) & 0x3FFF) << 4
+    sbo, bits = ((desc >> 32) & 0x3FFF) << 4, SWIZZLE_BITS[desc >> 62]
+    span = 16 << bits
+    i, k = np.arange(mn)[:, None], np.arange(16)[None, :]
+    if tnsp:
+        per = span // 2
+        lin = start + (i % per) * 2 + (i // per) * lbo + (k % 8) * span + (k // 8) * sbo
+    else:
+        lin = start + (i // 8) * sbo + (i % 8) * span + k * 2
+    return img[:, swizzle(lin, bits) // 2]
+
+
+def tma_load(img, x, r0, dst, kc):
+    """The producer's loads of one 64 x D tile: rows [r0, r0 + 64) of x (BH,
+    S, D), one (64, 64, 1) box per 64 columns at dst + a * atom, each row of
+    128 bytes at the map's swizzle; rows past S read as zeros."""
+    box = kc["kBox"]
+    r, c = np.arange(box)[:, None], np.arange(box)[None, :]
+    for a in range(x.shape[2] // box):
+        rows = x[:, np.minimum(r0 + r, x.shape[1] - 1), a * box + c]
+        rows = np.where(r0 + r < x.shape[1], rows, 0)
+        img[:, swizzle(dst + a * kc["kAtomBytes"] + r * 2 * box + c * 2, kc["map_bits"]) // 2] = rows
+
+
+def tma_store(img, out, r0, src, kc):
+    """The consumer's store of one 64 x D out tile from the staging image at
+    src into out (BH, S, D): the map's swizzle, rows past S clipped."""
+    box = kc["kBox"]
+    r, c = np.arange(box)[:, None], np.arange(box)[None, :]
+    keep = np.arange(box) + r0 < out.shape[1]
+    for a in range(out.shape[2] // box):
+        tile = img[:, swizzle(src + a * kc["kAtomBytes"] + r * 2 * box + c * 2, kc["map_bits"]) // 2]
+        out[:, r0 + np.arange(box)[keep], a * box:(a + 1) * box] = tile[:, keep]
+
+
+# the m64 accumulator layout: thread (warp w, lane) element 4n + e holds row
+# 16w + g + 8 (e >> 1), column 8n + 2t + (e & 1)
+_W, _N, _L, _E = np.ix_(np.arange(4), np.arange(8), np.arange(32), np.arange(4))
+ACC_ROW = 16 * _W + G[_L] + 8 * (_E >> 1)
+ACC_COL = 8 * _N + 2 * T[_L] + (_E & 1)
+
+
+def pack_pv_a(p):
+    """The kernel's pa[j]: accumulator fragments (..., 4 warps, 8 tiles, 32,
+    4) packed to bf16 pairs -> (..., 4 steps, 4 warps, 32, 4 registers, 2)."""
+    steps = []
+    for j in range(4):
+        lo, hi = p[..., 2 * j, :, :], p[..., 2 * j + 1, :, :]
+        steps.append(np.stack([lo[..., 0:2], lo[..., 2:4], hi[..., 0:2], hi[..., 2:4]], axis=-2))
+    return to_bf16(np.stack(steps, axis=-5))
+
+
+def a_matrix(regs):
+    """The (64, 16) A operand of an m64k16 wgmma from its register fragment
+    (..., 4 warps, 32, 4, 2): warp w's rows 16w .. 16w + 15 in mma.sync's
+    m16n8k16 A layout (a0 rows g, a1 g + 8, a2 g and a3 g + 8 at columns + 8)."""
+    a = np.zeros(regs.shape[:-4] + (64, 16), F32)
+    for w in range(4):
+        for e in range(2):
+            a[..., 16 * w + G, 2 * T + e] = regs[..., w, :, 0, e]
+            a[..., 16 * w + G + 8, 2 * T + e] = regs[..., w, :, 1, e]
+            a[..., 16 * w + G, 2 * T + 8 + e] = regs[..., w, :, 2, e]
+            a[..., 16 * w + G + 8, 2 * T + 8 + e] = regs[..., w, :, 3, e]
+    return a
+
+
+def stage_out(img, o_tile, o, kc):
+    """The epilogue's staging writes: o (BH, 64, D) bf16 values, each
+    thread's pair (row r, columns 8i + 2t, + 1) at the kernel's address."""
+    d = o.shape[2]
+    for i in range(d // 8):
+        for h in range(2):
+            for w in range(4):
+                r = 16 * w + G + 8 * h
+                addr = (o_tile + (i // 8) * kc["kAtomBytes"] + r * 128
+                        + (((i % 8) ^ (r & 7)) << 4) + T * 4)
+                for j in range(2):
+                    img[:, (addr + 2 * j) // 2] = o[:, r, 8 * i + 2 * T + j]
+
+
+def emulate_fwd_bf16(q, k, v, bias):
+    """K2's bf16 mode as the kernel runs it: q, k, v (B, H, S, D) and bias
+    (B, S) (rounded to bf16 here) -> (out (B, H, S, D) bf16 values as f32,
+    lse (B, H, S))."""
+    kc = kernel_constants()
+    b, h, s, d = q.shape
+    box, atom, mode = kc["kBox"], kc["kAtomBytes"], kc["kSwizzleMode"]
+    tile = (d // box) * atom
+    q_slot, o_tile, k_slot, v_slot = 0, tile, 2 * tile, 3 * tile
+    scale = F32(1.0) / np.sqrt(F32(d))
+    qf, kf, vf = (to_bf16(x).reshape(b * h, s, d) for x in (q, k, v))
+    brow = np.repeat(to_bf16(bias), h, axis=0)
+    tiles = -(-s // box)
+    img = np.zeros((b * h, 4 * tile // 2), F32)
+    out = np.zeros((b * h, s, d), F32)
+    lse = np.zeros((b * h, s), F32)
+    for qt in range(tiles):
+        tma_load(img, qf, qt * box, q_slot, kc)
+        m = np.full((b * h, 4, 32, 2), -np.inf, F32)
+        l = np.zeros((b * h, 4, 32, 2), F32)
+        o = np.zeros((b * h, 64, d), F32)
+        for kt in range(tiles):
+            k0 = kt * box
+            tma_load(img, kf, k0, k_slot, kc)
+            tma_load(img, vf, k0, v_slot, kc)
+            acc = np.zeros((b * h, 64, 64), F32)
+            for kk in range(d // 16):
+                off = (kk // 4) * atom + (kk % 4) * kc["kKStepBytes"]
+                qa = desc_read(img, make_desc(q_slot + off, kc["kQKLbo"], kc["kQKSbo"], mode), 64, 0)
+                kb = desc_read(img, make_desc(k_slot + off, kc["kQKLbo"], kc["kQKSbo"], mode), 64, 0)
+                acc = (acc + qa @ kb.transpose(0, 2, 1)).astype(F32)
+            sacc = acc[:, ACC_ROW, ACC_COL]  # (BH, 4 warps, 8 tiles, 32, 4)
+            keys = k0 + ACC_COL
+            bval = brow[:, np.minimum(keys, s - 1)]
+            x = np.where(keys < s, ((sacc * scale).astype(F32) + bval).astype(F32), -np.inf)
+            x = x.astype(F32)
+            mx = np.full((b * h, 4, 32, 2), -np.inf, F32)
+            for n in range(8):
+                for e in range(4):
+                    mx[..., e >> 1] = np.maximum(mx[..., e >> 1], x[:, :, n, :, e])
+            for off in (1, 2):
+                mx = np.maximum(mx, mx[:, :, np.arange(32) ^ off])
+            m_new = np.maximum(m, mx)
+            alpha = np.exp((m - m_new).astype(F32)).astype(F32)
+            m = m_new
+            p = np.exp((x - m[:, :, None, :, np.arange(4) >> 1]).astype(F32)).astype(F32)
+            tot = np.zeros((b * h, 4, 32, 2), F32)
+            for n in range(8):
+                for e in range(4):
+                    tot[..., e >> 1] = (tot[..., e >> 1] + p[:, :, n, :, e]).astype(F32)
+            for off in (1, 2):
+                tot = (tot + tot[:, :, np.arange(32) ^ off]).astype(F32)
+            l = ((l * alpha).astype(F32) + tot).astype(F32)
+            rows = 16 * np.arange(4)[:, None, None] + G[None, :, None] + 8 * np.arange(2)
+            alpha_row = np.zeros((b * h, 64), F32)
+            alpha_row[:, rows] = alpha
+            o = (o * alpha_row[:, :, None]).astype(F32)
+            pa = pack_pv_a(p)  # (BH, 4 steps, 4 warps, 32, 4, 2)
+            for j in range(4):
+                vb = desc_read(img, make_desc(v_slot + j * kc["kVStepBytes"], kc["kVLbo"],
+                                              kc["kVSbo"], mode), d, kc["kTnspV"])
+                o = (o + a_matrix(pa[:, j]) @ vb.transpose(0, 2, 1)).astype(F32)
+        l_row, m_row = np.zeros((b * h, 64), F32), np.zeros((b * h, 64), F32)
+        l_row[:, rows], m_row[:, rows] = l, m
+        stage_out(img, o_tile, to_bf16(o * (F32(1) / l_row)[:, :, None]), kc)
+        tma_store(img, out, qt * box, o_tile, kc)
+        keep = qt * box + np.arange(64) < s
+        lse[:, qt * box + np.arange(64)[keep]] = (m_row + np.log(l_row).astype(F32))[:, keep]
+    return out.reshape(b, h, s, d), lse.reshape(b, h, s)
+
+
+BF16_CASES = {
+    "d64_ragged_s100": (2, 2, 100, 64, [100, 63]),  # 2 key tiles, the second ragged
+    "d128_fully_masked_row": (2, 2, 64, 128, [0, 17]),
+    "d192_key_tiles_s130": (2, 1, 130, 192, [130, 45]),  # 3 key and query tiles
+    "d256_s77": (2, 1, 77, 256, [77, 0]),  # ragged, 4 atoms, a masked row
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_emulated_bf16_kernel_matches_twin_and_pallas(case):
+    b, h, s, d, lengths = BF16_CASES[case]
+    rng = np.random.default_rng(len(case) + d)
+    q, k, v = (to_bf16(rng.standard_normal((b, h, s, d))) for _ in range(3))
+    mask = (np.arange(s)[None] < np.asarray(lengths)[:, None]).astype(F32)
+    tbias = fa.padding_bias(torch.from_numpy(mask), torch.bfloat16)
+    out, lse = emulate_fwd_bf16(q, k, v, tbias.float().numpy().reshape(b, s))
+    twin = fa.reference_attention_bf16(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                                       tbias)
+    jout, jlse = _pallas_forward(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                 jax_padding_bias(jnp.asarray(mask), jnp.bfloat16),
+                                 block_q=128, interpret=True, mm_dtype=jnp.bfloat16)
+    for ref, ref_l in ((twin[0].float().numpy(), twin[1].numpy()),
+                       (np.asarray(jout.astype(jnp.float32)), np.asarray(jlse))):
+        assert np.abs(out - ref).max() <= 8e-3 * np.abs(ref).max()
+        np.testing.assert_allclose(lse, ref_l.reshape(lse.shape), rtol=1e-4, atol=1e-4)
+    assert np.isfinite(out).all() and np.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_bf16_descriptors_read_back_q_k_v_and_the_store_writes_out(d):
+    """Through the kernel's descriptors, the TMA image gives back Q's and
+    K's k16 slices (K-major) and V's 16-key slices (MN-major) exactly, and
+    the staging writes stored by TMA give back the out tile."""
+    kc = kernel_constants()
+    atom, mode = kc["kAtomBytes"], kc["kSwizzleMode"]
+    tile = d // kc["kBox"] * atom
+    rng = np.random.default_rng(d)
+    x = rng.integers(-64, 64, size=(3, 1, 64, d)).astype(F32)  # exact in bf16
+    img = np.zeros((1, 4 * tile // 2), F32)
+    for i, slot in enumerate((0, 2 * tile, 3 * tile)):
+        tma_load(img, x[i], 0, slot, kc)
+    for kk in range(d // 16):
+        off = (kk // 4) * atom + (kk % 4) * kc["kKStepBytes"]
+        for i, slot in enumerate((0, 2 * tile)):
+            got = desc_read(img, make_desc(slot + off, kc["kQKLbo"], kc["kQKSbo"], mode), 64, 0)
+            np.testing.assert_array_equal(got[0], x[i, 0, :, 16 * kk:16 * kk + 16])
+    for j in range(4):
+        got = desc_read(img, make_desc(3 * tile + j * kc["kVStepBytes"], kc["kVLbo"], kc["kVSbo"],
+                                       mode), d, kc["kTnspV"])
+        np.testing.assert_array_equal(got[0], x[2, 0, 16 * j:16 * j + 16].T)
+    back = np.zeros((1, 50, d), F32)  # S = 50: the store clips rows 50 .. 63
+    stage_out(img, tile, x[:1, 0], kc)
+    tma_store(img, back, 0, tile, kc)
+    np.testing.assert_array_equal(back[0], x[0, 0, :50])
+
+
+def test_bf16_p_fragment_is_the_pv_a_fragment():
+    """S's accumulator fragments of 8-key tiles 2j and 2j + 1, packed in
+    pairs, are the A fragment of P V's k16 step j under the m64 layout; with
+    V read MN-major through its descriptor, the four steps give exactly P V."""
+    kc = kernel_constants()
+    rng = np.random.default_rng(0)
+    P = rng.integers(-8, 8, size=(64, 64)).astype(F32)  # exact in bf16
+    V = rng.integers(-8, 8, size=(1, 64, 128)).astype(F32)
+    pa = pack_pv_a(P[ACC_ROW, ACC_COL])  # (4 steps, 4 warps, 32, 4, 2)
+    for j in range(4):
+        np.testing.assert_array_equal(a_matrix(pa[j]), P[:, 16 * j:16 * j + 16])
+    img = np.zeros((1, 2 * kc["kAtomBytes"]), F32)
+    tma_load(img, V, 0, 0, kc)
+    o = np.zeros((64, 128), F32)
+    for j in range(4):
+        vb = desc_read(img, make_desc(j * kc["kVStepBytes"], kc["kVLbo"], kc["kVSbo"],
+                                      kc["kSwizzleMode"]), 128, kc["kTnspV"])[0]
+        o += a_matrix(pa[j]) @ vb.T
+    np.testing.assert_array_equal(o, P @ V[0])
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_bf16_producer_registers_cover_the_consumers_raise(d):
+    """setmaxnreg moves registers inside the CTA's allocation: at each width
+    what the producer warpgroup gives up covers what the consumer warpgroups
+    take, and a consumer's registers hold O, S, P and the bias. The numbers
+    are read from the source."""
+    src = FWD16.read_text()
+    threads = int(re.search(r"__launch_bounds__\((\d+), 1\)", src).group(1))
+    narrow, wide = map(int, re.search(r"NC = D <= 128 \? (\d) : (\d);", src).groups())
+    producer = int(re.search(r"kProducerRegs = (\d+);", src).group(1))
+    consumer = int(re.search(r"kConsumerRegs = (\d+);", src).group(1))
+    nc = narrow if d <= 128 else wide
+    entry = 65536 // threads // 8 * 8  # registers a thread at launch
+    assert 128 * (entry - producer) >= nc * 128 * (consumer - entry)
+    assert consumer >= d // 2 + 32 + 16 + 16
+
+
+def test_bf16_emulation_mirrors_the_kernel_source():
+    src = FWD16.read_text()
+    for needle in (
+        "static constexpr int NC = D <= 128 ? 2 : 1;", "static constexpr int NQ = 2;",
+        "static constexpr int NS = D == 64 ? 4 : (D == 128 ? 2 : (D == 192 ? 3 : 2));",
+        "__launch_bounds__(384, 1)", "static constexpr int kConsumerRegs = 232;",
+        "static constexpr int kProducerRegs = 40;",
+        "static constexpr size_t SMEM = 1024 + NC * PER_C + 8 * NC * NB;",
+        "return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |",
+        "(uint64_t)(sbo >> 4) << 32 | (uint64_t)kSwizzleMode << 62;",
+        "const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * kKStepBytes;",
+        "wgmma_ss_n64(s, desc(q_slot(c, qs) + off, kQKLbo, kQKSbo),",
+        "desc(k_slot(c, st) + off, kQKLbo, kQKSbo), kk > 0);",
+        "wgmma_pv<D>(o, pa[j], desc(v_slot(c, st) + j * kVStepBytes, kVLbo, kVSbo));",
+        "pa[j][0] = pack(s[8 * j + 0], s[8 * j + 1]);", "pa[j][1] = pack(s[8 * j + 2], s[8 * j + 3]);",
+        "pa[j][2] = pack(s[8 * j + 4], s[8 * j + 5]);", "pa[j][3] = pack(s[8 * j + 6], s[8 * j + 7]);",
+        "o_tile(c) + (i / 8) * kAtomBytes + r * 128 + (((i % 8) ^ (r & 7)) << 4) + tq * 4;",
+        "const float inv = 1.f / l[h];",
+        "pack(o[4 * i + 2 * h] * inv, o[4 * i + 2 * h + 1] * inv)",
+        "o[i] *= alpha[(i >> 1) & 1];",
+        'asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(d) : "f"(hi), "f"(lo));',
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 ",
+        '"%32, %33, p, 1, 1, 0, 0;\\n}\\n"',  # S: scale A, B; neither transposed
+        '"n"(kTnspV));',
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes",
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group",
+        "cp.async.bulk.wait_group.read 0;", "fence.proxy.async.shared::cta;",
+        "const cuuint32_t box[3] = {kBox, kBox, 1}, unit[3] = {1, 1, 1};",
+        "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE", "setmaxnreg.dec.sync.aligned.u32",
+        "setmaxnreg.inc.sync.aligned.u32",
+    ):
+        assert needle in src, needle
+    for n in (64, 128, 192, 256):  # O += P V at every width, P from registers
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 " in src
+        assert f"wgmma_rs_n{n}(float (&d)[{n // 2}], const uint32_t (&a)[4]," in src
+    for gone in ("mma.sync", "ldmatrix", "cp.async.cg", "cp.async.commit_group"):
+        assert gone not in src, gone  # no per-thread copies or mma.sync left
 
 
 def ldsm_x4(tile, addr, trans=False):
@@ -409,186 +718,6 @@ def mma16(c, a, b):
     D = (C + A @ B).astype(F32)
     return np.stack([D[..., G, 2 * T], D[..., G, 2 * T + 1],
                      D[..., G + 8, 2 * T], D[..., G + 8, 2 * T + 1]], axis=-1)
-
-
-def pack_p(p, j):
-    """The A fragment of P V's k16 step j: 8-key tiles 2j and 2j + 1 of P's C
-    fragments, cast to bf16 in pairs (pack(c0, c1), pack(c2, c3) of each)."""
-    lo, hi = p[..., 2 * j, :, :], p[..., 2 * j + 1, :, :]
-    return to_bf16(np.stack([lo[..., 0:2], lo[..., 2:4], hi[..., 0:2], hi[..., 2:4]], axis=-2))
-
-
-def emulate_fwd_bf16(q, k, v, bias):
-    """K2's bf16 mode on lane fragments: q, k, v (B, H, S, D) and bias (B, S)
-    (rounded to bf16 here) -> (out (B, H, S, D) bf16 values as f32, lse)."""
-    b, h, s, d = q.shape
-    wc, bq, bk = cfg_bf16(d)
-    nt_s, dw = bk // 8, d // wc
-    nt_o = dw // 8
-    scale = F32(1.0) / np.sqrt(F32(d))
-    qf, kf, vf = (to_bf16(x).reshape(b * h, s, d) for x in (q, k, v))
-    brow = np.repeat(to_bf16(bias), h, axis=0)
-    warp = np.arange(K_WARPS)
-    m0, n0 = (warp // wc) * 16, (warp % wc) * dw
-    q_tiles, k_tiles = -(-s // bq), -(-s // bk)
-    out = np.zeros((b * h, q_tiles * bq, d), F32)
-    lse = np.zeros((b * h, q_tiles * bq), F32)
-    e_row = np.arange(4) >> 1
-    for qt in range(q_tiles):
-        qs = stage16(qf, qt * bq, bq)
-        m = np.full((b * h, K_WARPS, 32, 2), -np.inf, F32)
-        l = np.zeros((b * h, K_WARPS, 32, 2), F32)
-        o = np.zeros((b * h, K_WARPS, nt_o, 32, 4), F32)
-        for kt in range(k_tiles):
-            k0 = kt * bk
-            ks, vs = stage16(kf, k0, bk), stage16(vf, k0, bk)
-            sacc = np.zeros((b * h, K_WARPS, nt_s, 32, 4), F32)
-            for kk in range(0, d, 16):
-                a = ldsm_x4(qs, swz16(m0[:, None] + LR + 8 * (LM & 1), kk + 8 * (LM >> 1), d))
-                for n2 in range(nt_s // 2):
-                    bfr = ldsm_x4(ks, swz16(16 * n2 + LR + 8 * (LM >> 1), kk + 8 * (LM & 1), d))
-                    sacc[:, :, 2 * n2] = mma16(sacc[:, :, 2 * n2], a, bfr[:, None, :, 0:2])
-                    sacc[:, :, 2 * n2 + 1] = mma16(sacc[:, :, 2 * n2 + 1], a, bfr[:, None, :, 2:4])
-            keys = (k0 + 8 * np.arange(nt_s)[:, None, None] + 2 * T[None, :, None]
-                    + (np.arange(4) & 1)[None, None, :])
-            bval = brow[:, np.minimum(keys, s - 1)][:, None]
-            x = np.where(keys < s, ((sacc * scale).astype(F32) + bval).astype(F32), -np.inf)
-            x = x.astype(F32)
-            mx = np.full((b * h, K_WARPS, 32, 2), -np.inf, F32)
-            for n in range(nt_s):
-                for e in range(4):
-                    mx[..., e >> 1] = np.maximum(mx[..., e >> 1], x[:, :, n, :, e])
-            for off in (1, 2):
-                mx = np.maximum(mx, mx[:, :, np.arange(32) ^ off])
-            m_new = np.maximum(m, mx)
-            alpha = np.exp((m - m_new).astype(F32)).astype(F32)
-            m = m_new
-            p = np.exp((x - m[:, :, None, :, e_row]).astype(F32)).astype(F32)
-            tot = np.zeros((b * h, K_WARPS, 32, 2), F32)
-            for n in range(nt_s):
-                for e in range(4):
-                    tot[..., e >> 1] = (tot[..., e >> 1] + p[:, :, n, :, e]).astype(F32)
-            for off in (1, 2):
-                tot = (tot + tot[:, :, np.arange(32) ^ off]).astype(F32)
-            l = ((l * alpha).astype(F32) + tot).astype(F32)
-            o = (o * alpha[:, :, None, :, e_row]).astype(F32)
-            for j in range(bk // 16):
-                pa = pack_p(p, j)  # (BH, W, 32, 4, 2)
-                for n2 in range(nt_o // 2):
-                    cols = n0[:, None] + 16 * n2 + 8 * (LM >> 1)  # (W, 32)
-                    bfr = ldsm_x4(vs, swz16(16 * j + LR + 8 * (LM & 1), cols, d), trans=True)
-                    o[:, :, 2 * n2] = mma16(o[:, :, 2 * n2], pa, bfr[..., 0:2, :])
-                    o[:, :, 2 * n2 + 1] = mma16(o[:, :, 2 * n2 + 1], pa, bfr[..., 2:4, :])
-        for w in range(K_WARPS):
-            for hh in range(2):
-                rows = qt * bq + m0[w] + G + 8 * hh
-                for n in range(nt_o):
-                    for j in range(2):
-                        col = n0[w] + 8 * n + 2 * T + j
-                        out[:, rows, col] = to_bf16(o[:, w, n, :, 2 * hh + j] / l[:, w, :, hh])
-                lse[:, rows] = (m[:, w, :, hh] + np.log(l[:, w, :, hh]).astype(F32)).astype(F32)
-    return out[:, :s].reshape(b, h, s, d), lse[:, :s].reshape(b, h, s)
-
-
-BF16_CASES = {
-    "s64_d128": (2, 2, 64, 128, [64, 37]),
-    "ragged_s100_d64": (2, 2, 100, 64, [100, 63]),  # 2 key tiles, the second ragged
-    "fully_masked_row": (2, 2, 64, 128, [0, 17]),
-    "key_tiles_d192": (2, 1, 130, 192, [130, 45]),  # 3 key tiles, 5 query tiles, WC = 2
-}
-
-
-@pytest.mark.parametrize("case", sorted(BF16_CASES))
-def test_emulated_bf16_kernel_matches_twin_and_pallas(case):
-    b, h, s, d, lengths = BF16_CASES[case]
-    rng = np.random.default_rng(len(case) + d)
-    q, k, v = (to_bf16(rng.standard_normal((b, h, s, d))) for _ in range(3))
-    mask = (np.arange(s)[None] < np.asarray(lengths)[:, None]).astype(F32)
-    tbias = fa.padding_bias(torch.from_numpy(mask), torch.bfloat16)
-    out, lse = emulate_fwd_bf16(q, k, v, tbias.float().numpy().reshape(b, s))
-    twin = fa.reference_attention_bf16(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
-                                       tbias)
-    jout, jlse = _pallas_forward(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
-                                 jax_padding_bias(jnp.asarray(mask), jnp.bfloat16),
-                                 block_q=128, interpret=True, mm_dtype=jnp.bfloat16)
-    for ref, ref_l in ((twin[0].float().numpy(), twin[1].numpy()),
-                       (np.asarray(jout.astype(jnp.float32)), np.asarray(jlse))):
-        assert np.abs(out - ref).max() <= 8e-3 * np.abs(ref).max()
-        np.testing.assert_allclose(lse, ref_l.reshape(lse.shape), rtol=1e-4, atol=1e-4)
-    assert np.isfinite(out).all() and np.isfinite(lse).all()
-
-
-def test_bf16_p_fragment_is_the_pv_a_fragment():
-    """S's C fragments of 8-key tiles 2j and 2j + 1, packed in pairs, are the
-    A fragment of P V's k16 step over those 16 keys; V's B fragment by
-    ldmatrix.trans from the swizzled key-major tile: exactly P V."""
-    rng = np.random.default_rng(0)
-    P = rng.integers(-8, 8, size=(16, 16)).astype(F32)  # exact in bf16
-    V = rng.integers(-8, 8, size=(16, 64)).astype(F32)
-    c = np.stack([np.stack([P[G, 8 * n + 2 * T], P[G, 8 * n + 2 * T + 1],
-                            P[G + 8, 8 * n + 2 * T], P[G + 8, 8 * n + 2 * T + 1]], -1)
-                  for n in range(2)])  # (2 tiles, 32, 4)
-    a = pack_p(c, 0)
-    vs = stage16(V[None], 0, 16)
-    for n2 in range(4):
-        bfr = ldsm_x4(vs, swz16(LR + 8 * (LM & 1), 16 * n2 + 8 * (LM >> 1), 64), trans=True)[0]
-        for half in range(2):
-            got = mma16(np.zeros((32, 4), F32), a, bfr[:, 2 * half:2 * half + 2])
-            want = P @ V[:, 16 * n2 + 8 * half:16 * n2 + 8 * half + 8]
-            np.testing.assert_array_equal(
-                got, np.stack([want[G, 2 * T], want[G, 2 * T + 1], want[G + 8, 2 * T],
-                               want[G + 8, 2 * T + 1]], axis=-1))
-
-
-def _bf16_loads(d):
-    """Every shared-memory access of the bf16 kernel at head width d: (name,
-    16-byte chunk index of each of the 8 lanes of one phase). ldmatrix reads
-    one 8 x 8 matrix a phase; cp.async writes 8 lanes' 16 bytes a phase."""
-    wc, bq, bk = cfg_bf16(d)
-    dw = d // wc
-    for w in range(K_WARPS):
-        m0, n0 = (w // wc) * 16, (w % wc) * dw
-        for kk in range(0, d, 16):
-            q = swz16(m0 + LR + 8 * (LM & 1), kk + 8 * (LM >> 1), d)
-            yield from ((f"Q w{w} kk{kk} m{i}", q[8 * i:8 * i + 8]) for i in range(4))
-            for n2 in range(bk // 16):
-                kx = swz16(16 * n2 + LR + 8 * (LM >> 1), kk + 8 * (LM & 1), d)
-                yield from ((f"K w{w} kk{kk} n{n2} m{i}", kx[8 * i:8 * i + 8]) for i in range(4))
-        for j in range(bk // 16):
-            for n2 in range(dw // 16):
-                vx = swz16(16 * j + LR + 8 * (LM & 1), n0 + 16 * n2 + 8 * (LM >> 1), d)
-                yield from ((f"V w{w} j{j} n{n2} m{i}", vx[8 * i:8 * i + 8]) for i in range(4))
-    c8 = d // 8
-    for i0 in range(0, max(bq, bk) * c8, 8):  # cp.async: thread i stages chunk i % C8 of row i / C8
-        i = i0 + np.arange(8)
-        yield f"stage i{i0}", swz16(i // c8, (i % c8) * 8, d)
-
-
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
-def test_bf16_kernel_smem_accesses_are_free_of_bank_conflicts(d):
-    loads = list(_bf16_loads(d))
-    assert loads
-    for name, elems in loads:
-        assert (elems % 8 == 0).all(), name  # 16-byte aligned rows
-        groups = (elems * 2 // 16) % 8  # the 16-byte bank group of each lane's access
-        assert len(set(groups.tolist())) == 8, name
-
-
-def test_bf16_emulation_mirrors_the_kernel_source():
-    src = (CSRC / "flash_attention_fwd_bf16.cu").read_text()
-    for needle in ("constexpr int kWarps = 4;", "WC = D <= 128 ? 1 : 2;",
-                   "BQ = 16 * kWarps / WC;", "BK = 64;",
-                   "return r * W + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);",
-                   "ldsm_x4(a, Qs + swz(m0 + lr + 8 * (lm & 1), kk + 8 * (lm >> 1), D));",
-                   "ldsm_x4(b, Ks + swz(16 * np + lr + 8 * (lm >> 1), kk + 8 * (lm & 1), D));",
-                   "ldsm_x4_trans(b, Vs + swz(16 * j + lr + 8 * (lm & 1), n0 + 16 * np + 8 * (lm >> 1), D));",
-                   "pack(sacc[2 * j][0], sacc[2 * j][1]),", "pack(sacc[2 * j][2], sacc[2 * j][3]),",
-                   "pack(sacc[2 * j + 1][0], sacc[2 * j + 1][1]),",
-                   "pack(sacc[2 * j + 1][2], sacc[2 * j + 1][3])};",
-                   'asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(d) : "f"(hi), "f"(lo));',
-                   "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
-        assert needle in src, needle
-
 
 # ---------------------------------------------------------------------------
 # K3/K4's bf16 mode (csrc/flash_attention_bwd_bf16.cu): one pass per (batch *

@@ -366,6 +366,57 @@ def test_flash_fwd_bf16_every_width(cuda, d, s):
     assert (out[0].float() - uniform).abs().max().item() <= 8e-3 * v[0].float().abs().max().item()
 
 
+def _bf16_inputs(shape, seed, cuda):
+    b, h, s, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = 0  # a fully masked row
+    mask = torch.from_numpy((np.arange(s)[None] < lengths[:, None]).astype(np.float32))
+    return q, k, v, fa.padding_bias(mask.to(cuda), torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(512, 6, 64, 128), (2, 2, 2048, 256)],
+                         ids=["training_shape", "s2048_d256"])
+def test_flash_fwd_bf16_many_items_and_fewest_stages(cuda, shape):
+    """The training shape (many work items for each persistent CTA) and S =
+    2048 at D = 256 (32 key tiles through a ring of two stages): out within
+    8e-3 of the twin's largest value, lse within 1e-4, two calls bit for bit."""
+    q, k, v, bias = _bf16_inputs(shape, shape[2] + shape[3], cuda)
+    with torch.inference_mode():
+        out, lse = fa.flash_attention_fwd_bf16(q, k, v, bias)
+        out2, lse2 = fa.flash_attention_fwd_bf16(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.reference_attention_bf16(q, k, v, bias)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    assert err <= 8e-3 * ref_out.float().abs().max().item(), err
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_fwd_bf16_smem_fits_the_sm(cuda, d):
+    """Each width's rings, staging tiles and barriers, as the kernel sizes
+    them, fit in the shared memory a block of this card may opt in to."""
+    props = torch.cuda.get_device_properties(cuda)
+    assert fa._bf16_smem(d) <= props.shared_memory_per_block_optin
+
+
+def test_flash_fwd_bf16_raises_on_a_misaligned_view(cuda):
+    """TMA needs 16-byte-aligned tensors: a contiguous view that starts one
+    element into its storage raises before any launch."""
+    shape = (2, 2, 64, 64)
+    q, k, v, bias = _bf16_inputs(shape, 0, cuda)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(shape)
+    shifted.copy_(q)
+    before = fa.bf16_launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_fwd_bf16(shifted, k, v, bias)
+    assert fa.bf16_launches == before
+
+
 @pytest.mark.parametrize("levers", [{"bf16": True}, {"quantize": True},
                                     {"bf16": True, "quantize": True}],
                          ids=["bf16", "quantize", "bf16_quantize"])

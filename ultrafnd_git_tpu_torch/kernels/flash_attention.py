@@ -202,6 +202,14 @@ def _bf16_kernel():
     return _bf16_lib
 
 
+def _bf16_smem(dim: int) -> int:
+    """The bf16 forward kernel's dynamic shared memory at head width `dim`
+    (bytes; builds the library)."""
+    fn = _build.load("flash_attention_fwd_bf16").ufnd_flash_attention_fwd_bf16_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(dim)
+
+
 def _bwd_kernel():
     global _bwd_lib, _bwd_block_keys
     if _bwd_lib is None:
@@ -271,7 +279,7 @@ def _check(q, k, v, bias, *grads, dtype=torch.float32) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte loads, TMA)")
 
 
 def _launch_fwd(fn, name: str, q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -286,6 +294,11 @@ def _launch_fwd(fn, name: str, q, k, v, bias) -> Tuple[torch.Tensor, torch.Tenso
             out.data_ptr(), lse.data_ptr(),
             b, h, s, d, _scale(d),
             torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err < 0:  # the bf16 kernel's host side: a TMA tensor map it could not encode
+        raise RuntimeError(
+            f"{name}: tensor map encode failed (code {err}: -1 no cuTensorMapEncodeTiled, "
+            f"else -1000 - CUresult) at shape {(b, h, s, d)}"
         )
     if err != 0:
         raise RuntimeError(
