@@ -3,7 +3,9 @@
 a full-width text-tower model through them (in f32 and under --bf16), then
 serve the trained model on
 every single-device lever (f32, bf16, int8), explain it, put it behind the
-HTTP server, and train and serve it again on the sparse graph layout.
+HTTP server, train and serve it again on the sparse graph layout, and
+train an evidence model from a raw FakeSV data root through the CLI and
+serve it.
 
     python3 chip_smoke.py
 
@@ -83,7 +85,31 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
   9. sparse  — phase 4 with --sparse_graph (the same launch counts, the
      GPU-vs-CPU gradient at 1e-4, the median step beside the dense one),
      then its model served through both graph layouts within 1e-5;
- 10. a check that no module of jax or of the JAX package ultrafnd_git_tpu
+ 10. raw_train — a synthetic FakeSV data root (data_complete.json, N = 5376
+     records, 假 / 辟谣 balanced, Chinese titles, OCR and comments with
+     emotion-lexicon terms, OCR topics that share tokens) trained through
+     the training CLI's main() in this process: --data_root --use_evidence
+     --train_text_tower, full width, batch 512, one epoch, seed 0,
+     --export_model_dir. The cache is built there (host featurize, then
+     the align pass on the card; both timed) and must equal a CPU build
+     from the same seed: host columns exactly, temporal, aux[:, 0] and
+     evidence[:, 2] within 1e-5 of their largest value (TF32 off); each
+     evidence column varies; losses finite; launches K2 = depth x (steps
+     + eval chunks), K3/K4 = depth x steps, K1 = steps + 2 (the GCN warm
+     start's two updates run in the trainer's init, inside the CLI call);
+     evidence statistics, the graph's edge count, the median step and the
+     test metrics printed. A second main(--eval_only) on the same out_dir
+     reuses the cache (printed, file untouched) and launches K2 = depth x
+     test chunks and nothing else;
+ 11. evidence_serve — the export answers three requests (8, 64, 300 raw
+     records, each sent five times after a warm-up) and explain(grad) of 8
+     on the card: K2 launches = depth x (15 + 1), rows within 1e-4 of the
+     CPU Predictor, attributions within 1e-4 of the CPU's largest; median
+     latencies, the host ms of the two evidence scorers alone on the 300
+     records, the request's device time by kernel; the
+     300-record request and its featurize in turns with the same weights
+     served with use_evidence off;
+ 12. a check that no module of jax or of the JAX package ultrafnd_git_tpu
      was loaded (server threads included), a JSON line of the kernels, then
      the JSON result line.
 The train phase also prints the device time of one steady train step by
@@ -166,6 +192,8 @@ LEVER_VS_CPU = 2e-2  # a bf16 lever's GPU rows against its own CPU run (1e-4 qua
 HTTP_CLIENTS, HTTP_PER_CLIENT = 16, 8
 SWEEP = ((128, 64), (128, 256), (128, 1024), (128, 2048), (64, 64), (64, 2048),
          (192, 512), (256, 512))  # (D, S) of K2's sweep
+RAW_TOPICS = 128  # OCR topics of the raw data root (about 42 records each)
+CACHE_REL = 1e-5  # card vs CPU cache build: align-derived columns, of their largest value
 TOWER = dict(width=768, depth=2, heads=6, vocab_size=32768, max_len=64, gelu="tanh")
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd",
            "flash_attention_bwd_bf16", "adamw")
@@ -900,7 +928,6 @@ def phase_train(dev, model_dir, out_dir, sparse_graph=False, bf16=False, f32_ste
     `--bf16` (bf16_compute) run. Returns {launches, median_step_ms}."""
     import torch
 
-    from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
     from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer
 
     phase = "sparse" if sparse_graph else ("bf16_train" if bf16 else "train")
@@ -929,8 +956,7 @@ def phase_train(dev, model_dir, out_dir, sparse_graph=False, bf16=False, f32_ste
     trainer.fit()
     results = trainer.test()
     fit_test_s = time.perf_counter() - t1
-    launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches, "bwd": fa.bwd_launches,
-                "bwd_bf16": fa.bwd_bf16_launches, "adamw": aw.launches}
+    launches = _launch_counts()
     trainer.train_step = train_step
 
     steps = len(step_ms)
@@ -1282,6 +1308,289 @@ def phase_sparse_serve(model_dir, requests):
         records=sum(len(r) for r in requests))
 
 
+class _Tee:
+    """stdout that is also kept: what the port's entry points print."""
+
+    def __init__(self, stream):
+        self.stream, self.text = stream, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def raw_records(count, rng, prefix):
+    """FakeSV records: Chinese titles and comments from CJK_WORDS, with some
+    terms of the emotion lexicon (more of them in the fake half), and OCR
+    from RAW_TOPICS topics of 10 tokens: two records of one topic share
+    tokens, so the Jaccard graph at 0.12 has edges. Labels alternate
+    假 / 辟谣 (balanced)."""
+    from ultrafnd_git_tpu_torch.models.affective import EMO_LEXICON
+
+    emo = {h: sorted(EMO_LEXICON[h]) for h in ("fear", "anger", "joy")}
+    recs = []
+    for i in range(count):
+        fake = i % 2 == 0
+        words = list(rng.choice(CJK_WORDS, size=int(rng.integers(2, 9))))
+        for head, p in (("fear", 0.5 if fake else 0.15), ("anger", 0.4 if fake else 0.1),
+                        ("joy", 0.1 if fake else 0.5)):
+            if rng.uniform() < p:
+                words.append(str(rng.choice(emo[head])))
+        topic = int(rng.integers(RAW_TOPICS))
+        ocr = [f"话题{topic:03d}词{j}" for j in rng.choice(10, size=4, replace=False)]
+        ocr.append(str(rng.choice(CJK_WORDS)))
+        recs.append({
+            "video_id": f"{prefix}_{i:05d}",
+            "title": " ".join(words),
+            "ocr": " ".join(ocr) if i % 10 else "",
+            "comments": [str(c) for c in rng.choice(CJK_WORDS, size=int(rng.integers(0, 4)))],
+            "annotation": "假" if fake else "辟谣",
+        })
+    return recs
+
+
+def write_raw_root(root, n, rng):
+    """A synthetic FakeSV data root: data_complete.json with n records."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / "data_complete.json", "w", encoding="utf-8") as fh:
+        json.dump(raw_records(n, rng, "raw"), fh, ensure_ascii=False)
+    return root
+
+
+def _launch_counts():
+    from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
+
+    return {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches, "bwd": fa.bwd_launches,
+            "bwd_bf16": fa.bwd_bf16_launches, "adamw": aw.launches}
+
+
+def _train_cli(argv):
+    """The training CLI's main() in this process (the kernel counts see it):
+    (its results, what it printed)."""
+    from contextlib import redirect_stdout
+
+    from ultrafnd_git_tpu_torch.train import main as train_main
+
+    tee = _Tee(sys.stdout)
+    with redirect_stdout(tee):
+        results = train_main(argv)
+    return results, "".join(tee.text)
+
+
+def phase_raw_train(root):
+    """The canonical user path from a raw FakeSV data root through the CLI:
+    train --data_root R --use_evidence --train_text_tower at full width
+    (batch 512, one epoch, seed 0) with --export_model_dir; the cache built
+    on the card against a CPU build; launches; a second run under
+    --eval_only reuses the cache."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.data import cache as cache_mod
+    from ultrafnd_git_tpu_torch.data.dataset import FakeSVRawDataset
+    from ultrafnd_git_tpu_torch.ops.jaccard import build_edges_from_ocr
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer
+
+    t0 = time.perf_counter()
+    data_root = write_raw_root(root / "fakesv_raw", N_CORPUS, np.random.default_rng(2))
+    out, exported = root / "raw_run", root / "raw_model"
+    log("raw_train", data_root_records=N_CORPUS, write_s=time.perf_counter() - t0)
+    argv = ["--data_root", str(data_root), "--out_dir", str(out), "--use_evidence",
+            "--train_text_tower", "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+            "--seed", "0"]
+
+    step_ms = []
+    train_step = ForensicTrainer.train_step
+
+    def timed_step(self, idx, mask):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        result = train_step(self, idx, mask)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - s))
+        return result
+
+    ForensicTrainer.train_step = timed_step
+    _reset_counts()  # this path's run only
+    t1 = time.perf_counter()
+    try:
+        results, said = _train_cli(argv + ["--export_model_dir", str(exported)])
+    finally:
+        ForensicTrainer.train_step = train_step
+    launches = _launch_counts()
+    wall_s = time.perf_counter() - t1
+    built = re.search(r"feature cache: built from .* \((\d+) records\): host featurize (\S+) s, "
+                      r"align pass (\S+) s on (\S+)", said)
+    if built is None or int(built.group(1)) != N_CORPUS or not built.group(4).startswith("cuda"):
+        raise RuntimeError(f"the run did not build its cache from the data root on the card: "
+                           f"{built and built.group(0)}")
+
+    cache = cache_mod.load_cache(str(out / "feature_cache.npz"))
+    tr, va, te = (len(s) for s in cache["split"])
+    steps = len(step_ms)
+    chunks = -(-va // TRAIN_BATCH) + -(-te // TRAIN_BATCH)
+    depth = TOWER["depth"]
+    # K1 also runs the GCN warm start's two AdamW updates in the trainer's init
+    expect = {"fwd": depth * (steps + chunks), "fwd_bf16": 0, "bwd": depth * steps,
+              "bwd_bf16": 0, "adamw": steps + 2}
+    if steps != -(-tr // TRAIN_BATCH) or launches != expect:
+        raise RuntimeError(f"raw_train launches {launches} over {steps} steps, expected {expect}")
+    rows = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r[k] for r in rows for k in ("train_loss", "val_loss")] + [results["test_loss"]]
+    if not np.isfinite(losses).all() or not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"raw_train: non-finite losses or metrics: {losses} {results}")
+
+    # the card's build against a CPU build from the same seed (TF32 off)
+    t2 = time.perf_counter()
+    cpu = cache_mod.build_feature_cache(FakeSVRawDataset(str(data_root)), seed=0,
+                                        encoders=cache_mod.make_encoders(seed=0, device="cpu"))
+    cpu_build_s = time.perf_counter() - t2
+    exact = ["labels", "text", "audio", "visual", "text_ids", "text_mask"]
+    bad = [k for k in exact if not np.array_equal(cache[k], cpu[k])]
+    bad += [k for k, a, b in (("evidence[:, :2]", cache["evidence"][:, :2], cpu["evidence"][:, :2]),
+                              ("aux[:, 1]", cache["aux"][:, 1], cpu["aux"][:, 1]))
+            if not np.array_equal(a, b)]
+    bad += [k for k in ("ocr_sets", "ids") if list(cache[k]) != list(cpu[k])]
+    bad += [f"split[{i}]" for i in range(3) if not np.array_equal(cache["split"][i], cpu["split"][i])]
+    rel = {k: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) for k, a, b in (
+        ("temporal", cache["temporal"], cpu["temporal"]),
+        ("aux[:, 0]", cache["aux"][:, 0], cpu["aux"][:, 0]),
+        ("evidence[:, 2]", cache["evidence"][:, 2], cpu["evidence"][:, 2]))}
+    if bad or max(rel.values()) > CACHE_REL:
+        raise RuntimeError(f"the card's cache differs from the CPU build: host keys {bad}, "
+                           f"align keys {rel} of their largest (bound {CACHE_REL})")
+    ev = cache["evidence"]
+    if not (ev.std(axis=0) > 0).all():
+        raise RuntimeError(f"an evidence column is constant: std {ev.std(axis=0)}")
+    src, _, _ = build_edges_from_ocr(cache["ocr_sets"], 0.12)
+    edges = len(src) // 2
+    if not edges:
+        raise RuntimeError("the raw corpus's Jaccard graph has no edge")
+    later = step_ms[1:]
+    median_step = statistics.median(later)
+    log("raw_train", records=N_CORPUS, train_rows=tr, val_rows=va, test_rows=te,
+        cache_host_featurize_s=float(built.group(2)), cache_align_pass_s=float(built.group(3)),
+        align_device=built.group(4), cpu_cache_build_s=cpu_build_s,
+        gpu_vs_cpu_cache=json.dumps(rel, separators=(",", ":")), host_keys_equal=True,
+        evidence_mean=json.dumps(ev.mean(axis=0).tolist()),
+        evidence_std=json.dumps(ev.std(axis=0).tolist()), graph_edges=edges,
+        steps=steps, launches=json.dumps(launches, separators=(",", ":")),
+        expected=json.dumps(expect, separators=(",", ":")), first_step_ms=step_ms[0],
+        median_step_ms=median_step, samples_per_s=TRAIN_BATCH * 1e3 / median_step,
+        cli_wall_s=wall_s, losses=json.dumps([round(x, 6) for x in losses]),
+        test=json.dumps({k: round(v, 6) for k, v in results.items()}))
+
+    # --eval_only on the same out_dir: the cache is reused, not rebuilt
+    npz = out / "feature_cache.npz"
+    stamp = npz.stat().st_mtime_ns
+    _reset_counts()
+    _, said = _train_cli(argv + ["--eval_only"])
+    eval_launches = _launch_counts()
+    eval_expect = {"fwd": depth * -(-te // TRAIN_BATCH), "fwd_bf16": 0, "bwd": 0, "bwd_bf16": 0,
+                   "adamw": 0}
+    if "feature cache: reusing" not in said or "feature cache: built" in said \
+            or npz.stat().st_mtime_ns != stamp or eval_launches != eval_expect:
+        raise RuntimeError(f"--eval_only rebuilt the cache or launched {eval_launches} "
+                           f"(expected {eval_expect})")
+    log("raw_train", eval_only="reused the cache", launches=json.dumps(eval_launches))
+    return {"launches": launches, "median_step_ms": median_step, "data_root": data_root,
+            "exported": exported}
+
+
+def phase_evidence_serve(model_dir, requests):
+    """The evidence model exported by raw_train on the card: three requests
+    (one chunk each, each sent REPEATS times) and explain(grad) of 8
+    records, each against the CPU Predictor; then the 300-record request
+    in turns with the same weights served with use_evidence off (the
+    fusion's own proxies), its whole latency and its featurize, and the
+    two evidence scorers alone; its device time by kernel."""
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.serving import FORENSIC_KEYS, Predictor
+
+    plain_dir = Path(model_dir).with_name(Path(model_dir).name + "_no_evidence")
+    plain_dir.mkdir()
+    for name in ("weights.pt", "feature_cache.npz"):
+        (plain_dir / name).symlink_to(Path(model_dir) / name)
+    meta = json.loads((Path(model_dir) / "meta.json").read_text())
+    meta["cfg"]["use_evidence"] = False
+    (plain_dir / "meta.json").write_text(json.dumps(meta))
+    gpu = Predictor(model_dir, device="cuda")
+    plain = Predictor(str(plain_dir), device="cuda")
+    cpu = Predictor(model_dir, device="cpu")
+    try:
+        if not gpu.use_evidence or plain.use_evidence:
+            raise RuntimeError("the raw_train export is not an evidence checkpoint")
+        gpu.warmup(max(REQUEST_SIZES))
+        plain.warmup(max(REQUEST_SIZES))
+        _reset_counts()  # this path's run only
+        rows, lat = _timed_requests(gpu, requests)
+        grad = gpu.explain(requests[0], method="grad", top_k=512)
+        launches = fa.launches
+        others = fa.bf16_launches + fa.bwd_launches + fa.bwd_bf16_launches
+        big = requests[-1]
+        # in turns: evidence, none, none, evidence, ...
+        turns = {"evidence": {"predict": [], "featurize": []},
+                 "no_evidence": {"predict": [], "featurize": []}}
+        for i in range(2 * REPEATS):
+            order = (("evidence", gpu), ("no_evidence", plain))
+            for label, pred in order if i % 2 == 0 else order[::-1]:
+                for step, fn in (("predict", pred.predict), ("featurize", pred.featurize)):
+                    s = time.perf_counter()
+                    fn(big)
+                    turns[label][step].append(1e3 * (time.perf_counter() - s))
+        scorers_s = []
+        for _ in range(REPEATS):
+            s = time.perf_counter()
+            gpu._encoders["semantic"].gap_magnitude([r["title"] for r in big],
+                                                    [r["ocr"] for r in big])
+            gpu._encoders["affective"].analyze_batch([r["title"] + " " + r["ocr"] for r in big])
+            scorers_s.append(time.perf_counter() - s)
+        profile_request(gpu, big, "evidence_serve", "f32")
+        cpu_rows = [cpu.predict(recs) for recs in requests]
+        ref = cpu.explain(requests[0], method="grad", top_k=512)
+    finally:
+        gpu.close()
+        plain.close()
+        cpu.close()
+    expect = TOWER["depth"] * (len(requests) * REPEATS + 1)
+    if launches != expect or others:
+        raise RuntimeError(f"evidence serving: K2 launched {launches} times (expected {expect}), "
+                           f"other kernels {others}")
+    diffs = {k: float(np.max(np.abs(_values(rows, k) - _values(cpu_rows, k))))
+             for k in ("prob_fake", *FORENSIC_KEYS)}
+    if not max(diffs.values()) <= PROB_ATOL:
+        raise RuntimeError(f"evidence serving, GPU vs CPU: {diffs}")
+
+    def vector(row):
+        e = row["explain"]
+        v = np.zeros(514)
+        for d, x in e["top_fused_dims"]:
+            v[d] = x
+        v[512:] = e["aux"]["temporal_delay"], e["aux"]["emotion"]
+        return v
+
+    g, r = np.stack([vector(x) for x in grad]), np.stack([vector(x) for x in ref])
+    grad_rel = float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30))
+    if not grad_rel <= PROB_ATOL:
+        raise RuntimeError(f"evidence explain(grad): GPU vs CPU {grad_rel} of the largest")
+    p = _values(rows)
+    if not (np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()):
+        raise RuntimeError("bad prob_fake values in an evidence response")
+    log("evidence_serve", requests=json.dumps([len(x) for x in requests]),
+        median_latency_ms=json.dumps([1e3 * t for t in lat]), repeats=REPEATS,
+        in_turns_300_median_ms=json.dumps({k: {s: statistics.median(v) for s, v in d.items()}
+                                           for k, d in turns.items()}),
+        scorers_300_ms=1e3 * statistics.median(scorers_s),
+        launches=launches, expected=expect,
+        gpu_vs_cpu_max_abs=json.dumps(diffs, separators=(",", ":")),
+        explain_grad_vs_cpu_rel=grad_rel, prob_min=float(p.min()), prob_max=float(p.max()),
+        semantic_conflict_std=float(_values(rows, "semantic_conflict").std()))
+    return launches
+
+
 def main() -> int:
     dev = phase_device()
     import torch
@@ -1316,6 +1625,10 @@ def main() -> int:
         sparse_served = Path(root) / "sparse_model"
         export_trained(str(Path(root) / "sparse_run"), "best", str(sparse_served), str(seeded))
         phase_sparse_serve(str(sparse_served), requests)
+        raw = phase_raw_train(Path(root))
+        rng = np.random.default_rng(3)
+        evidence = phase_evidence_serve(
+            str(raw["exported"]), [raw_records(n, rng, f"q{n}") for n in REQUEST_SIZES])
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -1323,12 +1636,12 @@ def main() -> int:
         raise RuntimeError(f"the run loaded modules of jax or the JAX package: {loaded[:10]}")
     src = "ultrafnd_git_tpu_torch/csrc/"
     ref = "ultrafnd_git_tpu/kernels/"
-    tl, bl, sl = train["launches"], bf16["launches"], sparse["launches"]
+    tl, bl, sl, rl = train["launches"], bf16["launches"], sparse["launches"], raw["launches"]
 
-    def paths(key, serve_n=0, levers_n=0, explain_n=0, http_n=0):
+    def paths(key, serve_n=0, levers_n=0, explain_n=0, http_n=0, evidence_n=0):
         by = {"train": tl[key], "bf16_train": bl[key], "serve": serve_n,
               "serve_levers": levers_n, "explain": explain_n, "http": http_n,
-              "sparse_train": sl[key]}
+              "sparse_train": sl[key], "raw_train": rl[key], "evidence_serve": evidence_n}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [
@@ -1336,7 +1649,8 @@ def main() -> int:
          "replaces": ref + "adamw.py:114", **paths("adamw"), **k1, "ptxas": ptxas["adamw"]},
         {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
          "replaces": ref + "flash_attention.py:162",
-         **paths("fwd", serve["launches"], levers["fwd"], explain, http), **flash["fwd"],
+         **paths("fwd", serve["launches"], levers["fwd"], explain, http, evidence),
+         **flash["fwd"],
          "ptxas": ptxas["flash_attention_fwd"]},
         {"name": "flash_attention_fwd_bf16", "route": "cuda",
          "source": src + "flash_attention_fwd_bf16.cu",

@@ -13,6 +13,11 @@ writes into --model_dir:
   * meta.json   — the checkpoint cfg plus the resolved module dims (the
     port reads no YAML);
   * feature_cache.npz — a copy of the corpus cache.
+An evidence checkpoint (`--use_evidence`) exports as any other: its cfg
+carries the flag, and the port's Predictor computes the scorers' host
+columns itself (lexicon and hash rungs, no weights). The semantic
+analyzer's projector is not on the v2 path (the cache reads only its
+`gap_magnitude`), so nothing of it is exported.
 Serve the result with `python -m ultrafnd_git_tpu_torch.predict`, or
 train from it with `python -m ultrafnd_git_tpu_torch.train --model_dir`:
 the port's trainer reads its feature cache from the directory, and its

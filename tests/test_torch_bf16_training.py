@@ -363,10 +363,9 @@ def test_stale_features_version_is_decided_as_jax_decides(tmp_path, how, capsys)
     _salted_model_dir(model_dir, pkl)
     stale = tmp_path / "stale.npz"
     _stale_copy(model_dir / "feature_cache.npz", stale, how)
-    # a fresh run: JAX rebuilds (None), which the port cannot, so it raises
+    # a fresh run: both loaders refuse it (None), so the caller rebuilds
     assert jax_load_cache(str(stale)) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cache.load_cache(str(stale))
+    assert port_cache.load_cache(str(stale)) is None
     # eval_only / resume: both reuse it, with the warning
     capsys.readouterr()
     ref = jax_load_cache(str(stale), stale_features="reuse")
@@ -378,10 +377,11 @@ def test_stale_features_version_is_decided_as_jax_decides(tmp_path, how, capsys)
         np.testing.assert_array_equal(ours[key], ref[key], err_msg=key)
     assert ours["ocr_sets"] == ref["ocr_sets"] and list(ours["ids"]) == list(ref["ids"])
 
-    # through the trainer: a model dir's stale cache raises; out_dir's own
-    # stale cache is reused under --eval_only
+    # through the trainer: a model dir's stale cache is not taken, so a fresh
+    # run falls to the data root (none here: it raises); out_dir's own stale
+    # cache is reused under --eval_only
     shutil.copyfile(stale, model_dir / "feature_cache.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="no data_root"):
         port.ForensicTrainer(port.TrainConfig(out_dir=str(tmp_path / "fresh"),
                                               model_dir=str(model_dir)), device="cpu")
     run = tmp_path / "run"

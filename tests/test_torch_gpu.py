@@ -19,6 +19,7 @@ AdamW kernel bit-identical (torch.equal); tower atol
 atol 1e-4.
 """
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -514,3 +515,57 @@ def test_bf16_compute_train_step_on_gpu(cuda, tmp_path):
     gpu.train_step(np.arange(16), np.ones(16, np.float32))
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), before)) == (0, 1, 0, 1, 1)
+
+
+FIXTURES = Path(__file__).resolve().parents[1] / "tests" / "fixtures"
+
+
+def test_cache_built_on_gpu_matches_cpu_build(cuda):
+    """The align pass on the card against the same seeded build on the CPU:
+    host keys equal, align-derived keys within 1e-5 of their largest."""
+    from ultrafnd_git_tpu_torch.data import cache as cache_mod
+    from ultrafnd_git_tpu_torch.data.dataset import FakeSVRawDataset
+
+    raw = FakeSVRawDataset(str(FIXTURES / "fakesv_hard"))
+    gpu, cpu = (cache_mod.build_feature_cache(
+        raw, seed=4, encoders=cache_mod.make_encoders(seed=4, device=dev))
+        for dev in ("cuda", "cpu"))
+    assert list(gpu["ids"]) == list(cpu["ids"]) and gpu["ocr_sets"] == cpu["ocr_sets"]
+    for key in ("labels", "text", "audio", "visual", "text_ids", "text_mask"):
+        np.testing.assert_array_equal(gpu[key], cpu[key], err_msg=key)
+    np.testing.assert_array_equal(gpu["evidence"][:, :2], cpu["evidence"][:, :2])
+    np.testing.assert_array_equal(gpu["aux"][:, 1], cpu["aux"][:, 1])
+    for key in ("temporal", "aux", "evidence"):
+        assert np.abs(gpu[key] - cpu[key]).max() <= 1e-5 * np.abs(cpu[key]).max(), key
+
+
+def test_evidence_model_trained_on_gpu_serves_as_on_cpu(cuda, tmp_path):
+    """Train from the raw fixture root with use_evidence on the card, export,
+    and serve the export on the card and on the CPU (atol 1e-4)."""
+    from ultrafnd_git_tpu_torch.predict import load_records
+    from ultrafnd_git_tpu_torch.serving import Predictor
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+    from ultrafnd_git_tpu_torch.utils.transfer import export_trained
+
+    root = FIXTURES / "fakesv_tiny"
+    cfg = TrainConfig(data_root=str(root), out_dir=str(tmp_path / "run"), batch_size=16,
+                      epochs=1, seed=0, use_evidence=True, train_text_tower=True,
+                      text_tower_depth=1, text_tower_heads=4)
+    before = fa.launches, fa.bwd_launches, aw.launches
+    trainer = ForensicTrainer(cfg, device="cuda")
+    assert trainer.cache_source == "data_root" and "evidence" in trainer.corpus
+    trainer.fit()
+    assert fa.launches > before[0] and fa.bwd_launches > before[1] and aw.launches > before[2]
+    served = export_trained(str(tmp_path / "run"), "best", str(tmp_path / "served"))
+    records = load_records(root / "data_complete.json")
+    gpu = Predictor(str(served), device="cuda")
+    cpu = Predictor(str(served), device="cpu")
+    try:
+        g_rows, c_rows = gpu.predict(records), cpu.predict(records)
+    finally:
+        gpu.close()
+        cpu.close()
+    assert [r["id"] for r in g_rows] == [r["id"] for r in c_rows]
+    for key in ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity"):
+        np.testing.assert_allclose([r[key] for r in g_rows], [r[key] for r in c_rows],
+                                   atol=1e-4, err_msg=key)

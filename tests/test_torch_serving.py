@@ -149,17 +149,6 @@ def test_unported_options_raise(exported, kwargs):
         Predictor(exported, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("flag", ["use_evidence"])
-def test_unported_checkpoint_kinds_raise(exported, tmp_path, flag):
-    for name in ("weights.pt", "feature_cache.npz"):
-        (tmp_path / name).symlink_to(Path(exported) / name)
-    meta = json.loads((Path(exported) / "meta.json").read_text())
-    meta["cfg"][flag] = True
-    (tmp_path / "meta.json").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(str(tmp_path), device="cpu")
-
-
 @pytest.mark.parametrize("use_gnn", [False, True])
 def test_seeded_model_without_tower_serves(tmp_path, use_gnn):
     """A checkpoint without the tower scores its hash text features; with

@@ -14,6 +14,7 @@ rtol 1e-4.
 """
 import importlib.util
 import json
+from dataclasses import asdict
 import os
 import shutil
 import subprocess
@@ -113,18 +114,38 @@ def _assert_grads_match(ours, ref, tol=TOL):
                                        err_msg=f"{part}.{name}", **tol)
 
 
-@pytest.mark.parametrize("accum", [1, 4], ids=["batch_8", "grad_accum_4_vs_batch_32"])
-def test_loss_and_gradients_match_jax(jax_trainer, bridged, accum):
+@pytest.mark.parametrize("accum,evidence", [
+    pytest.param(1, False, id="batch_8"),
+    pytest.param(4, False, id="grad_accum_4_vs_batch_32"),
+    pytest.param(1, True, id="batch_8_use_evidence"),
+])
+def test_loss_and_gradients_match_jax(jax_trainer, bridged, accum, evidence):
+    """With `evidence`, both trainers feed the same cache's scorer outputs
+    to the fusion gates, as each does under use_evidence (JAX
+    `trainer.py:450-451`, `:875-876`)."""
     n = 8 * accum
     idx, mask = _rows(jax_trainer, n, valid=n - 3)
-    loss_ref, grads_ref = _jax_loss_and_grads(jax_trainer, idx, mask)
+    jt_corpus = jax_trainer.corpus
+    if evidence:
+        ev = np.asarray(jax_trainer.cache["evidence"], np.float32)
+        assert all(ev[:, j].std() > 0 for j in range(3))
+        jax_trainer.corpus = {**jt_corpus, "evidence": jnp.asarray(ev)}
+        bridged.corpus["evidence"] = torch.from_numpy(np.asarray(bridged.cache["evidence"]))
+        np.testing.assert_array_equal(bridged.corpus["evidence"].numpy(), ev)
     bridged.cfg.grad_accum = accum
     try:
+        loss_ref, grads_ref = _jax_loss_and_grads(jax_trainer, idx, mask)
         loss, grads, (p1, forensic) = bridged.grads_of(
             torch.from_numpy(idx).long(), torch.from_numpy(mask))
     finally:
         bridged.cfg.grad_accum = 1
+        jax_trainer.corpus = jt_corpus
+        bridged.corpus.pop("evidence", None)
     assert p1.shape == (n,) and forensic.shape == (3, n)
+    if evidence:  # the gates read the cached scorer outputs, not the proxies
+        rows = np.asarray(bridged.cache["evidence"])[idx]
+        np.testing.assert_array_equal(forensic[0].numpy(), rows[:, 0])
+        np.testing.assert_array_equal(forensic[2].numpy(), rows[:, 1])
     np.testing.assert_allclose(float(loss), loss_ref, **TOL)
     assert set(grads) == {"fusion", "clf", "gnn", "text_tower"}
     n_leaves = sum(len(d) for d in grads.values())
@@ -347,7 +368,7 @@ def test_cuda_without_gpu_raises(model_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [
     {"dp": 2}, {"tp": 2}, {"sp": 2}, {"pp": 2},
-    {"use_evidence": True}, {"moe_experts": 4}, {"remat_tower": True},
+    {"moe_experts": 4}, {"remat_tower": True},
     {"debug_nans": True}, {"save_every_steps": 5}, {"profile_dir": "p"},
 ], ids=lambda f: next(iter(f)))
 def test_unported_flags_raise(model_dir, tmp_path, flag):
@@ -355,7 +376,31 @@ def test_unported_flags_raise(model_dir, tmp_path, flag):
         port.ForensicTrainer(_port_cfg(tmp_path, model_dir, **flag), device="cpu")
 
 
-def test_cache_from_raw_data_root_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.ForensicTrainer(port.TrainConfig(data_root="data/FakeSV", out_dir=str(tmp_path)),
-                             device="cpu")
+def test_cache_from_raw_data_root_builds(fixture_data_root, tmp_path, capsys):
+    """The last rung of the cache ladder: with no cache in out_dir and no
+    model_dir, the trainer builds one from the raw data root under its
+    salt, keeps the align MLP in the run, and feeds the cache's evidence to
+    the gates under use_evidence; a second run reuses both."""
+    from ultrafnd_git_tpu_torch.data import cache as port_cache
+    from ultrafnd_git_tpu_torch.ops import hashing
+
+    cfg = port.TrainConfig(data_root=fixture_data_root, out_dir=str(tmp_path / "run"), seed=3,
+                           hash_salt="s2", use_evidence=True, batch_size=8)
+    try:
+        t = port.ForensicTrainer(cfg, device="cpu")
+        assert hashing.get_hash_salt() == "s2"
+        assert t.cache_source == "data_root" and t.n_total == 64
+        assert "feature cache: built from" in capsys.readouterr().out
+        fp = json.loads(np.load(tmp_path / "run" / "feature_cache.npz")["fingerprint"].item())
+        assert fp["hash_salt"] == "s2" and fp["seed"] == 3 and fp["align_init"] == "torch"
+        np.testing.assert_array_equal(t.corpus["evidence"].numpy(), t.cache["evidence"])
+        assert port_cache.load_align(str(tmp_path / "run"))["in_dim"] == 768
+        again = port.ForensicTrainer(port.TrainConfig(**{**asdict(cfg), "use_evidence": False}),
+                                     device="cpu")
+        assert again.cache_source == "out_dir" and "evidence" not in again.corpus
+        np.testing.assert_array_equal(again.cache["text"], t.cache["text"])
+    finally:
+        hashing.set_hash_salt("")
+    with pytest.raises(FileNotFoundError, match="data_complete.json not found"):
+        port.ForensicTrainer(port.TrainConfig(data_root=str(tmp_path / "nowhere"),
+                                              out_dir=str(tmp_path / "o2")), device="cpu")

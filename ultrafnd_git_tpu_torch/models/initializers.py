@@ -59,10 +59,11 @@ _FROM_ZERO = ("gates", "thresh", "leaf_logits")  # the NODE forest starts at 0
 
 @torch.no_grad()
 def jax_init_(part: str, module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill `module` (trainer part "fusion", "clf", "gnn" or "text_tower") in
-    place with the JAX package's initial distributions; returns `module`.
+    """Fill `module` (trainer part "fusion", "clf", "gnn" or "text_tower", or
+    the cache's "align" MLP) in place with the JAX package's initial
+    distributions; returns `module`.
 
-    fusion, gnn: torch.nn.Linear's default, U(+-1/sqrt(fan_in)) weights and
+    fusion, gnn, align: torch.nn.Linear's default, U(+-1/sqrt(fan_in)) weights and
     biases (`models/initializers.torch_dense`); clf: xavier-uniform weights,
     zero biases, a zero forest, temperature 1; text_tower: Flax defaults,
     lecun-normal (truncated) Dense weights with zero biases, embedding
@@ -71,7 +72,7 @@ def jax_init_(part: str, module: nn.Module, generator: torch.Generator) -> nn.Mo
     for m in module.modules():
         if isinstance(m, nn.Linear):
             fan_in, fan_out = m.in_features, m.out_features
-            if part in ("fusion", "gnn"):
+            if part in ("fusion", "gnn", "align"):
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)
                 m.bias.uniform_(-bound, bound, generator=generator)

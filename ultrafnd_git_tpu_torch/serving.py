@@ -31,9 +31,16 @@ Levers, as the JAX Predictor's:
   overrides it either way, the GCN params being layout-free); new nodes
   then attach through their (B, K) link lists instead of (B, N) rows.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): evidence
-checkpoints, multi-device dispatch (`serve_dp`) and the legacy
-two-dispatch path (`fused_align=False`).
+An evidence checkpoint (`use_evidence`) is served as the JAX Predictor
+serves it (`serving.py:525-527`): featurize adds the two host evidence
+columns (semantic gap, emotion intensity) and the scoring program appends
+the delay it computes, so the fusion gates read the (B, 3) scorer outputs;
+explain() feeds the corpus rows' cached evidence to its background. Every
+lever (bf16, int8, the sparse graph, the HTTP server) passes it through.
+
+Not ported yet (each raises NotImplementedError; see ROADMAP.md):
+multi-device dispatch (`serve_dp`) and the legacy two-dispatch path
+(`fused_align=False`).
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ultrafnd_git_tpu_torch.data.cache import load_cache
+from ultrafnd_git_tpu_torch.data.cache import load_cache, make_encoders
 from ultrafnd_git_tpu_torch.data.featurize import featurize_records
 from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
 from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
@@ -169,8 +176,7 @@ class Predictor:
         with open(self.model_dir / "meta.json", "r", encoding="utf-8") as fh:
             self.meta = json.load(fh)
         cfg = self.meta["cfg"]
-        if cfg.get("use_evidence", False):
-            raise _todo("an evidence (use_evidence) checkpoint")
+        self.use_evidence = bool(cfg.get("use_evidence", False))
         self.use_gnn = bool(self.meta["fusion"]["use_gnn"])
         if sparse_graph is None:
             sparse_graph = bool(cfg.get("sparse_graph", False))
@@ -185,6 +191,12 @@ class Predictor:
         # the checkpoint was trained on exactly this cache: keep it across a
         # feature-code bump, as the JAX Predictor does
         self.cache = load_cache(str(self.model_dir / "feature_cache.npz"), stale_features="reuse")
+        if self.cache is None:
+            raise FileNotFoundError(f"no usable feature_cache.npz in {self.model_dir}")
+        # the host encoders, built once (the scorers only for an evidence
+        # checkpoint); their align MLP is unused: the scoring program runs
+        # the checkpoint's own
+        self._encoders = make_encoders(with_evidence=self.use_evidence, device="cpu")
 
         weights = torch.load(
             self.model_dir / "weights.pt", map_location="cpu", weights_only=True
@@ -311,6 +323,8 @@ class Predictor:
             id_offset=id_offset,
             with_tower_tokens=self.text_tower is not None,
             ocr_clean=self._ocr_clean,
+            with_evidence=self.use_evidence,
+            encoders=self._encoders,
         )
 
     # ------------------------------------------------------------------
@@ -402,6 +416,10 @@ class Predictor:
             audio = take(feats["audio"])
             visual = take(feats["visual"])
             emo = take(feats["emo"])
+            # uploaded before any device work is queued: a pageable copy
+            # waits for the stream, and one behind the tower would hold
+            # the host's new-node rows back until the tower has run
+            ev_host = take(feats["evidence_host"]) if self.use_evidence else None
             b = t_raw.shape[0]
             # align(T, V) and align(T, T) as one 2B-row pass
             both = self.align(
@@ -426,6 +444,9 @@ class Predictor:
                     else t_raw
                 ),
             }
+            if self.use_evidence:
+                # [semantic gap, emotion intensity] from the host, the delay here
+                model_in["evidence"] = torch.cat([ev_host, delay[:, None]], dim=1)
             if self.use_gnn:
                 by_key = {"text": t_raw, "audio": audio, "visual": visual, "temporal": u}
                 xg_new = torch.cat([by_key[k][:, :w] for k, w in SLICES], dim=1)
@@ -488,6 +509,8 @@ class Predictor:
                     if "text_tower" in m else rows("text")
                 ),
             }
+            if self.use_evidence:
+                feats["evidence"] = rows("evidence")
             if self.use_gnn:
                 if self.sparse_graph:
                     sel = torch.from_numpy(idx).to(self.device)

@@ -1,17 +1,19 @@
 """Train and test the v2 model with the port (counterpart of run_train_eval.py).
 
-    python -m ultrafnd_git_tpu_torch.train --model_dir D --out_dir O \
-        [--epochs 12] [--batch_size 16] [--train_text_tower] [--fused_adamw] \
-        [--sparse_graph] [--bf16] [--hash_salt S] [--device cuda|cpu] \
-        [--export_model_dir M]
+    python -m ultrafnd_git_tpu_torch.train --data_root R --out_dir O \
+        [--use_evidence] [--ocr_phrase_pkl P] [--epochs 12] [--batch_size 16] \
+        [--train_text_tower] [--fused_adamw] [--sparse_graph] [--bf16] \
+        [--hash_salt S] [--model_dir D] [--device cuda|cpu] [--export_model_dir M]
 
-`--model_dir` is a model directory from `scripts/export_torch_model.py`:
-the run's feature cache comes from it (unless out_dir already has one)
-and so do the align weights of `--export_model_dir`, which writes the
-trained `best` slot as a model directory that
-`python -m ultrafnd_git_tpu_torch.predict` serves. The device defaults to
-cuda and raises when there is no GPU; pass --device cpu to run on the CPU.
-Prints the `==== Final Results ====` block of run_train_eval.py.
+The run's feature cache is out_dir's own when it has a usable one, else
+that of `--model_dir` (a model directory from
+`scripts/export_torch_model.py` or from `--export_model_dir`), else it is
+built from the raw FakeSV `--data_root` (its data_complete.json), with its
+align pass on the device. `--export_model_dir` writes the trained `best`
+slot, with the align MLP its cache was built with, as a model directory
+that `python -m ultrafnd_git_tpu_torch.predict` serves. The device defaults
+to cuda and raises when there is no GPU; pass --device cpu to run on the
+CPU. Prints the `==== Final Results ====` block of run_train_eval.py.
 """
 from __future__ import annotations
 
@@ -21,8 +23,15 @@ from pathlib import Path
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="ultrafnd_git_tpu_torch v2 — train/test")
+    p.add_argument("--data_root", type=str, default="data/FakeSV",
+                   help="Root with videos/, video_comment/, data_complete.json")
+    p.add_argument("--ocr_phrase_pkl", type=str,
+                   default="fakesv/preprocess_ocr/ocr_phrase_fea.pkl",
+                   help="OCR phrase cache from scripts/generate_ocr_phrase_features.py "
+                        "(optional; whitespace tokenization is used if missing).")
     p.add_argument("--model_dir", default=None,
-                   help="model dir with feature_cache.npz (and the align weights)")
+                   help="model dir whose feature_cache.npz (and align weights) the "
+                        "run takes instead of building one from --data_root")
     p.add_argument("--out_dir", default="outputs_v2",
                    help="Where to save checkpoints & logs")
     p.add_argument("--epochs", type=int, default=12)
@@ -33,6 +42,10 @@ def parse_args(argv=None):
     p.add_argument("--gnn_overlap_thresh", type=float, default=0.12)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_gnn", action="store_true", help="Disable GNN features")
+    p.add_argument("--use_evidence", action="store_true",
+                   help="Feed real evidence-scorer outputs (semantic gap, "
+                        "emotion intensity, temporal delay) into the fusion "
+                        "evidence gates instead of the internal proxies")
     p.add_argument("--freeze_gnn", action="store_true",
                    help="Keep the GCN frozen after its degree-recon pretrain")
     p.add_argument("--sparse_graph", action="store_true",
@@ -79,7 +92,11 @@ def main(argv=None) -> dict:
 
     out_dir = Path(args.out_dir).expanduser()
     out_dir.mkdir(parents=True, exist_ok=True)
+    data_root = Path(args.data_root).expanduser()
+    ocr_pkl = Path(args.ocr_phrase_pkl).expanduser()
     cfg = TrainConfig(
+        data_root=str(data_root),
+        ocr_phrase_pkl=str(ocr_pkl) if ocr_pkl.exists() else None,
         out_dir=str(out_dir),
         model_dir=args.model_dir,
         batch_size=args.batch_size,
@@ -90,6 +107,7 @@ def main(argv=None) -> dict:
         gnn_overlap_thresh=args.gnn_overlap_thresh,
         seed=args.seed,
         use_gnn=not args.no_gnn,
+        use_evidence=args.use_evidence,
         train_gnn=not args.freeze_gnn,
         sparse_graph=args.sparse_graph,
         grad_accum=args.grad_accum,
@@ -106,11 +124,13 @@ def main(argv=None) -> dict:
     )
     print("==== ultrafnd_git_tpu_torch v2 ====")
     print(f"Device:          {args.device}")
+    print(f"Data root:       {data_root}")
     print(f"Model dir:       {args.model_dir}")
     print(f"Output dir:      {out_dir}")
     print(f"Epochs:          {args.epochs}")
     print(f"Batch size:      {args.batch_size}")
     print(f"Use GNN:         {not args.no_gnn}")
+    print(f"Use evidence:    {args.use_evidence}")
     print(f"bf16 compute:    {args.bf16}")
     print("=============================")
     trainer = ForensicTrainer(cfg, device=args.device)
@@ -126,8 +146,6 @@ def main(argv=None) -> dict:
     for k in ("test_precision", "test_recall", "test_f1", "test_cmcs", "test_dfdr"):
         print(f"{k.replace('test_', 'Test ').title()}: {results[k]:.4f}")
     if args.export_model_dir:
-        if args.model_dir is None:
-            raise SystemExit("--export_model_dir needs --model_dir (the align weights)")
         from ultrafnd_git_tpu_torch.utils.transfer import export_trained
 
         root = export_trained(str(out_dir), "best", args.export_model_dir, args.model_dir)

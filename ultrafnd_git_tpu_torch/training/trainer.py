@@ -1,6 +1,6 @@
 """The cache-based v2 trainer (counterpart of `training/trainer.py`).
 
-    trainer = ForensicTrainer(TrainConfig(model_dir=D, out_dir=O,
+    trainer = ForensicTrainer(TrainConfig(data_root=R, out_dir=O,
                                           train_text_tower=True))
     trainer.fit()                 # epochs of train + val, best/latest slots
     results = trainer.test()      # the JAX trainer's test_* keys
@@ -9,7 +9,10 @@ Feature cache -> transductive OCR-Jaccard graph + GCN (trained in the
 step, the `out_rows` shortcut; dense (N, N) `a_norm`, or with
 `sparse_graph` padded (N, K) neighbour lists and no (N, N) object, as the
 JAX trainer's `--sparse_graph`) -> optional trainable text tower (its
-attention on K2, K3 and K4 on a GPU) -> fusion -> NODE classifier; masked
+attention on K2, K3 and K4 on a GPU) -> fusion (its evidence gates fed the
+cache's scorer outputs under `use_evidence`, as the JAX trainer's
+`trainer.py:450-451`, `:875-876`; the internal proxies otherwise) -> NODE
+classifier; masked
 mean cross-entropy, `grad_accum` as a sum of microbatch gradients over the
 step's valid rows, AdamW with global-norm clipping and the epoch-staircase
 schedule (K1 on a GPU), early stop on the validation
@@ -32,11 +35,16 @@ bf16 tower and step to a JAX tower cloned with
 `attention_backend="interpret"`, which runs the Pallas bf16 forward and
 backward.
 
-The featurization of new records must follow the corpus: when the cache
-is taken from `model_dir`, the run adopts that directory's `hash_salt`
-and `ocr_phrase_pkl` (its meta.json cfg), sets the salt as the JAX trainer
-does (`trainer.py:362`), and its checkpoints (and so `export_trained`)
-carry them.
+The feature cache comes from `data/cache.bootstrap_cache`: injected >
+out_dir's own > a model directory's (`model_dir`, from
+`scripts/export_torch_model.py` or the port's exports) > built from the raw
+`data_root` (FileNotFoundError without its data_complete.json), the salt
+set before the build as the JAX trainer sets it (`trainer.py:362`). The
+align MLP the cache was built with goes into `<out_dir>/align.pt`, where
+`export_trained` finds it. The featurization of new records must follow the
+corpus: when the cache is taken from `model_dir`, the run adopts that
+directory's `hash_salt` and `ocr_phrase_pkl` (its meta.json cfg), and its
+checkpoints (and so `export_trained`) carry them.
 
 Differences that are the port's own: one step per Python call (no
 `lax.scan`, so `scan_epoch` has no effect), one `torch.Generator` for the
@@ -46,8 +54,8 @@ every run launches K1 on a GPU), parameters drawn from
 the JAX package's distributions but not its numbers, the fusion and
 classifier dims of the shipped YAMLs (the port reads no YAML), no GCN when
 `use_gnn=False` (the JAX trainer builds and weight-decays one it never
-uses), and the cache comes from out_dir or a model directory
-(`data/cache.bootstrap_cache`). Flags outside this slice raise
+uses), and a cache built from `data_root` has the port's own align draw
+(`models/temporal.TemporalSyncNet`). Flags outside this slice raise
 NotImplementedError naming ROADMAP.md.
 """
 from __future__ import annotations
@@ -104,10 +112,9 @@ TRAINER_KIND = "v2"
 @dataclass
 class TrainConfig:
     """The JAX `TrainConfig` (`trainer.py:65-258`): same field names and
-    defaults, plus `model_dir`, where the port finds its feature cache
-    (and an export its align weights). `data_root` is kept for the
-    checkpoint meta but a cache is never built from it here.
-    `scan_epoch`, `fast_dropout_rng` and `fused_adamw` are accepted (and
+    defaults, plus `model_dir`, a model directory whose feature cache (and
+    align weights) the run may take instead of building one from
+    `data_root`. `scan_epoch`, `fast_dropout_rng` and `fused_adamw` are accepted (and
     adopted from a checkpoint, and written to its meta) and have no
     effect."""
 
@@ -169,7 +176,6 @@ def _unsupported(cfg: TrainConfig) -> list:
             ("dp", cfg.dp is not None), ("tp", cfg.tp > 1), ("dcn", cfg.dcn > 1),
             ("sp", cfg.sp > 1), ("pp", cfg.pp > 1),
             ("shard_corpus", cfg.shard_corpus), ("shard_graph", cfg.shard_graph),
-            ("use_evidence", cfg.use_evidence),
             ("moe_experts", cfg.moe_experts > 0), ("remat_tower", cfg.remat_tower),
             ("save_every_steps", cfg.save_every_steps > 0),
             ("profile_dir", cfg.profile_dir is not None),
@@ -267,13 +273,18 @@ class ForensicTrainer:
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
         # ---- feature cache and device-resident corpus ----------------------
-        self.cache, source = bootstrap_cache(
+        # the salt is live before any featurization (the cache build, its
+        # fingerprint)
+        set_hash_salt(cfg.hash_salt)
+        self.cache, self.cache_source = bootstrap_cache(
             cfg.out_dir, cfg.model_dir, cache, cfg.cache_to_disk,
             # a restored checkpoint was trained on the out_dir's cache
-            reuse_stale_features=bool(cfg.eval_only or cfg.resume))
-        if source == "model_dir":
+            reuse_stale_features=bool(cfg.eval_only or cfg.resume),
+            data_root=cfg.data_root, ocr_phrase_pkl=cfg.ocr_phrase_pkl, seed=cfg.seed,
+            device=str(dev))
+        if self.cache_source == "model_dir":
             _adopt_model_dir_fields(cfg)
-        set_hash_salt(cfg.hash_salt)
+            set_hash_salt(cfg.hash_salt)
         self.tr_idx, self.va_idx, self.te_idx = (np.asarray(s) for s in self.cache["split"])
         self.n_total = int(self.cache["labels"].shape[0])
 
@@ -287,6 +298,8 @@ class ForensicTrainer:
             "aux": put(self.cache["aux"]),
             "labels": put(self.cache["labels"], torch.int64),
         }
+        if cfg.use_evidence and "evidence" in self.cache:
+            self.corpus["evidence"] = put(self.cache["evidence"])
         text_width = int(self.cache["text"].shape[1])
         if cfg.train_text_tower:
             if float(np.asarray(self.cache["text_mask"]).sum()) == 0.0:
@@ -423,6 +436,8 @@ class ForensicTrainer:
             "visual_features": c["visual"][idx],
             "temporal_features": c["temporal"][idx],
         }
+        if "evidence" in c:
+            feats["evidence"] = c["evidence"][idx]
         if cfg.use_gnn:
             # frozen-GNN mode: no backward through the graph channel
             with nullcontext() if cfg.train_gnn else torch.no_grad():

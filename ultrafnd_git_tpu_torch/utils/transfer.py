@@ -2,7 +2,8 @@
 
 Input is the JAX `TrainState.params` tree as nested dicts of numpy arrays
 (`fusion`, `clf`, `gnn`, `text_tower`), or a gradient tree of the same
-structure, plus the temporal align MLP's variables. Dense kernels (in,
+structure, plus the temporal align MLP's variables (and, on its own, the
+`SemanticProjector`'s, which no v2 path applies). Dense kernels (in,
 out) become `Linear.weight` (out, in). Fusion, classifier and GCN map to
 the reference PyTorch layout (`fusion_/classifier_/gcn_state_dict_from_params`,
 the port's copies of the functions of the JAX package's
@@ -23,6 +24,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from ultrafnd_git_tpu_torch.data.cache import load_align
 
 StateDict = Dict[str, np.ndarray]
 
@@ -124,6 +127,16 @@ def align_state_dict(variables: Mapping[str, Any]) -> StateDict:
     return out
 
 
+def semantic_projector_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """Flax `SemanticProjector` variables (or their "params") -> state dict
+    of `models/semantic.SemanticProjector`."""
+    params = variables.get("params", variables)
+    out: StateDict = {}
+    _dense(out, "text_dense", params["text_dense"])
+    _dense(out, "vision_dense", params["vision_dense"])
+    return out
+
+
 def fusion_state_dict(params: Mapping[str, Any]) -> StateDict:
     # the reference layout adds zero-filled semantic.* entries that only its
     # own strict loader needs; no fusion forward reads them
@@ -179,24 +192,35 @@ def write_model_dir(
 
 
 def export_trained(
-    out_dir: str, slot: str, model_dir: str, align_from: str
+    out_dir: str, slot: str, model_dir: str, align_from: Optional[str] = None
 ) -> Path:
     """A servable model directory from a checkpoint of the port's trainer.
 
     Reads `<out_dir>/<slot>/` (state.pt and meta.json, whose "model" entry
-    holds the resolved module dims) and `<out_dir>/feature_cache.npz`; the
-    temporal align MLP, which the trainer does not train, comes with its
-    dims from the model directory the cache came with (`align_from`).
+    holds the resolved module dims) and `<out_dir>/feature_cache.npz`. The
+    temporal align MLP, which the trainer does not train, is the one the
+    run's cache was built with, `<out_dir>/align.pt` (written by the
+    trainer's cache ladder); a run without one (an injected cache) takes it
+    with its dims from the model directory `align_from`.
     Writes weights.pt, meta.json and feature_cache.npz into `model_dir`.
     """
     src = Path(out_dir) / slot
     payload = torch.load(src / "state.pt", map_location="cpu", weights_only=True)
     with open(src / "meta.json", "r", encoding="utf-8") as fh:
         ckpt_meta = json.load(fh)
-    with open(Path(align_from) / "meta.json", "r", encoding="utf-8") as fh:
-        align_meta = json.load(fh)["align"]
-    align = torch.load(Path(align_from) / "weights.pt", map_location="cpu",
-                       weights_only=True)["align"]
+    run_align = load_align(out_dir)
+    if run_align is not None:
+        align = run_align["state_dict"]
+        align_meta = {"in_dim": int(run_align["in_dim"]), "out_dim": int(run_align["out_dim"])}
+    elif align_from is not None:
+        with open(Path(align_from) / "meta.json", "r", encoding="utf-8") as fh:
+            align_meta = json.load(fh)["align"]
+        align = torch.load(Path(align_from) / "weights.pt", map_location="cpu",
+                           weights_only=True, mmap=True)["align"]
+    else:
+        raise FileNotFoundError(
+            f"{out_dir} carries no align.pt (its cache was injected): pass "
+            "align_from, the model directory whose align MLP built that cache")
     meta = {"cfg": ckpt_meta["cfg"], **ckpt_meta["model"], "align": align_meta}
     return write_model_dir(
         model_dir, {**payload["params"], "align": align}, meta,
