@@ -3,9 +3,10 @@
 a full-width text-tower model through them (in f32 and under --bf16), then
 serve the trained model on
 every single-device lever (f32, bf16, int8), explain it, put it behind the
-HTTP server, train and serve it again on the sparse graph layout, and
+HTTP server, train and serve it again on the sparse graph layout, train a
+switch-MoE tower (remat, a profile, a killed and resumed run) and serve it,
 train an evidence model from a raw FakeSV data root through the CLI and
-serve it.
+serve it, and search the hash salt over that root.
 
     python3 chip_smoke.py
 
@@ -109,6 +110,35 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      records, the request's device time by kernel; the
      300-record request and its featurize in turns with the same weights
      served with use_evidence off;
+ 9b. moe_train — phase 4's model with --moe_experts 8 (switch top-1 FFN,
+     capacity ceil(T * 1.25 / 8)), --remat_tower and --profile_dir, one
+     epoch f32 and test(): losses finite, the trace names K2's and
+     K3/K4's kernels, launches K2 = depth x (2 x steps + eval chunks) (the
+     recompute runs K2 again), K3/K4 = depth x steps, K1 = steps; then
+     steps with remat on and off in turns on the same trainer (median step,
+     peak device memory by torch.cuda.max_memory_allocated), a profiled
+     step, and the dropout-off gradient over 64 rows on the GPU against
+     the CPU: zero tokens routed differently, each leaf within 1e-4 of its
+     largest;
+ 9c. moe_serve — its best slot exported and served at 8, 64 and 300
+     records in f32, bf16 and int8 (five sends each after a warm-up),
+     explain(grad) of 8 in f32; each lever against its own CPU Predictor
+     scoring each request as one chunk, as the card does (capacity
+     depends on the tokens of the call): f32 and int8 within 1e-4 with
+     zero tokens routed differently in f32, bf16 within 2e-2; launches by
+     K2 mode;
+ 9d. moe_resume — the training CLI on that model with --save_every_steps 3
+     in a process of its own, SIGKILLed right after its first mid-epoch
+     slot commits; --resume then finishes the epoch in this process
+     (launches: the 5 steps after the cursor only) and its latest slot
+     (parameters, AdamW moments, step, dropout generator) equals an
+     uninterrupted run's bit for bit;
+ 11b. auto_salt — the CLI with --auto_salt a on phase 10's data root
+     (--use_evidence --train_text_tower, one epoch): two candidate runs,
+     each building its cache; salt_search.json names the winner (the best
+     validation AUC), the adopted out_dir exports (its align.pt came along)
+     and serves 8 records on the card; launches of both runs and the
+     winner's test;
  12. a check that no module of jax or of the JAX package ultrafnd_git_tpu
      was loaded (server threads included), a JSON line of the kernels, then
      the JSON result line.
@@ -119,6 +149,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -195,6 +226,26 @@ SWEEP = ((128, 64), (128, 256), (128, 1024), (128, 2048), (64, 64), (64, 2048),
 RAW_TOPICS = 128  # OCR topics of the raw data root (about 42 records each)
 CACHE_REL = 1e-5  # card vs CPU cache build: align-derived columns, of their largest value
 TOWER = dict(width=768, depth=2, heads=6, vocab_size=32768, max_len=64, gelu="tanh")
+MOE_EXPERTS = 8  # MoEFFN's default
+MOE_SAVE_EVERY = 3  # moe_resume's --save_every_steps
+MOE_REMAT_TURNS = 4  # steps each of remat on and off, in turns, after the fit
+MOE_KILL_WORKER = """
+import os, signal, sys
+sys.path.insert(0, os.getcwd())
+from ultrafnd_git_tpu_torch.train import main
+from ultrafnd_git_tpu_torch.training import checkpoint as ckpt
+
+save = ckpt.save_checkpoint
+
+def save_then_die(directory, name, state, meta):
+    save(directory, name, state, meta)
+    if meta.get("in_epoch"):
+        print("SIGKILL after the mid-epoch slot at step", meta["step_cursor"], flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+ckpt.save_checkpoint = save_then_die
+main(sys.argv[1:])
+"""
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd",
            "flash_attention_bwd_bf16", "adamw")
 BWD_BF16_SHAPES = (TRAIN_SHAPE,) + tuple((4, 4, s, d) for d in (64, 192, 256) for s in (64, 100, 512))
@@ -868,7 +919,7 @@ def _grad_gap(gpu, cpu, rows=64):
     return worst, worst_l2
 
 
-def profile_step(trainer, median_step_ms, rows=12):
+def profile_step(trainer, median_step_ms, rows=12, phase="profile"):
     """Device time of one steady train step by kernel (torch.profiler; the
     device total sums the kernel events, as the profiler's own table does)
     and the device's idle share of a step: 1 - that device time / the
@@ -890,12 +941,13 @@ def profile_step(trainer, median_step_ms, rows=12):
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log("profile", step_device_ms=device_ms, median_step_ms=median_step_ms,
+    log(phase, step_device_ms=device_ms, median_step_ms=median_step_ms,
         profiled_step_wall_ms=wall_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / median_step_ms))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]:
-        log("profile", kernel=json.dumps(e.key[:90]), calls=e.count,
+        log(phase, kernel=json.dumps(e.key[:90]), calls=e.count,
             device_ms=e.self_device_time_total / 1e3)
+    return device_ms
 
 
 def profile_request(pred, recs, phase, label, rows=4):
@@ -1591,6 +1643,360 @@ def phase_evidence_serve(model_dir, requests):
     return launches
 
 
+def _moe_routes(tower):
+    """Forward pre-hooks on a tower's MoE FFNs that record each call's
+    (expert, slot) on the host; returns (records, handles)."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.models.moe import MoEFFN
+
+    seen, handles = [], []
+    for mod in tower.modules():
+        if isinstance(mod, MoEFFN):
+            def hook(m, args):
+                with torch.no_grad():
+                    _, _, expert, _, slot = m.route(args[0])
+                seen.append((expert.cpu(), slot.cpu()))
+            handles.append(mod.register_forward_pre_hook(hook))
+    return seen, handles
+
+
+def _routes_differing(a, b):
+    """(tokens sent to another expert, tokens in another slot) between two
+    route records. One token sent elsewhere moves the slot of every later
+    token of both experts, so the second count is the larger."""
+    if len(a) != len(b):
+        raise RuntimeError(f"{len(a)} MoE calls against {len(b)}")
+    return (sum(int((ea != eb).sum()) for (ea, _), (eb, _) in zip(a, b)),
+            sum(int(((ea != eb) | (sa != sb)).sum()) for (ea, sa), (eb, sb) in zip(a, b)))
+
+
+def _moe_cli(out_dir, model_dir):
+    return ["--model_dir", str(model_dir), "--out_dir", str(out_dir), "--train_text_tower",
+            "--text_tower_depth", str(TOWER["depth"]), "--text_tower_heads", str(TOWER["heads"]),
+            "--moe_experts", str(MOE_EXPERTS), "--batch_size", str(TRAIN_BATCH),
+            "--epochs", "1", "--seed", "0", "--fused_adamw"]
+
+
+def phase_moe_train(model_dir, out_dir, train_step_ms):
+    """A switch-MoE tower (8 experts) at full width, one epoch f32 with
+    --remat_tower and --profile_dir: launches (K2 twice a block and step
+    under remat), the trace, then steps with remat on and off in turns
+    (median step, peak device memory), a profiled step, and the dropout-off
+    gradient on the GPU against the CPU with every token's route compared."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer
+
+    prof_dir = Path(out_dir).parent / "moe_profile"
+    cfg = _train_cfg(out_dir, model_dir)
+    cfg.moe_experts, cfg.remat_tower, cfg.profile_dir = MOE_EXPERTS, True, str(prof_dir)
+    t0 = time.perf_counter()
+    trainer = ForensicTrainer(cfg, device="cuda")
+    tower = trainer.state.params["text_tower"]
+    if not (tower.remat and tower.moe_experts == MOE_EXPERTS):
+        raise RuntimeError("the trainer did not build a remat MoE tower")
+    log("moe_train", init_s=time.perf_counter() - t0, experts=MOE_EXPERTS,
+        tower_params=sum(p.numel() for p in tower.parameters()),
+        capacity=tower.blocks[0].moe.capacity(TRAIN_BATCH * TOWER["max_len"]))
+    steps = []
+    train_step = trainer.train_step
+
+    def counted_step(idx, mask):
+        steps.append(1)
+        return train_step(idx, mask)
+
+    trainer.train_step = counted_step
+    _reset_counts()  # this path's run only
+    t1 = time.perf_counter()
+    trainer.fit()
+    results = trainer.test()
+    fit_test_s = time.perf_counter() - t1
+    launches = _launch_counts()
+    trainer.train_step = train_step
+    n = len(steps)
+    chunks = sum(-(-len(s) // TRAIN_BATCH) for s in (trainer.va_idx, trainer.te_idx))
+    depth = TOWER["depth"]
+    expect = {"fwd": depth * (2 * n + chunks), "fwd_bf16": 0, "bwd": depth * n, "bwd_bf16": 0,
+              "adamw": n}
+    if n != -(-len(trainer.tr_idx) // TRAIN_BATCH) or launches != expect:
+        raise RuntimeError(f"moe_train launches {launches} over {n} steps, expected {expect}")
+    rows = [json.loads(ln) for ln in (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
+    losses = [r[k] for r in rows for k in ("train_loss", "val_loss")] + [results["test_loss"]]
+    if not np.isfinite(losses).all() or not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"moe_train: non-finite losses or metrics: {losses} {results}")
+    trace = prof_dir / "fit.trace.json"
+    text = trace.read_text() if trace.exists() else ""
+    if "flash_fwd_kernel" not in text or "flash_bwd_kernel" not in text:
+        raise RuntimeError(f"the --profile_dir trace {trace} names no K2 / K3+K4 kernel")
+    log("moe_train", steps=n, launches=json.dumps(launches, separators=(",", ":")),
+        expected=json.dumps(expect, separators=(",", ":")), fit_and_test_s=fit_test_s,
+        losses=json.dumps([round(x, 6) for x in losses]), test_auc=results["test_auc"],
+        trace_mb=trace.stat().st_size / 1e6)
+
+    # remat on and off in turns on the same trainer: step time and peak memory
+    batches = trainer.epoch_batches(trainer.tr_idx, True)
+    for mod in trainer.state.params.values():
+        mod.train(True)
+    timing = {True: [], False: []}
+    peak = {True: [], False: []}
+    for i in range(2 * MOE_REMAT_TURNS):
+        remat = (i % 4) in (0, 3)  # on, off, off, on, ...
+        tower.remat = remat
+        chunk, mask, _ = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        s = time.perf_counter()
+        trainer.train_step(chunk, mask)
+        torch.cuda.synchronize()
+        timing[remat].append(1e3 * (time.perf_counter() - s))
+        peak[remat].append((torch.cuda.max_memory_allocated(), base))
+    tower.remat = True
+    med = {k: statistics.median(v[1:]) for k, v in timing.items()}
+    gib = 2.0 ** 30
+    mem = {k: (max(p for p, _ in v) / gib, max(p - b for p, b in v) / gib)
+           for k, v in peak.items()}
+    log("moe_train", remat_median_step_ms=med[True], no_remat_median_step_ms=med[False],
+        remat_step_ms=json.dumps([round(x, 3) for x in timing[True]]),
+        no_remat_step_ms=json.dumps([round(x, 3) for x in timing[False]]),
+        remat_samples_per_s=TRAIN_BATCH * 1e3 / med[True],
+        dense_f32_median_step_ms=train_step_ms,
+        peak_gib_remat=mem[True][0], peak_gib_no_remat=mem[False][0],
+        step_peak_over_resident_gib_remat=mem[True][1],
+        step_peak_over_resident_gib_no_remat=mem[False][1])
+    device_ms = profile_step(trainer, med[True], phase="moe_profile")
+
+    # the dropout-off gradient, GPU against CPU, routes first
+    t2 = time.perf_counter()
+    cpu_cfg = _train_cfg(Path(out_dir).parent / "cpu_moe", model_dir)
+    cpu_cfg.cache_to_disk, cpu_cfg.moe_experts = False, MOE_EXPERTS
+    cpu = ForensicTrainer(cpu_cfg, cache=trainer.cache, device="cpu")
+    for part, mod in cpu.state.params.items():
+        mod.load_state_dict({k: v.cpu() for k, v in trainer.state.params[part].state_dict().items()})
+    g_routes, g_hooks = _moe_routes(tower)
+    c_routes, c_hooks = _moe_routes(cpu.state.params["text_tower"])
+    try:
+        (rel, leaf), (l2, l2_leaf) = _grad_gap(trainer, cpu, 64)
+    finally:
+        for h in g_hooks + c_hooks:
+            h.remove()
+    # under remat the GPU's recompute routes once more: compare the first pass
+    experts, slots = _routes_differing(g_routes[: len(c_routes)], c_routes)
+    if slots or not rel <= GRAD_RTOL:
+        raise RuntimeError(f"moe_train GPU vs CPU: {experts} tokens to another expert, {slots} "
+                           f"in another slot; {leaf} differs by {rel} of its max "
+                           f"(bound {GRAD_RTOL})")
+    log("moe_train", gpu_vs_cpu_grad_max_rel=rel, worst_leaf=leaf, gpu_vs_cpu_grad_l2_rel=l2,
+        worst_l2_leaf=l2_leaf, tokens_to_another_expert=experts, tokens_in_another_slot=slots,
+        tokens_compared=sum(int(e.numel()) for e, _ in c_routes), rows=64,
+        check_s=time.perf_counter() - t2)
+    return {"launches": launches, "median_step_ms": med[True],
+            "no_remat_median_step_ms": med[False], "device_ms": device_ms, "memory_gib": mem}
+
+
+def phase_moe_resume(model_dir, root):
+    """The training CLI, MoE tower at full width with --save_every_steps 3,
+    killed (SIGKILL, in a process of its own) right after its first
+    mid-epoch slot commits, then --resume (in this process, counted): its
+    latest slot equals an uninterrupted run's bit for bit."""
+    import torch
+
+    whole, cut = Path(root) / "moe_whole", Path(root) / "moe_cut"
+    extra = ["--save_every_steps", str(MOE_SAVE_EVERY)]
+    t0 = time.perf_counter()
+    killed = subprocess.run([sys.executable, "-c", MOE_KILL_WORKER, *_moe_cli(cut, model_dir),
+                             *extra], cwd=REPO, capture_output=True, text=True, timeout=900)
+    kill_s = time.perf_counter() - t0
+    meta = json.loads((cut / "latest" / "meta.json").read_text()) \
+        if (cut / "latest" / "meta.json").exists() else {}
+    if killed.returncode != -9 or not meta.get("in_epoch") \
+            or meta.get("step_cursor") != MOE_SAVE_EVERY:
+        raise RuntimeError(f"the killed run ended {killed.returncode} with latest meta "
+                           f"{ {k: meta.get(k) for k in ('in_epoch', 'step_cursor')} }: "
+                           f"{killed.stderr[-2000:]}")
+    _reset_counts()  # this path's run only: the resumed run
+    t1 = time.perf_counter()
+    _train_cli(_moe_cli(cut, model_dir) + extra + ["--resume"])
+    resume_s = time.perf_counter() - t1
+    launches = _launch_counts()
+    t2 = time.perf_counter()
+    _train_cli(_moe_cli(whole, model_dir) + extra)
+    whole_s = time.perf_counter() - t2
+    a = torch.load(whole / "latest" / "state.pt", weights_only=True)
+    b = torch.load(cut / "latest" / "state.pt", weights_only=True)
+    bad = [k for k in ("step", "rng") if not torch.equal(a[k], b[k])]
+    bad += [f"params.{part}.{k}" for part, sd in a["params"].items() for k, v in sd.items()
+            if not torch.equal(v, b["params"][part][k])]
+    bad += [f"{key}.{part}.{k}" for key in ("mu", "nu") for part, sd in a["opt_state"][key].items()
+            for k, v in sd.items() if not torch.equal(v, b["opt_state"][key][part][k])]
+    steps = int(a["step"])
+    left = steps - MOE_SAVE_EVERY
+    from ultrafnd_git_tpu_torch.data.cache import load_cache
+
+    split = load_cache(str(whole / "feature_cache.npz"))["split"]
+    chunks = sum(-(-len(s) // TRAIN_BATCH) for s in split[1:])
+    depth = TOWER["depth"]
+    # the resumed run takes the steps after the cursor only (a fresh start
+    # would take all of them); K1 also runs the GCN warm start's 2 updates
+    expect = {"fwd": depth * (left + chunks), "fwd_bf16": 0, "bwd": depth * left,
+              "bwd_bf16": 0, "adamw": left + 2}
+    if bad or launches != expect or int(a["opt_state"]["count"]) != int(b["opt_state"]["count"]):
+        raise RuntimeError(f"moe_resume: {len(bad)} leaves differ from the uninterrupted run "
+                           f"({bad[:5]}); launches {launches}, expected {expect}")
+    log("moe_resume", killed_at_step=MOE_SAVE_EVERY, steps=steps, resumed_steps=left,
+        launches=json.dumps(launches, separators=(",", ":")),
+        expected=json.dumps(expect, separators=(",", ":")), bit_identical=True,
+        tensors_compared=2 + sum(len(sd) for sd in a["params"].values())
+        + sum(len(sd) for key in ("mu", "nu") for sd in a["opt_state"][key].values()),
+        killed_run_s=kill_s, resumed_run_s=resume_s, whole_run_s=whole_s,
+        state_mb=(whole / "latest" / "state.pt").stat().st_size / 1e6)
+    shutil.rmtree(whole, ignore_errors=True)
+    shutil.rmtree(cut, ignore_errors=True)
+    return launches
+
+
+def phase_moe_serve(model_dir, requests):
+    """The MoE export served on the card at 8, 64 and 300 records in f32,
+    bf16 and int8 (each request REPEATS times after a warm-up), and
+    explain(grad) of 8 records. The CPU reference scores each request as
+    the card does, one chunk of all its rows (`predict_featurized`): the
+    capacity depends on the tokens of the call, so the CPU Predictor's
+    batch_size chunks would route (and drop) otherwise. f32: every token
+    routed alike and rows within 1e-4; bf16 within 2e-2 of its own CPU run;
+    int8 within 1e-4 of its own CPU run."""
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.serving import FORENSIC_KEYS, Predictor
+
+    def one_chunk(pred, recs):
+        return pred.predict_featurized(pred.featurize(recs), len(recs))
+
+    depth = TOWER["depth"]
+    total = {"fwd": 0, "fwd_bf16": 0}
+    lat_by = {}
+    for levers in ({}, {"bf16": True}, {"quantize": True}):
+        name = "+".join(levers) or "f32"
+        gpu = Predictor(model_dir, device="cuda", **levers)
+        cpu = Predictor(model_dir, device="cpu", **levers)
+        try:
+            if gpu.text_tower.moe_experts != MOE_EXPERTS:
+                raise RuntimeError("the export does not serve a MoE tower")
+            gpu.warmup(max(REQUEST_SIZES))
+            _reset_counts()  # this path's run only
+            rows, lat = _timed_requests(gpu, requests)
+            grad = gpu.explain(requests[0], method="grad", top_k=512) if not levers else None
+            launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches}
+            g_routes, g_hooks = _moe_routes(gpu.text_tower)
+            c_routes, c_hooks = _moe_routes(cpu.text_tower)
+            try:
+                last = [one_chunk(gpu, recs) for recs in requests]
+                cpu_rows = [one_chunk(cpu, recs) for recs in requests]
+            finally:
+                for h in g_hooks + c_hooks:
+                    h.remove()
+            experts, slots = _routes_differing(g_routes, c_routes)
+            ref = cpu.explain(requests[0], method="grad", top_k=512) if not levers else None
+            if not levers:
+                profile_request(gpu, requests[-1], "moe_serve", "f32")
+        finally:
+            gpu.close()
+            cpu.close()
+        bf16 = bool(levers.get("bf16"))
+        n_fwd = depth * (len(REQUEST_SIZES) * REPEATS + (0 if levers else 1))
+        want = {"fwd": 0 if bf16 else n_fwd, "fwd_bf16": n_fwd if bf16 else 0}
+        if launches != want:
+            raise RuntimeError(f"moe_serve {name}: launches {launches}, expected {want}")
+        for k in total:
+            total[k] += launches[k]
+        if _values(rows).tolist() != _values(last).tolist():
+            raise RuntimeError(f"moe_serve {name}: predict() and one chunk differ on the card")
+        diffs = {k: float(np.max(np.abs(_values(rows, k) - _values(cpu_rows, k))))
+                 for k in ("prob_fake", *FORENSIC_KEYS)}
+        tol = LEVER_VS_CPU if bf16 else PROB_ATOL
+        p = _values(rows)
+        # f32: every token routed alike; bf16 and int8 change the router's
+        # inputs or weights, so a near tie may go either way there
+        if not (np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()
+                and max(diffs.values()) <= tol and (levers or slots == 0)):
+            raise RuntimeError(f"moe_serve {name}: GPU vs CPU {diffs} (bound {tol}), "
+                               f"{experts} tokens to another expert, {slots} in another slot")
+        extra = {}
+        if grad is not None:
+            g = np.stack([[d[1] for d in sorted(r["explain"]["top_fused_dims"])] for r in grad])
+            r = np.stack([[d[1] for d in sorted(x["explain"]["top_fused_dims"])] for x in ref])
+            extra["explain_grad_vs_cpu_rel"] = float(np.abs(g - r).max()
+                                                     / max(np.abs(r).max(), 1e-30))
+            if not extra["explain_grad_vs_cpu_rel"] <= PROB_ATOL:
+                raise RuntimeError(f"moe_serve explain(grad): GPU vs CPU {extra}")
+        lat_by[name] = lat
+        log("moe_serve", levers=name, launches=json.dumps(launches, separators=(",", ":")),
+            expected=json.dumps(want, separators=(",", ":")),
+            gpu_vs_cpu_max_abs=json.dumps(diffs, separators=(",", ":")), bound=tol,
+            tokens_to_another_expert=experts, tokens_in_another_slot=slots,
+            tokens_compared=sum(int(e.numel()) for e, _ in c_routes),
+            median_latency_ms=json.dumps({n: round(1e3 * t, 3) for n, t in
+                                          zip(REQUEST_SIZES, lat)}),
+            prob_min=float(p.min()), prob_max=float(p.max()), **extra)
+    return {"launches": total, "latency_s": lat_by}
+
+
+def phase_auto_salt(data_root, root):
+    """The CLI's --auto_salt a on the raw data root (--use_evidence
+    --train_text_tower, full width, one epoch): two candidate runs (the
+    unsalted one and "a"), each building its cache from the root, the
+    winner adopted and its best slot tested; salt_search.json names the
+    winner and the adopted out_dir exports (its align.pt came along) and
+    serves on the card."""
+    from ultrafnd_git_tpu_torch.data.cache import load_cache
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    out, exported = Path(root) / "salt_run", Path(root) / "salt_model"
+    argv = ["--data_root", str(data_root), "--out_dir", str(out), "--use_evidence",
+            "--train_text_tower", "--text_tower_depth", str(TOWER["depth"]),
+            "--text_tower_heads", str(TOWER["heads"]), "--batch_size", str(TRAIN_BATCH),
+            "--epochs", "1", "--seed", "0", "--auto_salt", "a",
+            "--export_model_dir", str(exported)]
+    _reset_counts()  # this path's run only
+    t0 = time.perf_counter()
+    results, said = _train_cli(argv)
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    record = json.loads((out / "salt_search.json").read_text())
+    winner = record["winner"]
+    if record["candidates"] != ["", "a"] or f"Selected hash_salt: {winner!r}" not in said \
+            or record["val_scores"][winner] != max(record["val_scores"].values()):
+        raise RuntimeError(f"auto_salt: bad search record {record}")
+    missing = [f for f in ("best/meta.json", "latest/meta.json", "feature_cache.npz",
+                           "metrics.jsonl", "align.pt") if not (out / f).exists()]
+    split = load_cache(str(out / "feature_cache.npz"))["split"]
+    steps = -(-len(split[0]) // TRAIN_BATCH)
+    va, te = (-(-len(s) // TRAIN_BATCH) for s in split[1:])
+    depth = TOWER["depth"]
+    # two candidate runs (K1: steps + the GCN warm start's 2 each), then
+    # the winner's test under --eval_only (no warm start, no backward)
+    expect = {"fwd": depth * (2 * (steps + va) + te), "fwd_bf16": 0, "bwd": depth * 2 * steps,
+              "bwd_bf16": 0, "adamw": 2 * (steps + 2)}
+    if missing or launches != expect or not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"auto_salt: missing {missing}; launches {launches}, expected "
+                           f"{expect}; results {results}")
+    pred = Predictor(str(exported), device="cuda")
+    try:
+        recs = raw_records(8, np.random.default_rng(4), "salt")
+        p = np.array([r["prob_fake"] for r in pred.predict(recs)])
+    finally:
+        pred.close()
+    if json.loads((exported / "meta.json").read_text())["cfg"]["hash_salt"] != winner \
+            or not (np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()):
+        raise RuntimeError(f"auto_salt: the adopted out_dir does not serve: {p}")
+    log("auto_salt", winner=repr(winner), val_scores=json.dumps(record["val_scores"]),
+        launches=json.dumps(launches, separators=(",", ":")),
+        expected=json.dumps(expect, separators=(",", ":")), cli_wall_s=wall_s,
+        test=json.dumps({k: round(v, 6) for k, v in results.items()}),
+        served_prob=json.dumps([round(float(x), 6) for x in p]))
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     dev = phase_device()
     import torch
@@ -1625,10 +2031,16 @@ def main() -> int:
         sparse_served = Path(root) / "sparse_model"
         export_trained(str(Path(root) / "sparse_run"), "best", str(sparse_served), str(seeded))
         phase_sparse_serve(str(sparse_served), requests)
+        moe = phase_moe_train(seeded, Path(root) / "moe_run", train["median_step_ms"])
+        moe_served = Path(root) / "moe_model"
+        export_trained(str(Path(root) / "moe_run"), "best", str(moe_served), str(seeded))
+        moe_serve = phase_moe_serve(str(moe_served), requests)
+        moe_resume = phase_moe_resume(seeded, Path(root))
         raw = phase_raw_train(Path(root))
         rng = np.random.default_rng(3)
         evidence = phase_evidence_serve(
             str(raw["exported"]), [raw_records(n, rng, f"q{n}") for n in REQUEST_SIZES])
+        salt = phase_auto_salt(raw["data_root"], Path(root))
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -1641,7 +2053,9 @@ def main() -> int:
     def paths(key, serve_n=0, levers_n=0, explain_n=0, http_n=0, evidence_n=0):
         by = {"train": tl[key], "bf16_train": bl[key], "serve": serve_n,
               "serve_levers": levers_n, "explain": explain_n, "http": http_n,
-              "sparse_train": sl[key], "raw_train": rl[key], "evidence_serve": evidence_n}
+              "sparse_train": sl[key], "raw_train": rl[key], "evidence_serve": evidence_n,
+              "moe_train": moe["launches"][key], "moe_resume": moe_resume[key],
+              "moe_serve": moe_serve["launches"].get(key, 0), "auto_salt": salt[key]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [

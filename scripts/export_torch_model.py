@@ -13,6 +13,8 @@ writes into --model_dir:
   * meta.json   — the checkpoint cfg plus the resolved module dims (the
     port reads no YAML);
   * feature_cache.npz — a copy of the corpus cache.
+A switch-MoE tower (`--moe_experts`) exports its router and stacked expert
+arrays, and meta.json records its expert count and capacity factor.
 An evidence checkpoint (`--use_evidence`) exports as any other: its cfg
 carries the flag, and the port's Predictor computes the scorers' host
 columns itself (lexicon and hash rungs, no weights). The semantic
@@ -90,6 +92,8 @@ def export(out_dir: str, model_dir: str, checkpoint: str = "best") -> Path:
             "vocab_size": int(t.vocab_size),
             "max_len": int(t.max_len),
             "gelu": str(t.gelu),
+            "moe_experts": int(t.moe_experts),
+            "moe_capacity_factor": float(t.moe_capacity_factor),
         }
     if not pred.use_gnn:
         params = {k: v for k, v in params.items() if k != "gnn"}

@@ -337,6 +337,50 @@ def test_tower_backward_on_gpu_matches_cpu(cuda):
         assert err <= 1e-4, (n, float(err))
 
 
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_moe_tower_on_gpu_matches_cpu_and_routes_alike(cuda, remat):
+    """The switch-MoE tower (8 experts) forward and backward on the GPU
+    against the CPU: every token routed to the same expert and slot, pooled
+    output and aux within 1e-5, gradients within 1e-4 of each leaf's
+    largest; K2 launches once a block, twice under remat (the recompute),
+    K3/K4 once a block."""
+    from ultrafnd_git_tpu_torch.models.initializers import seeded_init_
+    from ultrafnd_git_tpu_torch.models.moe import MoEFFN
+    from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
+
+    tower = TextTransformer(width=768, depth=2, heads=6, vocab_size=1024, max_len=64,
+                            moe_experts=8, remat=remat)
+    seeded_init_(tower, torch.Generator().manual_seed(0))
+    gpu_tower = copy.deepcopy(tower).to(cuda)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(1, 1024, size=(16, 64)))
+    lengths = rng.integers(1, 65, size=16)
+    mask = torch.from_numpy((np.arange(64)[None] < lengths[:, None]).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((16, 768)).astype(np.float32))
+    routes = {"cpu": [], "gpu": []}
+    for name, t in (("cpu", tower), ("gpu", gpu_tower)):
+        for mod in t.modules():
+            if isinstance(mod, MoEFFN):
+                def hook(m, args, _name=name):
+                    with torch.no_grad():
+                        _, _, expert, _, slot = m.route(args[0])
+                    routes[_name].append((expert.cpu(), slot.cpu()))
+                mod.register_forward_pre_hook(hook)
+    pooled, aux = tower(ids, mask, return_aux=True)
+    ((pooled * w).sum() + aux).backward()
+    f0, b0 = fa.launches, fa.bwd_launches
+    g_pooled, g_aux = gpu_tower(ids.to(cuda), mask.to(cuda), return_aux=True)
+    ((g_pooled * w.to(cuda)).sum() + g_aux).backward()
+    assert (fa.launches - f0, fa.bwd_launches - b0) == ((4 if remat else 2), 2)
+    for (ec, sc), (eg, sg) in zip(routes["cpu"], routes["gpu"][:2]):
+        assert torch.equal(ec, eg) and torch.equal(sc, sg)
+    torch.testing.assert_close(g_pooled.detach().cpu(), pooled.detach(), atol=1e-5, rtol=0)
+    assert abs(float(g_aux) - float(aux)) <= 1e-5 * abs(float(aux))
+    for (n, a), b in zip(gpu_tower.named_parameters(), tower.parameters()):
+        err = (a.grad.cpu() - b.grad).abs().max() / b.grad.abs().max().clamp_min(1e-30)
+        assert err <= 1e-4, (n, float(err))
+
+
 @pytest.mark.parametrize("s", [1, 64, 100, 2048])
 @pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_flash_fwd_bf16_every_width(cuda, d, s):

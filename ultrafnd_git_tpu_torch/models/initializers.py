@@ -25,6 +25,9 @@ from torch import nn
 
 from ultrafnd_git_tpu_torch.models.classifier import ObliviousTree
 
+_EXPERT_WEIGHTS = ("w_in", "w_out")  # models/moe.MoEFFN's (E, in, out) arrays
+_EXPERT_BIASES = ("b_in", "b_out")
+
 
 @torch.no_grad()
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -47,10 +50,15 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 t.uniform_(-0.1, 0.1, generator=generator)
             m.leaf_logits.normal_(0.0, 1.0, generator=generator)
     for name, p in module.named_parameters():
+        leaf = name.split(".")[-1]
         if name == "pos_embed":
             p.normal_(0.0, 0.02, generator=generator)
         elif name == "temperature":
             p.fill_(1.0)
+        elif leaf in _EXPERT_WEIGHTS:  # a MoE tower's stacked expert matrices
+            p.normal_(0.0, 1.0 / math.sqrt(p.shape[-2]), generator=generator)
+        elif leaf in _EXPERT_BIASES:
+            p.zero_()
     return module
 
 
@@ -67,7 +75,9 @@ def jax_init_(part: str, module: nn.Module, generator: torch.Generator) -> nn.Mo
     biases (`models/initializers.torch_dense`); clf: xavier-uniform weights,
     zero biases, a zero forest, temperature 1; text_tower: Flax defaults,
     lecun-normal (truncated) Dense weights with zero biases, embedding
-    N(0, 1/width), pos_embed N(0, 0.02), LayerNorm 1 / 0.
+    N(0, 1/width), pos_embed N(0, 0.02), LayerNorm 1 / 0, and a MoE
+    block's expert arrays lecun-normal on their 3-D shape (fan_in E * in)
+    with zero biases (its router is a Dense).
     """
     for m in module.modules():
         if isinstance(m, nn.Linear):
@@ -98,6 +108,11 @@ def jax_init_(part: str, module: nn.Module, generator: torch.Generator) -> nn.Mo
             p.normal_(0.0, 0.02, generator=generator)
         elif name == "temperature":
             p.fill_(1.0)
-        elif leaf in _FROM_ZERO:
+        elif leaf in _FROM_ZERO or leaf in _EXPERT_BIASES:
             p.zero_()
+        elif leaf in _EXPERT_WEIGHTS:
+            # Flax's lecun_normal on the 3-D (E, in, out) shape: fan_in is
+            # E * in (its receptive field is the leading axis), not in
+            std = 1.0 / math.sqrt(p.shape[:-1].numel()) / 0.87962566103423978
+            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
     return module

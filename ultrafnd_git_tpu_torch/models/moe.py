@@ -1,0 +1,125 @@
+"""Switch (top-1) mixture-of-experts FFN for the text tower.
+
+Counterpart of `ultrafnd_git_tpu/models/moe.py:44-172` (`MoEFFN`,
+`MoEEncoderBlock`); parameter names follow the Flax tree (`router`, and the
+stacked expert arrays `w_in` (E, W, 4W), `b_in` (E, 1, 4W), `w_out` (E, 4W,
+W), `b_out` (E, 1, W)).
+
+Routing is the JAX module's: an f32 `Dense(W, E)` router whatever the
+compute dtype, its softmax and argmax (first index on a tie), the gate (the
+chosen probability), and a capacity C = ceil(T * capacity_factor / E) over
+the T = B * S tokens in row-major (B, S) order. A token's slot is its rank
+among the earlier tokens routed to its expert; tokens at slot >= C are
+dropped (output 0, the residual passes them through). Padding positions are
+routed too: the FFN never sees the mask. The aux loss is Switch's, balance
+E * sum_e(frac_tokens_e * frac_probs_e) plus 1e-3 times the router z-loss.
+
+The dispatch is in index form, not the (T, E, C) one-hot einsums of the
+JAX module: each kept token is copied into its (e, c) row, the experts run
+as two `torch.bmm` over E, and each token gathers its row of the output
+scaled by its gate. Each one-hot sum has one nonzero term, so this is the
+same function; at the training shape (T = 32768, E = 8, C = 5120) a (T, E,
+C) f32 tensor would be 5.4 GB and each einsum five times the experts' own
+FLOPs. The (e, c) slots are unique, so each backward scatter has one
+contributor per row and the gradient does not depend on atomic order.
+Dropped tokens go to one spare row past the E * C slots, which is cut off
+before the experts.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ultrafnd_git_tpu_torch.models.dropout import apply_mask, draw_mask
+from ultrafnd_git_tpu_torch.models.layers import Dense, LayerNorm
+from ultrafnd_git_tpu_torch.models.transformer import LN_EPS, MultiHeadAttention, gelu
+
+
+class MoEFFN(nn.Module):
+    """Switch (top-1) MoE feed-forward: (B, S, W) -> ((B, S, W), aux)."""
+
+    def __init__(self, width: int, num_experts: int = 8, mlp_ratio: int = 4,
+                 capacity_factor: float = 1.25, dtype: Optional[torch.dtype] = None,
+                 gelu: str = "tanh"):
+        super().__init__()
+        self.width, self.num_experts = width, num_experts
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.gelu = gelu
+        hidden = mlp_ratio * width
+        self.router = Dense(width, num_experts)  # f32 whatever the compute dtype
+        self.w_in = nn.Parameter(torch.zeros(num_experts, width, hidden))
+        self.b_in = nn.Parameter(torch.zeros(num_experts, 1, hidden))
+        self.w_out = nn.Parameter(torch.zeros(num_experts, hidden, width))
+        self.b_out = nn.Parameter(torch.zeros(num_experts, 1, width))
+
+    def capacity(self, tokens: int) -> int:
+        """Slots per expert for `tokens` tokens (the JAX expression)."""
+        return int(max(1, -(-tokens * self.capacity_factor // self.num_experts)))
+
+    def route(self, x: torch.Tensor):
+        """(logits (T, E) f32, probs, expert (T,), gate (T,), slot (T,)) of
+        x (B, S, W); slot is the token's 0-based rank within its expert."""
+        logits = self.router(x.reshape(-1, self.width).float())
+        probs = torch.softmax(logits, dim=-1)
+        expert = probs.argmax(dim=-1)
+        gate = probs.gather(1, expert[:, None])[:, 0]
+        # the rank among earlier tokens of the same expert (JAX's cumsum over
+        # the token axis), scanned along the last axis of an (E, T) int32
+        # copy: on a GPU a scan down the long axis of (T, E) is slow
+        onehot = F.one_hot(expert, self.num_experts).t().to(torch.int32)
+        ranks = onehot.cumsum(dim=1, dtype=torch.int32)
+        slot = ranks.gather(0, expert[None])[0].long() - 1
+        return logits, probs, expert, gate, slot
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, s, w = x.shape
+        e, t = self.num_experts, b * s
+        cap = self.capacity(t)
+        logits, probs, expert, gate, slot = self.route(x)
+        keep = slot < cap
+        dest = torch.where(keep, expert * cap + slot, e * cap)  # e * cap: the spare row
+        cd = self.dtype or x.dtype
+        xt = x.reshape(t, w).to(cd)
+        xe = xt.new_zeros(e * cap + 1, w).index_copy(0, dest, xt)[: e * cap].view(e, cap, w)
+        h = gelu(torch.bmm(xe, self.w_in.to(cd)) + self.b_in.to(cd), self.gelu)
+        ye = torch.bmm(h, self.w_out.to(cd)) + self.b_out.to(cd)
+        ye = torch.cat([ye.reshape(e * cap, w), ye.new_zeros(1, w)])
+        yt = ye[dest] * torch.where(keep, gate, 0.0).to(cd)[:, None]
+
+        frac_tokens = F.one_hot(expert, e).float().mean(dim=0)
+        frac_probs = probs.mean(dim=0)
+        balance = e * (frac_tokens * frac_probs).sum()
+        z = torch.logsumexp(logits, dim=-1).square().mean()
+        return yt.view(b, s, w).to(x.dtype), balance + 1e-3 * z
+
+
+class MoEEncoderBlock(nn.Module):
+    """`EncoderBlock` with the dense MLP swapped for `MoEFFN`: the same
+    attention, layer-norm, residual and dropout sites; returns (x, aux)."""
+
+    def __init__(self, width: int, heads: int, num_experts: int = 8, mlp_ratio: int = 4,
+                 capacity_factor: float = 1.25, gelu: str = "tanh", dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.ln1 = LayerNorm(width, LN_EPS, dtype)
+        self.attn = MultiHeadAttention(width, heads, dtype)
+        self.ln2 = LayerNorm(width, LN_EPS, dtype)
+        self.moe = MoEFFN(width, num_experts, mlp_ratio, capacity_factor, dtype, gelu)
+
+    def draw_masks(self, x: torch.Tensor, gen: Optional[torch.Generator]):
+        """The keep masks of the two dropout sites (see EncoderBlock)."""
+        return draw_mask(x, self.dropout, gen), draw_mask(x, self.dropout, gen)
+
+    def body(self, x: torch.Tensor, mask: torch.Tensor, drop_attn=None, drop_ffn=None):
+        x = x + apply_mask(self.attn(self.ln1(x), mask), drop_attn, self.dropout)
+        y, aux = self.moe(self.ln2(x))
+        return x + apply_mask(y, drop_ffn, self.dropout), aux
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.body(x, mask, *self.draw_masks(x, gen))

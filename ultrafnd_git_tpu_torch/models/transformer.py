@@ -8,8 +8,17 @@ attention call goes through `kernels.flash_attention`, whatever S is: on a
 CUDA tensor its forward is K2 and its backward K3 + K4. Training mode
 (a `torch.Generator` passed as `gen`) drops 0.1 at the two sites of each
 block, after attention and after `mlp_out`, as the JAX block does; nothing
-inside attention is dropped. MoE blocks, remat, ring attention and coord
-dropout are not ported yet (ROADMAP.md): the trainer raises for them.
+inside attention is dropped. A block draws its two masks before it computes
+anything (the order the plain block would draw them in, since nothing
+between the two sites draws), so `remat=True` (JAX's `nn.remat` of each
+block, here `torch.utils.checkpoint` without reentrance) hands the same
+masks to the first pass and to the recompute: remat on and off give the
+same bits, and the generator ends in the same state. Under remat K2 runs
+twice per block and step (the recompute). `moe_experts > 0` swaps each
+block for `models/moe.MoEEncoderBlock` (switch top-1 FFN);
+`return_aux=True` then also returns the Switch aux loss, the mean over
+blocks. Ring attention and coord dropout are not ported yet (ROADMAP.md):
+the trainer raises for `sp` and `pp`.
 
 `dtype=torch.bfloat16` is the JAX tower's `dtype=jnp.bfloat16` (serving's
 bf16 lever and the trainer's `bf16_compute`; params stay f32): the
@@ -23,18 +32,19 @@ pooling gives them no gradient).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ultrafnd_git_tpu_torch.kernels.flash_attention import (
     flash_attention,
     padding_bias,
 )
-from ultrafnd_git_tpu_torch.models.dropout import dropout
+from ultrafnd_git_tpu_torch.models.dropout import apply_mask, draw_mask
 from ultrafnd_git_tpu_torch.models.layers import Dense, LayerNorm
 from ultrafnd_git_tpu_torch.ops.hashing import basis_for_salt, fnv1a_64
 
@@ -126,15 +136,23 @@ class EncoderBlock(nn.Module):
         self.mlp_in = Dense(width, mlp_ratio * width, dtype)
         self.mlp_out = Dense(mlp_ratio * width, width, dtype)
 
+    def draw_masks(self, x: torch.Tensor, gen: Optional[torch.Generator]):
+        """The keep masks of the block's two dropout sites (None, None in
+        eval mode), in the order the sites apply them."""
+        return draw_mask(x, self.dropout, gen), draw_mask(x, self.dropout, gen)
+
+    def body(self, x: torch.Tensor, mask: torch.Tensor, drop_attn=None, drop_mlp=None):
+        x = x + apply_mask(self.attn(self.ln1(x), mask), drop_attn, self.dropout)
+        h = self.mlp_out(gelu(self.mlp_in(self.ln2(x)), self.gelu))
+        return x + apply_mask(h, drop_mlp, self.dropout)
+
     def forward(
         self,
         x: torch.Tensor,
         mask: torch.Tensor,
         gen: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        x = x + dropout(self.attn(self.ln1(x), mask), self.dropout, gen)
-        h = self.mlp_out(gelu(self.mlp_in(self.ln2(x)), self.gelu))
-        return x + dropout(h, self.dropout, gen)
+        return self.body(x, mask, *self.draw_masks(x, gen))
 
 
 class TextTransformer(nn.Module):
@@ -150,16 +168,29 @@ class TextTransformer(nn.Module):
         gelu: str = "tanh",
         dropout: float = 0.1,
         dtype: Optional[torch.dtype] = None,
+        moe_experts: int = 0,
+        moe_capacity_factor: float = 1.25,
+        remat: bool = False,
     ):
         super().__init__()
         self.dtype = dtype
+        self.remat = bool(remat)
+        self.moe_experts = int(moe_experts)
         self.tok_embed = nn.Embedding(vocab_size, width)
         self.pos_embed = nn.Parameter(torch.zeros(1, max_len, width))
         self.ln_embed = LayerNorm(width, LN_EPS, dtype)
-        self.blocks = nn.ModuleList(
-            EncoderBlock(width, heads, gelu=gelu, dropout=dropout, dtype=dtype)
-            for _ in range(depth)
-        )
+        if self.moe_experts > 0:
+            # imported here: models/moe.py imports this module's attention
+            from ultrafnd_git_tpu_torch.models.moe import MoEEncoderBlock
+
+            blocks = (MoEEncoderBlock(width, heads, num_experts=self.moe_experts,
+                                      capacity_factor=moe_capacity_factor, gelu=gelu,
+                                      dropout=dropout, dtype=dtype)
+                      for _ in range(depth))
+        else:
+            blocks = (EncoderBlock(width, heads, gelu=gelu, dropout=dropout, dtype=dtype)
+                      for _ in range(depth))
+        self.blocks = nn.ModuleList(blocks)
         self.ln_final = LayerNorm(width, LN_EPS)  # f32, as the JAX tower's
 
     def forward(
@@ -167,15 +198,31 @@ class TextTransformer(nn.Module):
         ids: torch.Tensor,
         mask: torch.Tensor,
         gen: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """`gen` = None is eval mode; a generator turns dropout on."""
+        return_aux: bool = False,
+    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """`gen` = None is eval mode; a generator turns dropout on. With
+        `return_aux`, (pooled, the mean of the blocks' Switch aux losses;
+        0 for dense blocks)."""
         x = self.tok_embed(ids)
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self.ln_embed(x + self.pos_embed[:, : ids.shape[1]].to(x.dtype))
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
-            x = block(x, mask, gen)
+            drops = block.draw_masks(x, gen)
+            if self.remat and torch.is_grad_enabled():
+                out = checkpoint(block.body, x, mask, *drops, use_reentrant=False)
+            else:
+                out = block.body(x, mask, *drops)
+            if self.moe_experts > 0:
+                x, aux = out
+                aux_total = aux_total + aux
+            else:
+                x = out
         x = self.ln_final(x)
         m = mask[..., None]
         pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
-        return pooled / (pooled.norm(dim=-1, keepdim=True) + 1e-9)
+        pooled = pooled / (pooled.norm(dim=-1, keepdim=True) + 1e-9)
+        if return_aux:
+            return pooled, aux_total / float(max(1, len(self.blocks)))
+        return pooled

@@ -18,7 +18,9 @@ Records use `data_complete.json` semantics (title/ocr/comments/...).
   under it. Scoring is row-independent (a new record attaches to the
   training corpus, never to other records of the batch), so coalescing
   is exact: predict(a + b) == predict(a) + predict(b) row for row, up to
-  the bucket the rows are padded to.
+  the bucket the rows are padded to. A switch-MoE tower is the exception,
+  as in the JAX server: its expert capacity is shared by the rows of a
+  dispatch, so where it drops a token a row depends on its neighbours.
 * Errors return JSON {"error": ...} with 4xx/5xx: malformed input never
   takes the server down.
 * /healthz reports the torch device the Predictor runs on and, on CUDA,

@@ -38,6 +38,17 @@ the delay it computes, so the fusion gates read the (B, 3) scorer outputs;
 explain() feeds the corpus rows' cached evidence to its background. Every
 lever (bf16, int8, the sparse graph, the HTTP server) passes it through.
 
+A switch-MoE tower (`moe_experts` in the meta's text_tower) is served as
+the JAX Predictor serves it: the pooled output only, the router in f32
+under bf16 (the experts in bf16), and under int8 the router's 2-D kernel
+quantized with every other eligible matrix while the 3-D expert arrays
+stay f32 (`quantize_tree`'s leaves). Its routing capacity depends on the
+tokens of the call, so the chunk keeps the JAX bucket ladder: featurize
+pads to a power of two >= 8 and `_score_chunk` to batch_size, 2x, 4x, ...
+rows, by repeating the last row (padding rows are routed, as in JAX). The
+capacity couples the rows of a chunk: where it drops a token, a record's
+score depends on the records it is batched with, in JAX as here.
+
 Not ported yet (each raises NotImplementedError; see ROADMAP.md):
 multi-device dispatch (`serve_dp`) and the legacy two-dispatch path
 (`fused_align=False`).
@@ -125,6 +136,8 @@ def build_modules(
             max_len=t["max_len"],
             gelu=t["gelu"],
             dtype=dtype,
+            moe_experts=int(t.get("moe_experts", 0)),
+            moe_capacity_factor=float(t.get("moe_capacity_factor", 1.25)),
         )
     return mods
 

@@ -2,8 +2,10 @@
 
     python -m ultrafnd_git_tpu_torch.train --data_root R --out_dir O \
         [--use_evidence] [--ocr_phrase_pkl P] [--epochs 12] [--batch_size 16] \
-        [--train_text_tower] [--fused_adamw] [--sparse_graph] [--bf16] \
-        [--hash_salt S] [--model_dir D] [--device cuda|cpu] [--export_model_dir M]
+        [--train_text_tower [--moe_experts E] [--remat_tower]] [--fused_adamw] \
+        [--sparse_graph] [--bf16] [--hash_salt S | --auto_salt a,b] [--resume] \
+        [--save_every_steps K] [--profile_dir P] [--debug_nans] [--model_dir D] \
+        [--device cuda|cpu] [--export_model_dir M]
 
 The run's feature cache is out_dir's own when it has a usable one, else
 that of `--model_dir` (a model directory from
@@ -13,7 +15,10 @@ align pass on the device. `--export_model_dir` writes the trained `best`
 slot, with the align MLP its cache was built with, as a model directory
 that `python -m ultrafnd_git_tpu_torch.predict` serves. The device defaults
 to cuda and raises when there is no GPU; pass --device cpu to run on the
-CPU. Prints the `==== Final Results ====` block of run_train_eval.py.
+CPU. `--auto_salt` trains one run per candidate salt from `--data_root`
+(`training/salt_search.py`), adopts the winner's artifacts into out_dir and
+tests its best slot. Prints the `==== Final Results ====` block of
+run_train_eval.py.
 """
 from __future__ import annotations
 
@@ -59,6 +64,18 @@ def parse_args(argv=None):
     p.add_argument("--text_tower_depth", type=int, default=2)
     p.add_argument("--text_tower_heads", type=int, default=6)
     p.add_argument("--tower_gelu", choices=("tanh", "exact"), default="tanh")
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="Swap the --train_text_tower MLPs for a switch "
+                        "(top-1) mixture-of-experts FFN with this many "
+                        "experts; Switch aux losses fold into the loss "
+                        "(--moe_aux_weight)")
+    p.add_argument("--moe_aux_weight", type=float, default=1e-2,
+                   help="Weight of the Switch load-balance + z aux loss")
+    p.add_argument("--remat_tower", action="store_true",
+                   help="Rematerialize tower blocks on the backward pass "
+                        "(torch.utils.checkpoint): less live device memory "
+                        "for one more forward of each block per step; the "
+                        "same bits as without it")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 matmul activations with f32 master params "
                         "(single MXU pass; numerics within the bf16 "
@@ -76,8 +93,32 @@ def parse_args(argv=None):
                         "--model_dir brings its own salt, which is adopted")
     p.add_argument("--select_metric", default="auc",
                    choices=("auc", "acc", "f1", "precision", "recall"))
+    p.add_argument("--auto_salt", type=str, default=None,
+                   help="Comma-separated candidate hash salts: train one "
+                        "full run per candidate (plus the unsalted "
+                        "baseline; an explicit --hash_salt is a candidate "
+                        "too) from --data_root, select the winner by best "
+                        "VALIDATION --select_metric, adopt its checkpoints, "
+                        "cache and align weights into out_dir and test its "
+                        "best slot (BASELINE.md 'Tuning the draw')")
     p.add_argument("--resume", action="store_true",
                    help="Resume from the latest checkpoint in out_dir")
+    p.add_argument("--save_every_steps", type=int, default=0,
+                   help="Also write the `latest` checkpoint every K "
+                        "optimizer steps, so a mid-epoch preemption "
+                        "resumes from the last K-step boundary instead of "
+                        "replaying the whole epoch; --resume then lands "
+                        "bit-identical to an uninterrupted run (the "
+                        "mid-epoch meta records step cursor, batch order "
+                        "and shuffle stream). 0 = per-epoch only")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="Write a torch.profiler trace of fit() here "
+                        "(fit.trace.json, Chrome trace format)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="Raise FloatingPointError at the first step whose "
+                        "loss, outputs or gradients hold a NaN (autograd "
+                        "anomaly mode around the backward; one device sync "
+                        "a step)")
     p.add_argument("--eval_only", action="store_true",
                    help="Skip training; load best and test")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -116,11 +157,17 @@ def main(argv=None) -> dict:
         text_tower_depth=args.text_tower_depth,
         text_tower_heads=args.text_tower_heads,
         tower_gelu=args.tower_gelu,
+        moe_experts=args.moe_experts,
+        moe_aux_weight=args.moe_aux_weight,
+        remat_tower=args.remat_tower,
         bf16_compute=args.bf16,
         hash_salt=args.hash_salt,
         select_metric=args.select_metric,
         resume=args.resume,
+        save_every_steps=args.save_every_steps,
         eval_only=args.eval_only,
+        profile_dir=args.profile_dir,
+        debug_nans=args.debug_nans,
     )
     print("==== ultrafnd_git_tpu_torch v2 ====")
     print(f"Device:          {args.device}")
@@ -133,13 +180,42 @@ def main(argv=None) -> dict:
     print(f"Use evidence:    {args.use_evidence}")
     print(f"bf16 compute:    {args.bf16}")
     print("=============================")
-    trainer = ForensicTrainer(cfg, device=args.device)
-    if not args.eval_only:
-        print("\n>>> Training...")
-        trainer.fit()
-    print("\n>>> Testing best checkpoint...")
+    extra = None
+    if args.auto_salt:
+        if args.eval_only or args.resume:
+            raise SystemExit("--auto_salt trains fresh candidate runs; it cannot be "
+                             "combined with --eval_only or --resume")
+        if args.model_dir:
+            raise SystemExit("--auto_salt featurizes the corpus anew under each "
+                             "candidate salt from --data_root; it cannot take "
+                             "--model_dir's cache")
+        import dataclasses
+
+        from ultrafnd_git_tpu_torch.training.salt_search import (
+            parse_salt_list,
+            search_hash_salt,
+        )
+
+        candidates = parse_salt_list(args.auto_salt)
+        if args.hash_salt and args.hash_salt not in candidates:
+            candidates.insert(0, args.hash_salt)
+        winner, _ = search_hash_salt(cfg, candidates, device=args.device)
+        # out_dir now holds the winner's artifacts: score its best slot as a
+        # direct `--hash_salt <winner> --eval_only` run would
+        cfg = dataclasses.replace(cfg, hash_salt=winner, eval_only=True)
+        trainer = ForensicTrainer(cfg, device=args.device)
+        print("\n>>> Testing best checkpoint (auto_salt winner)...")
+        extra = f"Selected hash_salt: {winner!r}"
+    else:
+        trainer = ForensicTrainer(cfg, device=args.device)
+        if not args.eval_only:
+            print("\n>>> Training...")
+            trainer.fit()
+        print("\n>>> Testing best checkpoint...")
     results = trainer.test()
     print("\n==== Final Results ====")
+    if extra:
+        print(extra)
     print(f"Test Loss: {results['test_loss']:.4f}")
     print(f"Test Acc : {results['test_acc']:.4f}")
     print(f"Test AUC : {results['test_auc']:.4f}")

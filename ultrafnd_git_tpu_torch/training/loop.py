@@ -4,12 +4,16 @@ The JAX module imports its Orbax checkpoint store (and so jax), so the
 port keeps its own copy of the plumbing, with the same semantics: the
 np.random shuffle-stream snapshot, ragged-batch padding, padded-row
 flattening, val-metric improvement / early-stop accounting with gated
-`best` writes, the cross-kind checkpoint guard and the JSONL epoch log.
+`best` writes, the cross-kind checkpoint guard, the JSONL epoch log and the
+profiler bracket of a fit loop (`torch.profiler` in place of
+`jax.profiler`).
 """
 from __future__ import annotations
 
 import json
 import os
+from contextlib import contextmanager
+from pathlib import Path
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -137,3 +141,31 @@ def log_jsonl(out_dir: str, enabled: bool, record: Dict[str, Any]) -> None:
         return
     with open(os.path.join(out_dir, "metrics.jsonl"), "a", encoding="utf-8") as fh:
         fh.write(json.dumps(record, ensure_ascii=False) + "\n")
+
+
+@contextmanager
+def profiler_trace(profile_dir: Optional[str], device):
+    """Bracket a fit loop with torch.profiler when `profile_dir` is set
+    (JAX `training/loop.py:215-225`): host activity, and the device's
+    kernels when `device` is a CUDA device. On exit (a failed fit's too)
+    the trace goes to `<profile_dir>/fit.trace.json`, in Chrome's trace
+    format (chrome://tracing, Perfetto)."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if getattr(device, "type", str(device)) == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:  # a failed fit keeps its trace, as jax.profiler's stop_trace
+        prof.stop()
+        path = out / "fit.trace.json"
+        prof.export_chrome_trace(str(path))
+        print(f"profiler trace: {path}")

@@ -56,6 +56,13 @@ class TrainState:
                 f"checkpoint parts {sorted(payload['params'])} != "
                 f"{sorted(self.params)}"
             )
+        for key in ("mu", "nu"):  # the AdamW moments of the trained parts
+            for part, leaves in self.opt_state[key].items():
+                saved = payload["opt_state"][key].get(part, {})
+                if set(saved) != set(leaves) or any(
+                    saved[k].shape != t.shape for k, t in leaves.items()
+                ):
+                    raise ValueError(f"checkpoint {part!r} optimizer state differs in shape")
 
     @torch.no_grad()
     def load_state_dict(self, payload: Dict[str, Any]) -> None:

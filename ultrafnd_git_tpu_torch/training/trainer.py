@@ -55,8 +55,22 @@ the JAX package's distributions but not its numbers, the fusion and
 classifier dims of the shipped YAMLs (the port reads no YAML), no GCN when
 `use_gnn=False` (the JAX trainer builds and weight-decays one it never
 uses), and a cache built from `data_root` has the port's own align draw
-(`models/temporal.TemporalSyncNet`). Flags outside this slice raise
-NotImplementedError naming ROADMAP.md.
+(`models/temporal.TemporalSyncNet`).
+
+Every single-device field of the JAX `TrainConfig` trains: `moe_experts`
+swaps the tower's MLPs for switch-MoE FFNs (`models/moe.py`), whose aux
+loss joins every row's loss under `moe_aux_weight` in train and eval alike;
+`remat_tower` rematerialises each tower block (`torch.utils.checkpoint`,
+the dropout masks drawn before it, so the bits do not move);
+`save_every_steps` also writes the `latest` slot every K optimizer steps
+of an epoch but its last, with the JAX meta (`in_epoch`, `step_cursor`,
+`epoch_order`, `np_random_state`), and `--resume` re-enters that epoch at
+the cursor in the saved order, bit for bit the uninterrupted run;
+`profile_dir` writes a torch.profiler trace of `fit()`; `debug_nans`
+raises FloatingPointError at the first step whose loss, outputs or
+gradients hold a NaN. The multi-device fields (`dp`, `tp`, `dcn`, `sp`,
+`pp`, `shard_corpus`, `shard_graph`) raise NotImplementedError naming
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -92,6 +106,7 @@ from ultrafnd_git_tpu_torch.training.loop import (
     load_checkpoint_guarded,
     log_jsonl,
     np_random_state_payload,
+    profiler_trace,
     restore_np_random_state,
 )
 from ultrafnd_git_tpu_torch.training.metrics import aggregate_epoch_metrics, pretty_print
@@ -106,6 +121,7 @@ CLASSIFIER = dict(hidden=512, num_classes=2, use_aux=True, aux_dim=2,
                   node_trees=6, node_depth=4, node_tau=10.0,
                   temperature_init=1.0, dropout=0.1, node_dropout=0.3)
 GNN_DROPOUT = 0.2
+MOE_CAPACITY_FACTOR = 1.25  # the JAX tower's moe_capacity_factor (no TrainConfig field)
 TRAINER_KIND = "v2"
 
 
@@ -171,17 +187,22 @@ class TrainConfig:
 
 
 def _unsupported(cfg: TrainConfig) -> list:
+    """The set flags of the multi-device layouts, which the port has not
+    ported (ROADMAP.md): every single-device field trains."""
     return [
         flag for flag, on in (
             ("dp", cfg.dp is not None), ("tp", cfg.tp > 1), ("dcn", cfg.dcn > 1),
             ("sp", cfg.sp > 1), ("pp", cfg.pp > 1),
             ("shard_corpus", cfg.shard_corpus), ("shard_graph", cfg.shard_graph),
-            ("moe_experts", cfg.moe_experts > 0), ("remat_tower", cfg.remat_tower),
-            ("save_every_steps", cfg.save_every_steps > 0),
-            ("profile_dir", cfg.profile_dir is not None),
-            ("debug_nans", cfg.debug_nans),
         ) if on
     ]
+
+
+def _raise_on_nan(where: str, *tensors: torch.Tensor) -> None:
+    """FloatingPointError when any of `tensors` holds a NaN (debug_nans:
+    one device sync for all of them). Like jax_debug_nans, inf passes."""
+    if torch.stack([t.detach().isnan().any() for t in tensors]).any().item():
+        raise FloatingPointError(f"debug_nans: a NaN in the {where}")
 
 
 def _adopt_checkpoint_fields(cfg: TrainConfig) -> None:
@@ -348,8 +369,10 @@ class ForensicTrainer:
             tower = dict(width=text_width, depth=cfg.text_tower_depth,
                          heads=cfg.text_tower_heads, vocab_size=TOWER_VOCAB,
                          max_len=int(self.cache["text_ids"].shape[1]),
-                         gelu=cfg.tower_gelu)
-            params["text_tower"] = TextTransformer(**tower, dtype=dtype)
+                         gelu=cfg.tower_gelu, moe_experts=cfg.moe_experts,
+                         moe_capacity_factor=MOE_CAPACITY_FACTOR)
+            params["text_tower"] = TextTransformer(**tower, dtype=dtype,
+                                                   remat=cfg.remat_tower)
             self.model_meta["text_tower"] = tower
         init_gen = torch.Generator().manual_seed(cfg.seed)  # same draws on any device
         for part, mod in params.items():
@@ -371,6 +394,10 @@ class ForensicTrainer:
         self.start_epoch = 1
         self.best_val_auc = -1.0
         self.no_improve = 0
+        # mid-epoch resume (save_every_steps slots): the optimizer steps of
+        # start_epoch already taken, and that epoch's batch order
+        self._resume_cursor = 0
+        self._resume_order: Optional[np.ndarray] = None
         if cfg.resume:
             restored = load_checkpoint_guarded(cfg.out_dir, "latest", TRAINER_KIND,
                                                "starting fresh", dev)
@@ -382,7 +409,13 @@ class ForensicTrainer:
                     print(f"⚠️  latest checkpoint does not fit this model ({exc}); "
                           "starting fresh")
                 else:
-                    self.start_epoch = int(meta.get("epoch", 0)) + 1
+                    if meta.get("in_epoch"):
+                        # re-enter the same epoch at the cursor, in its order
+                        self.start_epoch = int(meta.get("epoch", 1))
+                        self._resume_cursor = int(meta.get("step_cursor", 0))
+                        self._resume_order = np.asarray(meta["epoch_order"], np.int32)
+                    else:
+                        self.start_epoch = int(meta.get("epoch", 0)) + 1
                     self.best_val_auc = float(meta.get("best_val_auc", -1.0))
                     self.no_improve = int(meta.get("no_improve", 0))
                     rs = meta.get("np_random_state")
@@ -423,11 +456,18 @@ class ForensicTrainer:
     # ------------------------------------------------------------------
     def _forward(self, params: Dict[str, nn.Module], idx: torch.Tensor,
                  gen: Optional[torch.Generator] = None):
-        """(per-row CE (B,), p_fake (B,), forensic (3, B)) of corpus rows
-        `idx`; `gen` = None is eval mode, a generator turns dropout on."""
+        """(per-row loss (B,), p_fake (B,), forensic (3, B)) of corpus rows
+        `idx`; `gen` = None is eval mode, a generator turns dropout on. The
+        loss is the CE, plus moe_aux_weight times the tower's Switch aux on
+        every row of a MoE tower (`trainer.py:912-916`: the masked mean
+        then gains it once a step)."""
         c, cfg = self.corpus, self.cfg
+        moe_aux = None
         if "text_tower" in params:
-            text = params["text_tower"](c["text_ids"][idx], c["text_mask"][idx], gen)
+            text = params["text_tower"](c["text_ids"][idx], c["text_mask"][idx], gen,
+                                        return_aux=cfg.moe_experts > 0)
+            if cfg.moe_experts > 0:
+                text, moe_aux = text
         else:
             text = c["text"][idx]
         feats = {
@@ -452,6 +492,8 @@ class ForensicTrainer:
         # the logits are f32 under bf16_compute too (the forest and bypass
         # stay f32), as optax's CE takes them (trainer.py:909)
         ce = F.cross_entropy(co["logits"], c["labels"][idx], reduction="none")
+        if moe_aux is not None:
+            ce = ce + cfg.moe_aux_weight * moe_aux
         f = fo["forensic"]
         forensic = torch.stack(
             [f["semantic_conflict"], f["temporal_delay"], f["emotion_intensity"]]
@@ -466,22 +508,35 @@ class ForensicTrainer:
         """(loss, grads {part: {name: tensor}}, (p_fake, forensic)) of the
         masked mean CE over a step's rows. With grad_accum = k the rows are
         k microbatches whose summed-CE gradients add up before one divide by
-        the step's valid-row count (`trainer.py:926-1011`)."""
+        the step's valid-row count (`trainer.py:926-1011`). Under
+        debug_nans each backward runs under autograd's anomaly mode (it
+        raises at the first backward function whose output holds a NaN) and
+        the step's loss and outputs are checked for NaN with one sync; both
+        raise FloatingPointError."""
         params = self.state.params
         for mod in params.values():
             for p in mod.parameters():
                 p.grad = None
         accum = max(1, int(self.cfg.grad_accum))
+        debug = self.cfg.debug_nans
         denom = mask.sum().clamp_min(1.0)
         lsum = torch.zeros((), device=idx.device)
         p1s, fs = [], []
         for i, m in zip(idx.view(accum, -1), mask.view(accum, -1)):
             ce, p1, f = self._forward(params, i, gen)
             ls = (ce * m).sum()
-            (ls / denom if accum == 1 else ls).backward()
+            try:
+                with torch.autograd.detect_anomaly(check_nan=True) if debug else nullcontext():
+                    (ls / denom if accum == 1 else ls).backward()
+            except RuntimeError as exc:
+                if debug and "nan" in str(exc):
+                    raise FloatingPointError(f"debug_nans: {exc}") from exc
+                raise
             lsum = lsum + ls.detach()
             p1s.append(p1.detach())
             fs.append(f.detach())
+        if debug:
+            _raise_on_nan("train step's loss or outputs", lsum, *p1s, *fs)
         grads = {}
         for part, mod in self.trainable().items():
             grads[part] = {}
@@ -504,34 +559,79 @@ class ForensicTrainer:
         i = to_device(torch.as_tensor(idx), self.device, torch.int64)
         m = to_device(torch.as_tensor(mask), self.device, torch.float32)
         ce, p1, forensic = self._forward(params, i)
-        return (ce * m).sum() / m.sum().clamp_min(1.0), p1, forensic
+        loss = (ce * m).sum() / m.sum().clamp_min(1.0)
+        if self.cfg.debug_nans:
+            _raise_on_nan("eval step's loss or outputs", loss, p1, forensic)
+        return loss, p1, forensic
 
     # ------------------------------------------------------------------
-    def epoch_batches(self, split_idx: np.ndarray, is_train: bool):
-        """The epoch's [(chunk, mask, valid)]: a train epoch shuffles with
-        np.random's global stream (one draw per epoch, as the JAX trainer)
-        and takes batch_size * grad_accum rows per optimizer step."""
-        cfg = self.cfg
-        order = split_idx
-        if is_train:
-            order = np.array(split_idx, dtype=np.int32)
-            np.random.shuffle(order)
-        eff = cfg.batch_size * (max(1, cfg.grad_accum) if is_train else 1)
+    def _batches(self, order: np.ndarray, is_train: bool):
+        """[(chunk, mask, valid)] of `order`: batch_size * grad_accum rows
+        per optimizer step in training, batch_size in eval."""
+        eff = self.cfg.batch_size * (max(1, self.cfg.grad_accum) if is_train else 1)
         return list(iter_padded_batches(order, eff, shuffle=False))
 
+    def epoch_order(self, split_idx: np.ndarray, is_train: bool) -> np.ndarray:
+        """The epoch's row order: a train epoch shuffles with np.random's
+        global stream (one draw per epoch, as the JAX trainer)."""
+        if not is_train:
+            return split_idx
+        order = np.array(split_idx, dtype=np.int32)
+        np.random.shuffle(order)
+        return order
+
+    def epoch_batches(self, split_idx: np.ndarray, is_train: bool):
+        """The epoch's [(chunk, mask, valid)] (one shuffle for a train epoch)."""
+        return self._batches(self.epoch_order(split_idx, is_train), is_train)
+
+    def _save_step_checkpoint(self, epoch: int, cursor: int, order: np.ndarray) -> None:
+        """The mid-epoch `latest` slot (save_every_steps; `trainer.py:1078-1104`):
+        the JAX meta keys, with `in_epoch`, the step cursor, the epoch's
+        batch order and np.random's state (the state file carries the
+        parameters, AdamW state, step and dropout generator), plus the
+        module dims every slot of the port carries."""
+        meta = {
+            "trainer": TRAINER_KIND,
+            "epoch": int(epoch),
+            "best_val_auc": self.best_val_auc,
+            "no_improve": self.no_improve,
+            "cfg": asdict(self.cfg),
+            "in_epoch": True,
+            "step_cursor": int(cursor),
+            "epoch_order": np.asarray(order).tolist(),
+            "np_random_state": np_random_state_payload(),
+            "model": self.model_meta,
+        }
+        ckpt.save_checkpoint(self.cfg.out_dir, "latest", self.state, meta)
+
     def _epoch_loop(self, split_idx: np.ndarray, split: str,
-                    params: Optional[Dict[str, nn.Module]] = None) -> Tuple[float, Dict[str, float]]:
+                    params: Optional[Dict[str, nn.Module]] = None,
+                    epoch: Optional[int] = None) -> Tuple[float, Dict[str, float]]:
+        """One pass over a split. A train pass inside fit() (`epoch` given)
+        writes the mid-epoch slot every save_every_steps steps but after its
+        last, and a resumed run's first train pass takes the saved order
+        from the saved cursor (`trainer.py:1107-1190`)."""
         is_train = split == "train"
         params = params if params is not None else self.state.params
-        batches = self.epoch_batches(split_idx, is_train)
+        save_k = int(self.cfg.save_every_steps) if is_train and epoch is not None else 0
+        skip = 0
+        if is_train and self._resume_order is not None:
+            order, skip = self._resume_order, self._resume_cursor
+            self._resume_order, self._resume_cursor = None, 0
+            batches = self._batches(order, True)[skip:]
+        else:
+            order = self.epoch_order(split_idx, is_train)
+            batches = self._batches(order, is_train)
         if not batches:
             return 0.0, aggregate_epoch_metrics(np.array([], int), np.array([], float))
         for mod in params.values():
             mod.train(is_train)
         outs = []
-        for chunk, mask, _ in batches:
+        for bi, (chunk, mask, _) in enumerate(batches):
             if is_train:
                 outs.append(self.train_step(chunk, mask))
+                if save_k > 0 and (bi + 1) % save_k == 0 and bi + 1 < len(batches):
+                    self._save_step_checkpoint(epoch, skip + bi + 1, order)
             else:
                 outs.append(self.eval_step(params, chunk, mask))
         # one device -> host copy per epoch
@@ -553,32 +653,33 @@ class ForensicTrainer:
         tracker = ImprovementTracker(cfg.out_dir, TRAINER_KIND, cfg.save_best,
                                      cfg.early_stop_patience, best=self.best_val_auc,
                                      no_improve=self.no_improve)
-        for epoch in range(self.start_epoch, cfg.epochs + 1):
-            t0 = time.time()
-            tr_loss, tr_metrics = self._epoch_loop(self.tr_idx, "train")
-            va_loss, va_metrics = self._epoch_loop(self.va_idx, "val")
-            dt = time.time() - t0
-            print(f"[Epoch {epoch:02d}] train_loss={tr_loss:.4f} | ", end="")
-            pretty_print("train", tr_metrics)
-            print(f"           val_loss={va_loss:.4f} | ", end="")
-            pretty_print("val", va_metrics)
-            log_jsonl(cfg.out_dir, cfg.log_metrics_jsonl, {
-                "epoch": epoch, "seconds": dt, "train_loss": tr_loss, "val_loss": va_loss,
-                **{f"train_{k}": v for k, v in tr_metrics.items()},
-                **{f"val_{k}": v for k, v in va_metrics.items()},
-            })
-            # the resolved module dims travel with every slot (export_trained)
-            extra = {"model": self.model_meta}
-            tracker.update(float(va_metrics.get(sel, 0.5)), self.state, epoch, asdict(cfg),
-                           extra)
-            self.best_val_auc = tracker.best
-            self.no_improve = tracker.no_improve
-            meta = {**tracker.meta(epoch, asdict(cfg)), **extra,
-                    "np_random_state": np_random_state_payload()}
-            ckpt.save_checkpoint(cfg.out_dir, "latest", self.state, meta)
-            if tracker.should_stop:
-                tracker.announce_stop()
-                break
+        with profiler_trace(cfg.profile_dir, self.device):
+            for epoch in range(self.start_epoch, cfg.epochs + 1):
+                t0 = time.time()
+                tr_loss, tr_metrics = self._epoch_loop(self.tr_idx, "train", epoch=epoch)
+                va_loss, va_metrics = self._epoch_loop(self.va_idx, "val")
+                dt = time.time() - t0
+                print(f"[Epoch {epoch:02d}] train_loss={tr_loss:.4f} | ", end="")
+                pretty_print("train", tr_metrics)
+                print(f"           val_loss={va_loss:.4f} | ", end="")
+                pretty_print("val", va_metrics)
+                log_jsonl(cfg.out_dir, cfg.log_metrics_jsonl, {
+                    "epoch": epoch, "seconds": dt, "train_loss": tr_loss, "val_loss": va_loss,
+                    **{f"train_{k}": v for k, v in tr_metrics.items()},
+                    **{f"val_{k}": v for k, v in va_metrics.items()},
+                })
+                # the resolved module dims travel with every slot (export_trained)
+                extra = {"model": self.model_meta}
+                tracker.update(float(va_metrics.get(sel, 0.5)), self.state, epoch,
+                               asdict(cfg), extra)
+                self.best_val_auc = tracker.best
+                self.no_improve = tracker.no_improve
+                meta = {**tracker.meta(epoch, asdict(cfg)), **extra,
+                        "np_random_state": np_random_state_payload()}
+                ckpt.save_checkpoint(cfg.out_dir, "latest", self.state, meta)
+                if tracker.should_stop:
+                    tracker.announce_stop()
+                    break
         return self.best_val_auc
 
     def test(self) -> Dict[str, float]:

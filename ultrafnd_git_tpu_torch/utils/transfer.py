@@ -12,7 +12,9 @@ The caller converts arrays to numpy.
 
 A model directory holds `weights.pt` ({part: state_dict}, loadable with
 `torch.load(..., weights_only=True)`), `meta.json` (the checkpoint cfg
-plus resolved module dims) and the corpus `feature_cache.npz`.
+plus resolved module dims; a tower's record `moe_experts` and
+`moe_capacity_factor`, 0 and 1.25 for dense blocks) and the corpus
+`feature_cache.npz`.
 `export_trained` writes one from a checkpoint of the port's own trainer.
 """
 from __future__ import annotations
@@ -99,7 +101,9 @@ def gcn_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
 
 
 def tower_state_dict(params: Mapping[str, Any]) -> StateDict:
-    """Flax `TextTransformer` params -> port `TextTransformer` state dict."""
+    """Flax `TextTransformer` params -> port `TextTransformer` state dict,
+    dense or MoE blocks (`block{i}/moe/{router,w_in,b_in,w_out,b_out}`; the
+    expert arrays keep their (E, in, out) layout)."""
     out: StateDict = {
         "tok_embed.weight": _f32(params["tok_embed"]["embedding"]),
         "pos_embed": _f32(params["pos_embed"]),
@@ -112,8 +116,13 @@ def tower_state_dict(params: Mapping[str, Any]) -> StateDict:
         _dense(out, f"{pre}.attn.qkv", p["attn"]["qkv"])
         _dense(out, f"{pre}.attn.out", p["attn"]["out"])
         _layer_norm(out, f"{pre}.ln2", p["ln2"])
-        _dense(out, f"{pre}.mlp_in", p["mlp_in"])
-        _dense(out, f"{pre}.mlp_out", p["mlp_out"])
+        if "moe" in p:  # a switch-MoE block: router Dense, stacked experts as they are
+            _dense(out, f"{pre}.moe.router", p["moe"]["router"])
+            for name in ("w_in", "b_in", "w_out", "b_out"):
+                out[f"{pre}.moe.{name}"] = _f32(p["moe"][name])
+        else:
+            _dense(out, f"{pre}.mlp_in", p["mlp_in"])
+            _dense(out, f"{pre}.mlp_out", p["mlp_out"])
     _layer_norm(out, "ln_final", params["ln_final"])
     return out
 
