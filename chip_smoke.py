@@ -6,7 +6,9 @@ every single-device lever (f32, bf16, int8), explain it, put it behind the
 HTTP server, train and serve it again on the sparse graph layout, train a
 switch-MoE tower (remat, a profile, a killed and resumed run) and serve it,
 train an evidence model from a raw FakeSV data root through the CLI and
-serve it, and search the hash salt over that root.
+serve it, search the hash salt over that root, serve frozen scoring
+artifacts (torch.export) and the legacy two-dispatch path, and train with
+--trainer integrated.
 
     python3 chip_smoke.py
 
@@ -139,6 +141,31 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      validation AUC), the adopted out_dir exports (its align.pt came along)
      and serves 8 records on the card; launches of both runs and the
      winner's test;
+ 11c. artifact_serve — phase 5's model frozen by export_serving.export_artifact
+     (torch.export of the scoring program, K2 as the ufnd:: op inside it) on
+     the card in f32, bf16 and int8, each served by ExportedPredictor on the
+     card: the three requests five times after a warm-up; K2 launches =
+     depth x chunks of 64 rows (K2-bf16 under bf16, f32 K2 0): the kernel
+     runs inside scorer.pt2; rows within 1e-6 of the live Predictor run on
+     the same chunks (bit identity printed) and within 1e-4 (bf16 2e-2) of
+     it on its own chunks; median latencies beside the live Predictor's;
+     export seconds and file sizes; the device time of the 300-record
+     request; then the model frozen on the CPU and served on the card,
+     within 1e-4 of the CPU Predictor;
+ 11d. legacy_serve — Predictor(fused_align=False) on the card (the align pass in
+     featurize, the legacy program) and the fused Predictor, the three
+     requests in turns (five each, the order alternating): legacy rows
+     within 1e-4 of the CPU legacy Predictor and 1e-5 of the fused GPU rows,
+     K2 launches = depth x requests each; median latencies and featurize
+     times of both;
+ 11e. integrated_train — the training CLI with --trainer integrated on phase 10's
+     data root (N = 5376), batch 512, one epoch, then --eval_only (cache
+     reused, no launch), in f32 and under --bf16: losses finite, best and
+     latest slots tagged "integrated", K1 launches = steps and no flash
+     kernel; the median step, samples/s and a profiled step's idle share;
+     the dropout-off gradient of 512 rows on the card against the CPU from
+     the same initial parameters (1e-4 of each leaf's largest; --bf16: the
+     bf16 bounds of phase 4b);
  12. a check that no module of jax or of the JAX package ultrafnd_git_tpu
      was loaded (server threads included), a JSON line of the kernels, then
      the JSON result line.
@@ -908,6 +935,12 @@ def _grad_gap(gpu, cpu, rows=64):
     mask = torch.ones(rows)
     _, g_gpu, _ = gpu.grads_of(idx.to(gpu.device), mask.to(gpu.device))
     _, g_cpu, _ = cpu.grads_of(idx, mask)
+    return _leaf_gaps(g_gpu, g_cpu)
+
+
+def _leaf_gaps(g_gpu, g_cpu):
+    """((largest leaf error relative to the leaf's largest CPU value, leaf),
+    (largest relative L2 error of a leaf, leaf)) of two gradient trees."""
     worst, worst_l2 = (0.0, ""), (0.0, "")
     for part, leaves in g_cpu.items():
         for name, c in leaves.items():
@@ -919,23 +952,29 @@ def _grad_gap(gpu, cpu, rows=64):
     return worst, worst_l2
 
 
-def profile_step(trainer, median_step_ms, rows=12, phase="profile"):
+def profile_step(trainer, median_step_ms, rows=12, phase="profile", step=None):
     """Device time of one steady train step by kernel (torch.profiler; the
     device total sums the kernel events, as the profiler's own table does)
     and the device's idle share of a step: 1 - that device time / the
     median wall time of the unprofiled steps (host clock around a
     synchronised step). The profiled step's own wall time is printed too:
-    the profiler's host-side tracing lengthens it."""
+    the profiler's host-side tracing lengthens it. `step` runs one step
+    (default: the trainer's first training batch)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    chunk, mask, _ = trainer.epoch_batches(trainer.tr_idx, True)[0]
-    trainer.train_step(chunk, mask)
+    if step is None:
+        chunk, mask, _ = trainer.epoch_batches(trainer.tr_idx, True)[0]
+
+        def step():
+            trainer.train_step(chunk, mask)
+
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s = time.perf_counter()
-        trainer.train_step(chunk, mask)
+        step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - s)
     events = prof.key_averages()
@@ -1145,7 +1184,7 @@ def phase_serve(model_dir, requests):
         gpu_vs_cpu_max_abs=json.dumps(diffs, separators=(",", ":")),
         prob_min=float(all_p.min()), prob_max=float(all_p.max()),
         prob_std=float(all_p.std()))
-    return {"launches": launches, "rows": rows, "latency_s": lat}
+    return {"launches": launches, "rows": rows, "latency_s": lat, "cpu_rows": cpu_rows}
 
 
 def phase_serve_levers(model_dir, requests, f32):
@@ -1996,6 +2035,272 @@ def phase_auto_salt(data_root, root):
     shutil.rmtree(out, ignore_errors=True)
     return launches
 
+ARTIFACT_LEVERS = (("f32", {}), ("bf16", {"bf16": True}), ("int8", {"quantize": True}))
+ARTIFACT_BATCH = 64  # the artifact's chunk rows (the Predictor's default batch_size)
+ARTIFACT_VS_LIVE = 1e-6  # artifact rows vs the live Predictor on the same chunks
+LEGACY_VS_FUSED = 1e-5  # legacy GPU rows vs fused GPU rows
+
+
+def _max_gap(rows, ref, keys=("prob_fake", "semantic_conflict", "temporal_delay",
+                              "emotion_intensity")):
+    return max(float(np.max(np.abs(_values(rows, k) - _values(ref, k)))) for k in keys)
+
+
+def phase_artifact_serve(model_dir, requests, serve, root):
+    """The served model frozen into an artifact on the card in f32, bf16 and
+    int8 (export_serving.export_artifact: torch.export of the scoring
+    program), each served by ExportedPredictor on the card: the requests
+    five times after a warm-up, K2 launches = depth x chunks of 64 rows
+    (the artifact caps chunks at batch_size), rows against the live
+    Predictor run on the same chunks (the same program: within 1e-6) and
+    on its own chunks; latencies beside the live Predictor's; the export's
+    seconds and file sizes. Then the model frozen on the CPU and served on
+    the card, against the CPU Predictor."""
+    from ultrafnd_git_tpu_torch.export_serving import FILES, ExportedPredictor, export_artifact
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    depth = TOWER["depth"]
+    chunks = [-(-n // ARTIFACT_BATCH) for n in REQUEST_SIZES]
+    expect = depth * REPEATS * sum(chunks)
+    total = {"fwd": 0, "fwd_bf16": 0}
+    for name, levers in ARTIFACT_LEVERS:
+        art_dir = root / f"artifact_{name}"
+        live = Predictor(model_dir, device="cuda", batch_size=ARTIFACT_BATCH, **levers)
+        try:
+            live.warmup(max(REQUEST_SIZES))
+            live_rows, live_lat = _timed_requests(live, requests)
+            t0 = time.perf_counter()
+            export_artifact(live, str(art_dir), platforms=("cuda", "cpu"))
+            export_s = time.perf_counter() - t0
+            live._fixed_shape_dispatch = True  # the artifact's chunks, the live program
+            same_chunks = [live.predict(recs) for recs in requests]
+        finally:
+            live.close()
+        sizes = {f: (art_dir / f).stat().st_size for f in FILES}
+        t1 = time.perf_counter()
+        art = ExportedPredictor(str(art_dir), device="cuda")
+        load_s = time.perf_counter() - t1
+        try:
+            art.warmup(max(REQUEST_SIZES))
+            _reset_counts()  # this path's run only
+            rows, lat = _timed_requests(art, requests)
+            launches = {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches}
+            if fa.bwd_launches or fa.bwd_bf16_launches:
+                raise RuntimeError("an artifact launched a backward kernel")
+            profile_request(art, requests[-1], "artifact_serve", name)
+        finally:
+            art.close()
+        bf16 = bool(levers.get("bf16"))
+        want = {"fwd": 0 if bf16 else expect, "fwd_bf16": expect if bf16 else 0}
+        if launches != want:
+            raise RuntimeError(f"artifact {name}: K2 launches {launches}, expected {want}: "
+                               "the kernel did not run inside scorer.pt2")
+        for k in total:
+            total[k] += launches[k]
+        gap = _max_gap(rows, same_chunks)
+        identical = all(a == b for x, y in zip(rows, same_chunks) for a, b in zip(x, y))
+        own = float(np.abs(_values(rows) - _values(live_rows)).max())
+        own_tol = LEVER_VS_CPU if bf16 else PROB_ATOL
+        p = _values(rows)
+        if not (np.isfinite(p).all() and gap <= ARTIFACT_VS_LIVE and own <= own_tol):
+            raise RuntimeError(f"artifact {name}: {gap} from the live program on its chunks "
+                               f"(limit {ARTIFACT_VS_LIVE}), {own} from the live Predictor's "
+                               f"own chunks (limit {own_tol})")
+        log("artifact_serve", lever=name, export_s=export_s, load_s=load_s,
+            file_bytes=json.dumps(sizes, separators=(",", ":")),
+            launches=json.dumps(launches, separators=(",", ":")), expected_launches=expect,
+            max_abs_vs_live_same_chunks=gap, bit_identical=identical,
+            max_abs_vs_live_own_chunks=own,
+            median_latency_ms=json.dumps({n: round(1e3 * t, 3) for n, t in
+                                          zip(REQUEST_SIZES, lat)}),
+            live_median_latency_ms=json.dumps({n: round(1e3 * t, 3) for n, t in
+                                               zip(REQUEST_SIZES, live_lat)}))
+
+    # frozen on the CPU, served on the card
+    cpu_dir = root / "artifact_cpu"
+    cpu = Predictor(model_dir, device="cpu", batch_size=ARTIFACT_BATCH)
+    try:
+        t0 = time.perf_counter()
+        export_artifact(cpu, str(cpu_dir), platforms=("cpu", "cuda"))
+        export_s = time.perf_counter() - t0
+    finally:
+        cpu.close()
+    art = ExportedPredictor(str(cpu_dir), device="cuda")
+    try:
+        _reset_counts()
+        rows = [art.predict(recs) for recs in requests]
+        launches = fa.launches
+    finally:
+        art.close()
+    gap = _max_gap(rows, serve["cpu_rows"])
+    if launches != depth * sum(chunks) or not gap <= PROB_ATOL:
+        raise RuntimeError(f"the CPU-exported artifact on the card: K2 launches {launches} "
+                           f"(expected {depth * sum(chunks)}), {gap} from the CPU Predictor")
+    total["fwd"] += launches
+    log("artifact_serve", lever="f32 exported on the cpu", export_s=export_s,
+        launches=launches, max_abs_vs_cpu_predictor=gap)
+    return total
+
+
+def phase_legacy_serve(model_dir, requests):
+    """Predictor(fused_align=False) on the card: featurize builds the full
+    cache (its align pass on the card), the legacy program scores it. The
+    three requests in turns with the fused Predictor (REPEATS times each,
+    the order alternating), then each against the CPU legacy Predictor
+    (1e-4) and the fused GPU rows (1e-5); featurize medians of both."""
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    fused = Predictor(model_dir, device="cuda")
+    legacy = Predictor(model_dir, device="cuda", fused_align=False)
+    preds = {"fused": fused, "legacy": legacy}
+    try:
+        for pred in preds.values():
+            pred.warmup(max(REQUEST_SIZES))
+        lat = {k: [] for k in preds}
+        feat = {k: [] for k in preds}
+        rows = {k: [] for k in preds}
+        launched = {"fused": 0, "legacy": 0}
+        for recs in requests:
+            times, last = {k: [] for k in preds}, {}
+            for rep in range(REPEATS):
+                for k in (("fused", "legacy") if rep % 2 == 0 else ("legacy", "fused")):
+                    before = fa.launches
+                    s = time.perf_counter()
+                    last[k] = preds[k].predict(recs)
+                    times[k].append(time.perf_counter() - s)
+                    launched[k] += fa.launches - before
+            for k, pred in preds.items():
+                rows[k].append(last[k])
+                lat[k].append(statistics.median(times[k]))
+                ft = []
+                for _ in range(REPEATS):
+                    s = time.perf_counter()
+                    pred.featurize(recs)
+                    ft.append(time.perf_counter() - s)
+                feat[k].append(statistics.median(ft))
+    finally:
+        fused.close()
+        legacy.close()
+    cpu = Predictor(model_dir, device="cpu", fused_align=False)
+    try:
+        cpu_rows = [cpu.predict(recs) for recs in requests]
+    finally:
+        cpu.close()
+    expect = TOWER["depth"] * REPEATS * len(REQUEST_SIZES)  # one GPU chunk a request
+    vs_cpu, vs_fused = _max_gap(rows["legacy"], cpu_rows), _max_gap(rows["legacy"], rows["fused"])
+    if launched["legacy"] != expect or not (vs_cpu <= PROB_ATOL and vs_fused <= LEGACY_VS_FUSED):
+        raise RuntimeError(f"legacy serving: K2 launches {launched}, expected {expect} each; "
+                           f"{vs_cpu} from the CPU legacy run, {vs_fused} from the fused rows")
+    log("legacy_serve", launches=json.dumps(launched, separators=(",", ":")), expected=expect,
+        max_abs_vs_cpu_legacy=vs_cpu, max_abs_vs_fused_gpu=vs_fused,
+        **{f"{k}_median_latency_ms": json.dumps({n: round(1e3 * t, 3) for n, t in
+                                                 zip(REQUEST_SIZES, lat[k])}) for k in preds},
+        **{f"{k}_featurize_median_ms": json.dumps({n: round(1e3 * t, 3) for n, t in
+                                                   zip(REQUEST_SIZES, feat[k])}) for k in preds})
+    return launched["legacy"]
+
+
+def phase_integrated_train(data_root, root):
+    """The training CLI with --trainer integrated on raw_train's data root
+    (N = 5376), batch 512, one epoch, then --eval_only, in f32 and under
+    --bf16: losses finite, K1 launches = steps and no flash kernel; the
+    median step and the idle share of a profiled step; the dropout-off
+    gradient of one batch (512 rows) on the card against the CPU, from the
+    same initial parameters."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.data.cache import load_cache
+    from ultrafnd_git_tpu_torch.training.trainer_integrated import (
+        IntegratedForensicTrainer,
+        IntegratedTrainConfig,
+    )
+
+    total = {"fwd": 0, "fwd_bf16": 0, "bwd": 0, "bwd_bf16": 0, "adamw": 0}
+    for bf16 in (False, True):
+        phase = "integrated_train" + ("_bf16" if bf16 else "")
+        out = root / f"{phase}_run"
+        argv = ["--trainer", "integrated", "--data_root", str(data_root), "--out_dir", str(out),
+                "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--seed", "0"]
+        argv += ["--bf16"] if bf16 else []
+        step_ms = []
+        train_step = IntegratedForensicTrainer.train_step
+
+        def timed_step(self, idx, mask, thr, _inner=train_step):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            result = _inner(self, idx, mask, thr)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - s))
+            return result
+
+        IntegratedForensicTrainer.train_step = timed_step
+        _reset_counts()  # this path's run only
+        t0 = time.perf_counter()
+        try:
+            results, said = _train_cli(argv)
+        finally:
+            IntegratedForensicTrainer.train_step = train_step
+        launches = _launch_counts()
+        wall_s = time.perf_counter() - t0
+        cache = load_cache(str(out / "feature_cache.npz"))
+        tr = len(cache["split"][0])
+        steps = len(step_ms)
+        expect = {"fwd": 0, "fwd_bf16": 0, "bwd": 0, "bwd_bf16": 0, "adamw": steps}
+        if steps != -(-tr // TRAIN_BATCH) or launches != expect:
+            raise RuntimeError(f"{phase}: launches {launches} over {steps} steps, "
+                               f"expected {expect}")
+        rows = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
+        losses = [r[k] for r in rows for k in ("train_loss", "val_loss")] + [results["test_loss"]]
+        kinds = {json.loads((out / s / "meta.json").read_text())["trainer"]
+                 for s in ("best", "latest")}
+        if not np.isfinite(losses).all() or not all(np.isfinite(v) for v in results.values()) \
+                or "==== Final Results ====" not in said or kinds != {"integrated"}:
+            raise RuntimeError(f"{phase}: losses {losses}, results {results}, slots {kinds}")
+        for k in total:
+            total[k] += launches[k]
+        _reset_counts()
+        _, said = _train_cli(argv + ["--eval_only"])
+        eval_launches = _launch_counts()
+        if "feature cache: reusing" not in said or any(eval_launches.values()):
+            raise RuntimeError(f"{phase} --eval_only: launches {eval_launches}, or the cache "
+                               "was not reused")
+
+        # the dropout-off gradient of one batch, card against CPU, from the
+        # same initial parameters (one seeded draw on the CPU for both)
+        t1 = time.perf_counter()
+        grads, trainers = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg = IntegratedTrainConfig(out_dir=str(root / f"{phase}_grad_{dev}"),
+                                        batch_size=TRAIN_BATCH, epochs=1, seed=0,
+                                        bf16_compute=bf16, cache_to_disk=False)
+            t = trainers[dev] = IntegratedForensicTrainer(cfg, cache=dict(cache), device=dev)
+            idx = torch.from_numpy(np.asarray(t.train_idx[:TRAIN_BATCH], np.int64)).to(t.device)
+            mask = torch.ones(TRAIN_BATCH, device=t.device)
+            grads[dev] = t.grads_of(idx, mask, t.annealed_thresh(0))[1]
+        (rel, leaf), (l2, l2_leaf) = _leaf_gaps(grads["cuda"], grads["cpu"])
+        bounds = (BF16_GRAD_MAX, BF16_GRAD_L2) if bf16 else (GRAD_RTOL, float("inf"))
+        if not (rel <= bounds[0] and l2 <= bounds[1]):
+            raise RuntimeError(f"{phase}: GPU vs CPU gradient {leaf} differs by {rel} of its "
+                               f"max, {l2_leaf} by {l2} in L2 (bounds {bounds})")
+        gpu = trainers["cuda"]
+        chunk = np.asarray(gpu.train_idx[:TRAIN_BATCH], np.int32)
+        ones = np.ones(TRAIN_BATCH, np.float32)
+        median_step = statistics.median(step_ms[1:])
+        device_ms = profile_step(gpu, median_step, phase=phase,
+                                 step=lambda: gpu.train_step(chunk, ones, gpu.annealed_thresh(0)))
+        log(phase, records=N_CORPUS, train_rows=tr, steps=steps,
+            launches=json.dumps(launches, separators=(",", ":")),
+            eval_only_launches=json.dumps(eval_launches, separators=(",", ":")),
+            first_step_ms=step_ms[0], median_step_ms=median_step,
+            samples_per_s=TRAIN_BATCH * 1e3 / median_step, step_device_ms=device_ms,
+            cli_wall_s=wall_s, losses=json.dumps([round(x, 6) for x in losses]),
+            test=json.dumps({k: round(v, 6) for k, v in results.items()}),
+            gpu_vs_cpu_grad_max_rel=rel, worst_leaf=leaf, gpu_vs_cpu_grad_l2_rel=l2,
+            worst_l2_leaf=l2_leaf, bounds=json.dumps(bounds), check_s=time.perf_counter() - t1)
+    return total
+
 
 def main() -> int:
     dev = phase_device()
@@ -2041,6 +2346,9 @@ def main() -> int:
         evidence = phase_evidence_serve(
             str(raw["exported"]), [raw_records(n, rng, f"q{n}") for n in REQUEST_SIZES])
         salt = phase_auto_salt(raw["data_root"], Path(root))
+        artifact = phase_artifact_serve(str(served), requests, serve, Path(root))
+        legacy = phase_legacy_serve(str(served), requests)
+        integrated = phase_integrated_train(raw["data_root"], Path(root))
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -2050,12 +2358,14 @@ def main() -> int:
     ref = "ultrafnd_git_tpu/kernels/"
     tl, bl, sl, rl = train["launches"], bf16["launches"], sparse["launches"], raw["launches"]
 
-    def paths(key, serve_n=0, levers_n=0, explain_n=0, http_n=0, evidence_n=0):
+    def paths(key, serve_n=0, levers_n=0, explain_n=0, http_n=0, evidence_n=0, legacy_n=0):
         by = {"train": tl[key], "bf16_train": bl[key], "serve": serve_n,
               "serve_levers": levers_n, "explain": explain_n, "http": http_n,
               "sparse_train": sl[key], "raw_train": rl[key], "evidence_serve": evidence_n,
               "moe_train": moe["launches"][key], "moe_resume": moe_resume[key],
-              "moe_serve": moe_serve["launches"].get(key, 0), "auto_salt": salt[key]}
+              "moe_serve": moe_serve["launches"].get(key, 0), "auto_salt": salt[key],
+              "artifact_serve": artifact.get(key, 0), "legacy_serve": legacy_n,
+              "integrated_train": integrated[key]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [
@@ -2063,7 +2373,7 @@ def main() -> int:
          "replaces": ref + "adamw.py:114", **paths("adamw"), **k1, "ptxas": ptxas["adamw"]},
         {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
          "replaces": ref + "flash_attention.py:162",
-         **paths("fwd", serve["launches"], levers["fwd"], explain, http, evidence),
+         **paths("fwd", serve["launches"], levers["fwd"], explain, http, evidence, legacy),
          **flash["fwd"],
          "ptxas": ptxas["flash_attention_fwd"]},
         {"name": "flash_attention_fwd_bf16", "route": "cuda",

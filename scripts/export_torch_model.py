@@ -13,6 +13,9 @@ writes into --model_dir:
   * meta.json   — the checkpoint cfg plus the resolved module dims (the
     port reads no YAML);
   * feature_cache.npz — a copy of the corpus cache.
+A checkpoint of the integrated trainer (`--trainer integrated`) is refused
+with the Predictor's ValueError: its GNNModel has the SimpleGCN's
+parameter shapes, and serving one as the other would score wrongly.
 A switch-MoE tower (`--moe_experts`) exports its router and stacked expert
 arrays, and meta.json records its expert count and capacity factor.
 An evidence checkpoint (`--use_evidence`) exports as any other: its cfg
@@ -44,9 +47,14 @@ def export(out_dir: str, model_dir: str, checkpoint: str = "best") -> Path:
         write_model_dir,
     )
 
-    pred = Predictor(out_dir, checkpoint_name=checkpoint)
+    from ultrafnd_git_tpu_torch.serving import check_trainer_kind
+
     with open(Path(out_dir) / checkpoint / "meta.json", encoding="utf-8") as fh:
-        cfg = json.load(fh).get("cfg", {})
+        slot_meta = json.load(fh)
+    # the port's Predictor serves v2 checkpoints only, as the JAX one
+    check_trainer_kind(slot_meta.get("trainer", "v2"))
+    cfg = slot_meta.get("cfg", {})
+    pred = Predictor(out_dir, checkpoint_name=checkpoint)
     params = jax.device_get(pred.params)
     align = jax.device_get(pred._align_params)
     fusion, clf = pred.fusion, pred.clf

@@ -613,3 +613,72 @@ def test_evidence_model_trained_on_gpu_serves_as_on_cpu(cuda, tmp_path):
     for key in ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity"):
         np.testing.assert_allclose([r[key] for r in g_rows], [r[key] for r in c_rows],
                                    atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_forward_op_launches_its_kernel_eager_and_exported(cuda, dtype):
+    """`ufnd::flash_attention_fwd[_bf16]` launches its kernel once per call,
+    called eagerly and from a program frozen by torch.export, with the same
+    bits both ways."""
+    counter = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+
+    class Attn(torch.nn.Module):
+        def forward(self, q, k, v, bias):
+            return fa.flash_attention(q, k, v, bias)
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 6, 64, 128)).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    mask = torch.ones(4, 64, device=cuda)
+    mask[1, 40:] = 0
+    bias = fa.padding_bias(mask, dtype)
+    b = torch.export.Dim("b", min=1)
+    with torch.no_grad():
+        ep = torch.export.export(Attn(), (q, k, v, bias),
+                                 dynamic_shapes=({0: b}, {0: b}, {0: b}, {0: b}), strict=False)
+    with torch.inference_mode():
+        before = getattr(fa, counter)
+        eager = fa.flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert getattr(fa, counter) == before + 1
+        frozen = ep.module()(q[:3], k[:3], v[:3], bias[:3])
+        torch.cuda.synchronize()
+        assert getattr(fa, counter) == before + 2
+    assert torch.equal(frozen, eager[:3])
+
+
+def test_artifact_and_legacy_path_on_gpu_match(cuda, tmp_path):
+    """An artifact exported on the card serves the live GPU rows within
+    1e-6; one exported on the CPU serves on the card within 1e-4 of the CPU
+    Predictor; the legacy path on the card within 1e-5 of the fused rows.
+    The artifact launches K2 once per chunk (depth 1; 20 records in chunks
+    of batch_size 8)."""
+    from ultrafnd_git_tpu_torch.export_serving import ExportedPredictor, export_artifact
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    records = _seeded_model_dir(tmp_path / "m", tokens=True)
+    gpu = Predictor(str(tmp_path / "m"), batch_size=8, device="cuda")
+    cpu = Predictor(str(tmp_path / "m"), batch_size=8, device="cpu")
+    legacy = Predictor(str(tmp_path / "m"), batch_size=8, device="cuda", fused_align=False)
+    try:
+        live, c_rows, l_rows = gpu.predict(records), cpu.predict(records), legacy.predict(records)
+        export_artifact(gpu, str(tmp_path / "a_gpu"), platforms=("cuda",))
+        export_artifact(cpu, str(tmp_path / "a_cpu"))
+    finally:
+        for p in (gpu, cpu, legacy):
+            p.close()
+    keys = ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity")
+    for path, ref, tol in (("a_gpu", live, 1e-6), ("a_cpu", c_rows, 1e-4)):
+        art = ExportedPredictor(str(tmp_path / path), device="cuda")
+        try:
+            before = fa.launches
+            rows = art.predict(records)
+            assert fa.launches == before + 3
+        finally:
+            art.close()
+        for key in keys:
+            np.testing.assert_allclose([r[key] for r in rows], [r[key] for r in ref],
+                                       atol=tol, err_msg=f"{path} {key}")
+    for key in keys:
+        np.testing.assert_allclose([r[key] for r in l_rows], [r[key] for r in live],
+                                   atol=1e-5, err_msg=key)

@@ -154,3 +154,29 @@ def test_int8_quantizes_the_jax_leaves_of_a_moe_ffn_router_included():
     x = torch.randn(2, 4, w)
     y, _ = wrapper["moe"](x)  # the quantized router still routes, in f32
     assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+def test_moe_export_is_refused_as_jax_refuses_it(moe_dirs, tmp_path):
+    """A frozen artifact takes one symbolic batch dimension; the MoE
+    capacity is a Python int of the call's token count (JAX
+    `models/moe.py:59`), so JAX's `export_artifact` fails at that line and
+    the port's `export_artifact` refuses the tower with the same reason."""
+    import traceback
+
+    from ultrafnd_git_tpu.export_serving import export_artifact as jax_export
+    from ultrafnd_git_tpu.serving import Predictor as JaxPredictor
+    from ultrafnd_git_tpu_torch.export_serving import export_artifact
+
+    with pytest.raises(Exception) as err:
+        jax_export(JaxPredictor(moe_dirs[0], batch_size=8), str(tmp_path / "jax"),
+                   platforms=("cpu",))
+    frames = traceback.extract_tb(err.value.__traceback__)
+    assert any(f.filename.endswith("ultrafnd_git_tpu/models/moe.py") and f.lineno == 59
+               for f in frames), [f"{f.filename}:{f.lineno}" for f in frames][-5:]
+    pred = Predictor(moe_dirs[1], batch_size=8, device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="capacity"):
+            export_artifact(pred, str(tmp_path / "port"), platforms=("cpu",))
+    finally:
+        pred.close()
+    assert not (tmp_path / "port").exists()

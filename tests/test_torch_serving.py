@@ -140,10 +140,7 @@ def test_cuda_without_gpu_raises(exported, monkeypatch):
         main(["--model_dir", exported, "--input", str(FIXTURE)])
 
 
-@pytest.mark.parametrize(
-    "kwargs", [{"serve_dp": 2}, {"fused_align": False}],
-    ids=["serve_dp", "two_dispatch"],
-)
+@pytest.mark.parametrize("kwargs", [{"serve_dp": 2}], ids=["serve_dp"])
 def test_unported_options_raise(exported, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(exported, device="cpu", **kwargs)

@@ -1,10 +1,12 @@
-"""Host-only request featurizer: the host half of the cache build.
+"""Request featurizer: the cache build over raw request records.
 
-What the JAX `Predictor.featurize` runs under fused-align serving:
-`build_feature_cache(..., with_align=False)` over raw records, with the
-hash rungs of the encoders and, for an evidence checkpoint, the two host
-evidence columns. Alignment, delay, aux and the evidence delay column are
-computed by the scoring program, not here.
+What the JAX `Predictor.featurize` runs: under fused-align serving
+`build_feature_cache(..., with_align=False)`, the host half, with the hash
+rungs of the encoders and, for an evidence checkpoint, the two host
+evidence columns (alignment, delay, aux and the evidence delay column are
+computed by the scoring program); on the legacy two-dispatch path
+`with_align=True`, the full cache, whose align pass runs on the encoders'
+device.
 """
 from __future__ import annotations
 
@@ -43,15 +45,18 @@ def featurize_records(
     ocr_clean: bool = False,
     with_evidence: bool = False,
     encoders: Optional[Dict[str, Any]] = None,
+    with_align: bool = False,
 ) -> Dict[str, Any]:
     """Raw records (title / ocr / comments) -> the host-only feature dict:
     ids, text (N,768), audio (N,128), visual (N,512), emo (N,), ocr_sets,
     text_ids / text_mask (N,64) when `with_tower_tokens`, and evidence_host
-    (N,2) when `with_evidence`.
+    (N,2) when `with_evidence`. With `with_align`, the full cache instead:
+    "temporal", "aux" and "evidence" in place of "emo" and
+    "evidence_host", from the align MLP `encoders["tsync"]`.
 
     Hashing follows the port's process-wide salt (`ops.hashing.set_hash_salt`):
     the caller sets it first. `encoders` (from `make_encoders`) are built
-    on the CPU when not given; no pass runs on a device here.
+    on the CPU when not given.
     """
     if encoders is None:
         encoders = make_encoders(with_evidence=with_evidence, device="cpu")
@@ -61,5 +66,5 @@ def featurize_records(
         ocr_clean_fallback=ocr_clean,
         with_evidence=with_evidence,
         with_tower_tokens=with_tower_tokens,
-        with_align=False,
+        with_align=with_align,
     )

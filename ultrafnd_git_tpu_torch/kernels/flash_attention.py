@@ -3,7 +3,10 @@
 `flash_attention(q, k, v, bias)` is what the text tower calls: attention
 over (B, H, S, D) with an additive key-padding bias of shape (B, 1, 1, S),
 softmax in f32, differentiable in q, k, v (and bias when it asks for a
-gradient), in f32 or in bf16. It is a `torch.autograd.Function` with
+gradient), in f32 or in bf16. Its forward is a `torch.library` custom op,
+so that `torch.export` can trace a program that holds the tower (the fake
+implementation gives the shapes; the real one launches the kernel), and
+the op's registered gradient is the fused backward:
 
 * forward `flash_attention_fwd(q, k, v, bias) -> (out, lse)`, the
   counterpart of `ultrafnd_git_tpu/kernels/flash_attention.py::
@@ -42,6 +45,15 @@ backward launches (one per backward call, K3 and K4 fused), and nothing
 else, so a run can show that its path went through the kernels and in which
 mode; the CPU path leaves all four unchanged. Under
 `torch.inference_mode()` only K2 runs.
+
+The ops are `ufnd::flash_attention_fwd` and `ufnd::flash_attention_fwd_bf16`,
+(q, k, v, bias) -> (out, lse), registered when this module is imported:
+the CPU implementation is the plain version, the CUDA one the kernel
+launch with its checks and counter, and `torch.library.register_autograd`
+gives both the fused K3 + K4 backward (K3/K4 stay ctypes calls: no
+exported program holds a backward). A program exported with
+`torch.export` calls the op by name, so whoever loads it imports this
+module first.
 """
 from __future__ import annotations
 
@@ -313,6 +325,70 @@ def _default_bias(q: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor
     return torch.zeros((q.shape[0], 1, 1, q.shape[2]), dtype=q.dtype, device=q.device)
 
 
+def _fwd_cuda(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation of `ufnd::flash_attention_fwd`: K2."""
+    _check(q, k, v, bias)
+    out, lse = _launch_fwd(_kernel(), "flash_attention_fwd", q, k, v, bias)
+    global launches
+    launches += 1
+    return out, lse
+
+
+def _fwd_bf16_cuda(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation of `ufnd::flash_attention_fwd_bf16`: K2's bf16 mode."""
+    _check(q, k, v, bias, dtype=torch.bfloat16)
+    out, lse = _launch_fwd(_bf16_kernel(), "flash_attention_fwd_bf16", q, k, v, bias)
+    global bf16_launches
+    bf16_launches += 1
+    return out, lse
+
+
+def _fwd_fake(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shapes and dtypes of both forward ops: out like q, lse (B, H, S) f32."""
+    b, h, s, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def _fwd_setup_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs, *output)
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    """The gradient of both forward ops: the fused K3 + K4 kernel, in its
+    bf16 mode for bf16 q (its plain version on the CPU). lse is an
+    auxiliary output: its gradient is not propagated."""
+    q, k, v, bias, out, lse = ctx.saved_tensors
+    bwd = flash_attention_bwd_bf16 if q.dtype == torch.bfloat16 else flash_attention_bwd
+    return bwd(q, k, v, bias, out, lse, dout.contiguous(), with_dbias=ctx.needs_input_grad[3])
+
+
+def _register_forward_op(name: str, plain, cuda) -> "torch._library.custom_ops.CustomOpDef":
+    """`ufnd::<name>(q, k, v, bias) -> (out, lse)` as a torch.library custom
+    op: `plain` on the CPU, `cuda` on a GPU, a fake implementation for
+    tracing (torch.export), and the fused backward as its gradient."""
+
+    def cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return plain(q, k, v, bias)
+
+    op = torch.library.custom_op(f"ufnd::{name}", cpu, mutates_args=(), device_types="cpu")
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(_fwd_fake)
+    op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)
+    return op
+
+
+fwd_op = _register_forward_op("flash_attention_fwd", reference_attention, _fwd_cuda)
+fwd_bf16_op = _register_forward_op("flash_attention_fwd_bf16", reference_attention_bf16,
+                                   _fwd_bf16_cuda)
+
+
+def _forward(op, q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    return op(q, k, v, _default_bias(q, bias))
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -322,21 +398,13 @@ def flash_attention_fwd(
     """(out (B,H,S,D), lse (B,H,S) f32) of softmax(q k^T / sqrt(D) + bias) v.
 
     q, k, v: (B, H, S, D) float32, D in HEAD_DIMS; bias: (B, 1, 1, S)
-    float32 additive mask (0 / NEG_INF), None for no mask. A CUDA call
-    launches the kernel on the current stream and adds one to `launches`;
-    it raises on a shape, dtype, layout or launch it cannot take. A CPU
-    call returns `reference_attention`.
+    float32 additive mask (0 / NEG_INF), None for no mask. Calls the custom
+    op `ufnd::flash_attention_fwd`: on a CUDA tensor it launches the kernel
+    on the current stream and adds one to `launches`, and raises on a
+    shape, dtype, layout or launch it cannot take; on a CPU tensor it
+    returns `reference_attention`.
     """
-    bias = _default_bias(q, bias)
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
-    _check(q, k, v, bias)
-    out, lse = _launch_fwd(_kernel(), "flash_attention_fwd", q, k, v, bias)
-    global launches
-    launches += 1
-    return out, lse
+    return _forward(fwd_op, q, k, v, bias)
 
 
 def flash_attention_fwd_bf16(
@@ -349,21 +417,13 @@ def flash_attention_fwd_bf16(
 
     q, k, v: (B, H, S, D) bfloat16, D in HEAD_DIMS; bias: (B, 1, 1, S)
     bfloat16 additive mask (`padding_bias(mask, torch.bfloat16)`), None for
-    no mask. A CUDA call launches `csrc/flash_attention_fwd_bf16.cu` on the
-    current stream and adds one to `bf16_launches`; it raises on a shape,
-    dtype, layout or launch it cannot take. A CPU call returns
+    no mask. Calls the custom op `ufnd::flash_attention_fwd_bf16`: on a CUDA
+    tensor it launches `csrc/flash_attention_fwd_bf16.cu` on the current
+    stream and adds one to `bf16_launches`, and raises on a shape, dtype,
+    layout or launch it cannot take; on a CPU tensor it returns
     `reference_attention_bf16`.
     """
-    bias = _default_bias(q, bias)
-    if q.device.type == "cpu":
-        return reference_attention_bf16(q, k, v, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
-    _check(q, k, v, bias, dtype=torch.bfloat16)
-    out, lse = _launch_fwd(_bf16_kernel(), "flash_attention_fwd_bf16", q, k, v, bias)
-    global bf16_launches
-    bf16_launches += 1
-    return out, lse
+    return _forward(fwd_bf16_op, q, k, v, bias)
 
 
 def flash_attention_bwd(
@@ -489,28 +549,6 @@ def flash_attention_bwd_bf16(
     return dq, dk, dv, dbias
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K2 forward and the fused K3 + K4 backward, each in its bf16 mode for
-    bf16 q (their plain versions on the CPU)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, bias):
-        fwd = flash_attention_fwd_bf16 if q.dtype == torch.bfloat16 else flash_attention_fwd
-        out, lse = fwd(q, k, v, bias)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, bias, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_bf16 if q.dtype == torch.bfloat16 else flash_attention_bwd
-        dq, dk, dv, dbias = bwd(
-            q, k, v, bias, out, lse, do.contiguous(),
-            with_dbias=ctx.needs_input_grad[3],
-        )
-        return dq, dk, dv, dbias
-
-
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -519,14 +557,15 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + bias) v, differentiable; (B, H, S, D).
 
-    The entry the text tower calls. On a CUDA tensor, with or without
-    grad, it goes through the autograd Function: the forward launches K2,
-    a backward the fused K3 + K4 kernel, each in its bf16 mode for bf16 q,
-    k, v and bias. On a CPU tensor the same Function runs
-    the plain versions. bias (B, 1, 1, S) gets a gradient only when it
-    requires one (the trainer's mask bias does not).
+    The entry the text tower calls, in serving, in training and inside an
+    exported scoring program alike: the forward op (K2, or its bf16 mode
+    for bf16 q, k, v and bias) on every path, its registered gradient the
+    fused K3 + K4 kernel. On a CPU tensor both run their plain versions.
+    bias (B, 1, 1, S) gets a gradient only when it requires one (the
+    trainer's mask bias does not).
     """
-    return _FlashAttention.apply(q, k, v, _default_bias(q, bias))
+    fwd = flash_attention_fwd_bf16 if q.dtype == torch.bfloat16 else flash_attention_fwd
+    return fwd(q, k, v, bias)[0]
 
 
 def padding_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -23,7 +23,7 @@ from torch import nn
 
 from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
 from ultrafnd_git_tpu_torch.models.layers import Dense
-from ultrafnd_git_tpu_torch.ops.trees import oblivious_forest_logits
+from ultrafnd_git_tpu_torch.ops.trees import leaf_bit_matrix, oblivious_forest_logits
 
 
 class ObliviousTree(nn.Module):
@@ -53,6 +53,9 @@ class NODEEnsemble(nn.Module):
             ObliviousTree(in_dim, depth, num_classes, tau)
             for _ in range(num_trees)
         )
+        # not in the state dict: the routing constant moves with the module
+        self.register_buffer("leaf_bits", torch.from_numpy(leaf_bit_matrix(depth)),
+                             persistent=False)
 
     def forward(
         self, x: torch.Tensor, gen: Optional[torch.Generator] = None
@@ -60,7 +63,7 @@ class NODEEnsemble(nn.Module):
         gates = torch.stack([torch.stack(list(t.gates)) for t in self.trees])
         thresh = torch.stack([torch.cat(list(t.thresh)) for t in self.trees])
         leaf = torch.stack([t.leaf_logits for t in self.trees])
-        per_tree = oblivious_forest_logits(x, gates, thresh, leaf, self.tau)
+        per_tree = oblivious_forest_logits(x, gates, thresh, leaf, self.tau, self.leaf_bits)
         return drop(per_tree, self.dropout, gen).mean(dim=1)  # (B, C)
 
 

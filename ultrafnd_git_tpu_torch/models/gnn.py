@@ -1,4 +1,5 @@
-"""Two-layer GCN (counterpart of `models/gnn.py:29-99`), both graph layouts.
+"""Two-layer GCNs (counterpart of `models/gnn.py:29-120`): the v2 trainer's
+`SimpleGCN` in both graph layouts, and the integrated trainer's `GNNModel`.
 
 Serving never runs the full-graph forward: the corpus side is precomputed
 (`ax = a_norm @ xg` on the host, `h_corpus = gelu(lin1(ax))` once per
@@ -39,6 +40,36 @@ def normalize_adjacency(adj: np.ndarray) -> np.ndarray:
     deg = a_hat.sum(axis=-1) + np.float32(1e-9)
     d = deg ** np.float32(-0.5)
     return a_hat * d[:, None] * d[None, :]
+
+
+def normalize_adjacency_tensor(adj: torch.Tensor) -> torch.Tensor:
+    """`normalize_adjacency` on a (B, B) tensor on its device, for graphs
+    built in the step (the integrated trainer's weighted sub-graphs)."""
+    a_hat = adj + torch.eye(adj.shape[0], dtype=adj.dtype, device=adj.device)
+    d = (a_hat.sum(dim=-1) + 1e-9) ** -0.5
+    return a_hat * d[:, None] * d[None, :]
+
+
+class GNNModel(nn.Module):
+    """The ReLU two-layer GCN of the integrated trainer (JAX
+    `models/gnn.py:102-120`): lin2(a @ dropout(relu(a @ lin1(x)))) on the
+    normalised adjacency a of `adj` (normalize=True) or on `adj` itself.
+    Its parameters have the layout and, at the default gnn_dim, the shapes
+    of `SimpleGCN`'s; the function differs (lin1 before the propagation,
+    ReLU), so a checkpoint of one must not be served as the other."""
+
+    def __init__(self, in_dim: int = 416, hid: int = 256, out_dim: int = 128,
+                 dropout: float = 0.2):
+        super().__init__()
+        self.dropout = dropout
+        self.lin1 = nn.Linear(in_dim, hid)
+        self.lin2 = nn.Linear(hid, out_dim)
+
+    def forward(self, x: torch.Tensor, adj: torch.Tensor,
+                gen: Optional[torch.Generator] = None, normalize: bool = True) -> torch.Tensor:
+        a = normalize_adjacency_tensor(adj) if normalize else adj
+        h = drop(F.relu(a @ self.lin1(x)), self.dropout, gen)
+        return self.lin2(a @ h)
 
 
 class SimpleGCN(nn.Module):

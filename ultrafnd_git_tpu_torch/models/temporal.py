@@ -77,6 +77,16 @@ class TemporalSyncNet:
         self.device = torch.device(device)
         self.module.to(self.device).eval()
 
+    @classmethod
+    def around(cls, module: TemporalAlignMLP) -> "TemporalSyncNet":
+        """A TemporalSyncNet that applies `module` itself (no draw), on the
+        device its weights lie on."""
+        net = cls.__new__(cls)
+        net.in_dim, net.out_dim = module.in_dim, module.proj_out.out_features
+        net.module = module
+        net.device = module.proj_out.weight.device
+        return net
+
     def _apply(self, t: np.ndarray, v: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             out = self.module(torch.as_tensor(t, dtype=torch.float32).to(self.device),

@@ -207,7 +207,7 @@ class TextTransformer(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self.ln_embed(x + self.pos_embed[:, : ids.shape[1]].to(x.dtype))
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = None  # the Switch aux, summed over MoE blocks
         for block in self.blocks:
             drops = block.draw_masks(x, gen)
             if self.remat and torch.is_grad_enabled():
@@ -216,7 +216,7 @@ class TextTransformer(nn.Module):
                 out = block.body(x, mask, *drops)
             if self.moe_experts > 0:
                 x, aux = out
-                aux_total = aux_total + aux
+                aux_total = aux if aux_total is None else aux_total + aux
             else:
                 x = out
         x = self.ln_final(x)
@@ -224,5 +224,7 @@ class TextTransformer(nn.Module):
         pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
         pooled = pooled / (pooled.norm(dim=-1, keepdim=True) + 1e-9)
         if return_aux:
-            return pooled, aux_total / float(max(1, len(self.blocks)))
+            if aux_total is None:
+                return pooled, pooled.new_zeros((), dtype=torch.float32)
+            return pooled, aux_total / float(len(self.blocks))
         return pooled

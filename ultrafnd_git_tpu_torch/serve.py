@@ -1,29 +1,39 @@
-"""Serve an exported model directory over HTTP (counterpart of scripts/serve.py).
+"""Serve a model directory or a frozen artifact over HTTP (counterpart of scripts/serve.py).
 
     python -m ultrafnd_git_tpu_torch.serve --model_dir D [--port 8080] \
         [--bf16] [--quantize] [--device cuda|cpu]
+    python -m ultrafnd_git_tpu_torch.serve --artifact A [--port 8080] [--device cuda|cpu]
     curl -s localhost:8080/healthz
     curl -s -X POST localhost:8080/predict \
         -d '{"records": [{"video_id": "x", "title": "...", "ocr": "...", "comments": []}]}'
     curl -s -X POST localhost:8080/explain -d '{"records": [...], "method": "shap"}'
 
 `--model_dir` is a model directory from `scripts/export_torch_model.py` or
-`python -m ultrafnd_git_tpu_torch.train --export_model_dir`. The flags are
-scripts/serve.py's but for `--artifact` (no AOT artifacts in the port),
-`--serve_dp` (multi-device dispatch is not ported) and `--checkpoint` (a
-model directory holds one set of weights); `--device` takes the place of
-`--cpu`. The device defaults to cuda and raises when there is no GPU.
+`python -m ultrafnd_git_tpu_torch.train --export_model_dir`; `--artifact`
+a frozen artifact from `python -m ultrafnd_git_tpu_torch.export_serving`
+(pass exactly one; an artifact's `--bf16` and `--quantize` were fixed at
+export, and /explain answers 500 for it). The flags are scripts/serve.py's
+but for `--serve_dp` (multi-device dispatch is not ported) and
+`--checkpoint` (a model directory holds one set of weights); `--device`
+takes the place of `--cpu`. The device defaults to cuda and raises when
+there is no GPU.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from ultrafnd_git_tpu_torch.predict import check_source_args, make_predictor
+
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="ultrafnd_git_tpu_torch — HTTP serving")
-    ap.add_argument("--model_dir", required=True,
+    ap.add_argument("--model_dir", default=None,
                     help="exported model dir (scripts/export_torch_model.py)")
+    ap.add_argument("--artifact", default=None,
+                    help="frozen serving artifact dir (python -m "
+                         "ultrafnd_git_tpu_torch.export_serving); mutually exclusive "
+                         "with --model_dir")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--batch_size", type=int, default=64)
@@ -48,16 +58,16 @@ def parse_args(argv=None):
     ap.add_argument("--warmup", type=int, default=64, metavar="N",
                     help="run the bucket ladder up to N records before opening the "
                          "socket (builds the kernels; 0 disables)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    check_source_args(ap, args)
+    return args
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    from ultrafnd_git_tpu_torch.serving import Predictor
     from ultrafnd_git_tpu_torch.server import make_server
 
-    predictor = Predictor(args.model_dir, batch_size=args.batch_size, device=args.device,
-                          bf16=args.bf16, quantize=args.quantize)
+    predictor = make_predictor(args)
     if args.warmup > 0:
         t0 = time.perf_counter()
         n_buckets = predictor.warmup(args.warmup)
@@ -73,7 +83,7 @@ def main(argv=None) -> None:
         gap_ms=args.gap_ms,
     )
     host, port = server.server_address[:2]
-    print(f"serving {args.model_dir} on http://{host}:{port} "
+    print(f"serving {args.artifact or args.model_dir} on http://{host}:{port} "
           "(POST /predict, POST /explain, GET /healthz, GET /stats)", flush=True)
     try:
         server.serve_forever()

@@ -49,9 +49,23 @@ rows, by repeating the last row (padding rows are routed, as in JAX). The
 capacity couples the rows of a chunk: where it drops a token, a record's
 score depends on the records it is batched with, in JAX as here.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md):
-multi-device dispatch (`serve_dp`) and the legacy two-dispatch path
-(`fused_align=False`).
+The device half of a chunk is one `ScoringProgram`, an `nn.Module` whose
+forward takes tensors only: the Predictor featurizes, builds the new-node
+rows, pads to the bucket and copies the results back once; the program
+runs under `torch.inference_mode`. `export_serving.export_artifact`
+freezes the same module with `torch.export` into an artifact directory
+that `export_serving.ExportedPredictor` serves without a model directory.
+
+`fused_align=False` is the JAX Predictor's legacy two-dispatch path:
+featurize builds the full cache (`build_feature_cache(with_align=True)`),
+its align pass on the Predictor's device with the module the fused
+program runs, and the legacy program takes the cache's temporal, aux and
+evidence. Whatever the default, a cache that carries "temporal" (a
+persisted trainer cache, a legacy featurize) takes the legacy program and
+a host-only one the fused program, as in JAX (`serving.py:566-576`).
+
+Not ported yet (raises NotImplementedError; see ROADMAP.md): multi-device
+dispatch (`serve_dp`).
 """
 from __future__ import annotations
 
@@ -64,18 +78,24 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ultrafnd_git_tpu_torch.data.cache import load_cache, make_encoders
 from ultrafnd_git_tpu_torch.data.featurize import featurize_records
 from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
 from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
 from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN, gather_sum
-from ultrafnd_git_tpu_torch.models.temporal import TemporalAlignMLP, _pad_or_trunc
+from ultrafnd_git_tpu_torch.models.temporal import (
+    TemporalAlignMLP,
+    TemporalSyncNet,
+    _pad_or_trunc,
+)
 from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
 from ultrafnd_git_tpu_torch.ops.graphctx import (
     SLICES,
     build_graph_context,
     build_sparse_graph_context,
+    compact_node_features,
 )
 from ultrafnd_git_tpu_torch.ops.hashing import set_hash_salt
 from ultrafnd_git_tpu_torch.ops.quant import quantize_modules
@@ -90,6 +110,25 @@ def _todo(what: str) -> NotImplementedError:
         f"{what} is not ported to ultrafnd_git_tpu_torch yet (see the "
         "port's module list in ROADMAP.md); serve it with ultrafnd_git_tpu"
     )
+
+
+def contract_keys(fused: bool, use_evidence: bool) -> List[str]:
+    """The featurize() keys a scoring program of this contract reads (the
+    host-only cache of the fused path, or the full cache of the legacy
+    one), sorted."""
+    if fused:
+        return sorted(["audio", "emo", "text", "visual"] + ["evidence_host"] * use_evidence)
+    return sorted(["audio", "aux", "temporal", "text", "visual"] + ["evidence"] * use_evidence)
+
+
+def check_trainer_kind(kind: str) -> None:
+    """Raise unless `kind` (a checkpoint meta's "trainer") is the v2
+    trainer's, as the JAX Predictor does: the integrated trainer's GNNModel
+    and the v2 SimpleGCN have the same parameter shapes at the default
+    gnn_dim, so serving one as the other would give wrong scores silently."""
+    if kind != "v2":
+        raise ValueError(f"checkpoint was written by the '{kind}' trainer; "
+                         "Predictor serves v2 checkpoints only")
 
 
 def build_modules(
@@ -162,8 +201,115 @@ def write_seeded_model_dir(
     return root
 
 
+class ScoringProgram(nn.Module):
+    """The device half of one request chunk: a dict of tensors in, tensors out.
+
+    One module serves the live Predictor and the frozen artifact
+    (`export_serving.py` runs it through `torch.export`), so both score
+    with the same code. Every input carries the batch on its dim 0; the
+    weights and the corpus context (`XG`, `H_CORPUS`) are its parameters
+    and buffers. `forward` creates no tensor of its own, so the exported
+    program runs on whichever device its weights are moved to.
+
+    Two contracts, as the JAX Predictor's two scoring programs:
+    * fused (`fused=True`, JAX `_make_score_fused`): the host-only
+      features "text", "audio", "visual", "emo" and, for an evidence
+      checkpoint, "evidence_host"; the program runs the align MLP (one
+      2B-row pass), the delay, aux and the evidence delay column itself;
+    * legacy (`fused=False`, JAX `_make_score(fused=False)`): a full
+      feature cache's "audio", "visual", "temporal", "aux", "xg_new" (the
+      compact node features, built on the host), "text" without a tower
+      and "evidence" for an evidence checkpoint; the align pass ran in
+      featurize.
+    Both take "text_ids" / "text_mask" for a tower checkpoint and, with a
+    GCN, "self_w" and the new nodes' links: "a_rows" (B, N) dense, or
+    "link_idx" / "link_w" (B, K) with `sparse=True`. Returns (probs (B, 2),
+    forensic (3, B) in FORENSIC_KEYS order, fused (B, hidden), aux (B, 2)).
+    `forward` is `score` after `features`; the live Predictor calls the two
+    stages itself, so that the host builds the new-node rows while the
+    card runs stage one (the align pass and the tower).
+    """
+
+    def __init__(self, modules: Mapping[str, nn.Module], fused: bool, use_evidence: bool,
+                 sparse: bool = False, xg: Optional[torch.Tensor] = None,
+                 h_corpus: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.fused, self.use_evidence, self.sparse = bool(fused), bool(use_evidence), bool(sparse)
+        if self.fused:
+            self.align = modules["align"]
+        self.fusion = modules["fusion"]
+        self.clf = modules["clf"]
+        self.gnn = modules.get("gnn")
+        self.text_tower = modules.get("text_tower")
+        if self.gnn is not None:
+            self.register_buffer("XG", xg)
+            self.register_buffer("H_CORPUS", h_corpus)
+
+    def features(self, x: Dict[str, torch.Tensor]):
+        """Stage one, everything before the graph extension: (the fusion's
+        inputs but the GCN's, aux, the new nodes' compact features or None)."""
+        if self.fused:
+            t_raw, visual = x["text"], x["visual"]
+            b = t_raw.shape[0]
+            # align(T, V) and align(T, T) as one 2B-row pass
+            both = self.align(torch.cat([t_raw, t_raw]),
+                              torch.cat([_pad_or_trunc(visual, t_raw.shape[1]), t_raw]))
+            temporal, u_tt = both[:b], both[b:]
+            an = u_tt.norm(dim=-1) + 1e-9
+            bn = temporal.norm(dim=-1) + 1e-9
+            delay = (1.0 - (u_tt * temporal).sum(dim=-1) / (an * bn)).clamp(0.0, 1.0)
+            aux = torch.stack([delay, x["emo"]], dim=1)
+        else:
+            temporal, aux = x["temporal"], x["aux"]
+        model_in = {
+            "audio_features": x["audio"],
+            "visual_features": x["visual"],
+            "temporal_features": temporal,
+            "text_features": (self.text_tower(x["text_ids"], x["text_mask"])
+                              if self.text_tower is not None else x["text"]),
+        }
+        if self.use_evidence:
+            # fused: [semantic gap, emotion intensity] from the host, the delay here
+            model_in["evidence"] = (torch.cat([x["evidence_host"], delay[:, None]], dim=1)
+                                    if self.fused else x["evidence"])
+        xg_new = None
+        if self.gnn is not None:
+            if self.fused:
+                by_key = {"text": x["text"], "audio": x["audio"], "visual": x["visual"],
+                          "temporal": temporal}
+                xg_new = torch.cat([by_key[k][:, :w] for k, w in SLICES], dim=1)
+                xg_new = xg_new / (xg_new.norm(dim=1, keepdim=True) + 1e-9)
+            else:
+                xg_new = x["xg_new"]
+        return model_in, aux, xg_new
+
+    def score(self, model_in: Dict[str, torch.Tensor], aux: torch.Tensor,
+              xg_new: Optional[torch.Tensor], x: Dict[str, torch.Tensor]):
+        """Stage two, the graph extension (from the new nodes' links in `x`),
+        fusion and classifier."""
+        if self.gnn is not None:
+            if self.sparse:
+                gnn_feat = self.gnn.extend_sparse(
+                    x["link_idx"], x["link_w"], x["self_w"], xg_new, self.XG, self.H_CORPUS)
+            else:
+                gnn_feat = self.gnn.extend(x["a_rows"], x["self_w"], xg_new, self.XG,
+                                           self.H_CORPUS)
+            model_in = {**model_in, "gnn_feat": gnn_feat}
+        fo = self.fusion(model_in)
+        probs = self.clf(fo["fused"], aux)["probs"]
+        forensic = torch.stack([fo["forensic"][k] for k in FORENSIC_KEYS])
+        return probs, forensic, fo["fused"], aux
+
+    def forward(self, x: Dict[str, torch.Tensor]):
+        return self.score(*self.features(x), x)
+
+
 class Predictor:
     """Loads an exported model directory and scores FakeSV-style records."""
+
+    # the scoring program exists at one batch shape (see export_serving):
+    # _pipeline then never chunks past batch_size
+    _fixed_shape_dispatch = False
 
     def __init__(
         self,
@@ -176,18 +322,16 @@ class Predictor:
         serve_dp: Optional[int] = None,
         sparse_graph: Optional[bool] = None,
     ):
-        for what, on in (
-            ("the legacy two-dispatch path (fused_align=False)", not fused_align),
-            ("multi-device dispatch (serve_dp)", serve_dp not in (None, 1)),
-        ):
-            if on:
-                raise _todo(what)
+        if serve_dp not in (None, 1):
+            raise _todo("multi-device dispatch (serve_dp)")
         self.device = resolve_device(device)
         self.model_dir = Path(model_dir)
         self.batch_size = max(1, int(batch_size))
         self.bf16, self.quantize = bool(bf16), bool(quantize)
+        self.fused_align = bool(fused_align)
         with open(self.model_dir / "meta.json", "r", encoding="utf-8") as fh:
             self.meta = json.load(fh)
+        check_trainer_kind(self.meta.get("trainer", "v2"))
         cfg = self.meta["cfg"]
         self.use_evidence = bool(cfg.get("use_evidence", False))
         self.use_gnn = bool(self.meta["fusion"]["use_gnn"])
@@ -235,6 +379,10 @@ class Predictor:
         self.clf = self.score_modules["clf"]
         self.gnn = self.score_modules.get("gnn")
         self.text_tower = self.score_modules.get("text_tower")
+        if not self.fused_align:
+            # the legacy featurize runs the align pass on this device, with
+            # the module the fused program runs (one set of align weights)
+            self._encoders["tsync"] = TemporalSyncNet.around(self.align)
 
         if self.use_gnn:
             # corpus context once: the graph and layer-1 activations are
@@ -271,6 +419,23 @@ class Predictor:
             )
         self._pool: Optional[ThreadPoolExecutor] = None
         self._explain_bg: Optional[np.ndarray] = None
+        self._programs: Dict[bool, ScoringProgram] = {}
+
+    def scoring_program(self, fused: bool, sparse: Optional[bool] = None) -> ScoringProgram:
+        """A `ScoringProgram` over this Predictor's scoring modules and corpus
+        context; `sparse` defaults to the Predictor's graph layout."""
+        return ScoringProgram(
+            self.score_modules, fused=fused, use_evidence=self.use_evidence,
+            sparse=self.sparse_graph if sparse is None else sparse,
+            xg=getattr(self, "XG", None), h_corpus=getattr(self, "H_CORPUS", None)).eval()
+
+    def _program(self, fused: bool):
+        """The program for a featurize contract: the Predictor's own one, or
+        the other built at first use (a full cache handed to
+        predict_featurized on a fused Predictor, or the reverse)."""
+        if fused not in self._programs:
+            self._programs[fused] = self.scoring_program(fused)
+        return self._programs[fused]
 
     # ------------------------------------------------------------------
     def _new_node_links(self, ocr_sets: Sequence[set]) -> List[np.ndarray]:
@@ -321,9 +486,10 @@ class Predictor:
     def featurize(
         self, records: Sequence[Dict[str, Any]], id_offset: int = 0
     ) -> Dict[str, Any]:
-        """Host-only features of `records`, padded with empty records to a
-        power-of-two bucket of at least 8 (rows past len(records) are
-        never scored)."""
+        """Features of `records`, padded with empty records to a power-of-two
+        bucket of at least 8 (rows past len(records) are never scored):
+        host-only on the fused path; with fused_align=False the full cache,
+        its align pass on the Predictor's device."""
         set_hash_salt(self._hash_salt)  # process-wide state, see __init__
         records = list(records)
         bucket = 8
@@ -338,6 +504,7 @@ class Predictor:
             ocr_clean=self._ocr_clean,
             with_evidence=self.use_evidence,
             encoders=self._encoders,
+            with_align=not self.fused_align,
         )
 
     # ------------------------------------------------------------------
@@ -365,10 +532,7 @@ class Predictor:
             return [], None, None
         records = list(records)
         n = len(records)
-        max_rows = self.batch_size
-        if self.device.type != "cpu":
-            while max_rows * 2 <= MAX_CHUNK_ROWS:
-                max_rows *= 2
+        max_rows = self._max_chunk_rows()
         bounds = [(s, min(s + max_rows, n)) for s in range(0, n, max_rows)]
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
@@ -392,6 +556,15 @@ class Predictor:
             return rows, np.concatenate(fused_parts), np.concatenate(aux_parts)
         return rows, None, None
 
+    def _max_chunk_rows(self) -> int:
+        """Rows of one dispatch chunk: batch_size on the CPU and for a
+        program of one batch shape, else batch_size * 2^k <= MAX_CHUNK_ROWS."""
+        rows = self.batch_size
+        if self.device.type != "cpu" and not self._fixed_shape_dispatch:
+            while rows * 2 <= MAX_CHUNK_ROWS:
+                rows *= 2
+        return rows
+
     def warmup(self, max_records: int = 64) -> int:
         """Run predict() once per bucket size up to the first power of two
         >= max_records (builds the kernel and warms the allocator before
@@ -410,79 +583,85 @@ class Predictor:
             self._pool = None
 
     # ------------------------------------------------------------------
-    def _score_chunk(self, feats: Dict[str, Any], count: int, collect_fused: bool = False):
-        """Score the first `count` rows of one featurized chunk in one pass;
-        with collect_fused, (rows, fused (count, H), aux (count, 2)) numpy."""
+    def _bucket_take(self, count: int):
+        """take(arr, dtype): the first `count` rows of a host array on the
+        device, padded by repeating the last row to the bucket
+        batch_size * 2^k >= count."""
         bucket = self.batch_size
         while bucket < count:
             bucket *= 2
         pad = bucket - count
 
-        def take(arr: np.ndarray, dtype=torch.float32) -> torch.Tensor:
+        def take(arr, dtype=torch.float32) -> torch.Tensor:
             arr = np.asarray(arr[:count])
-            if pad:  # pad the bucket by repeating the last row
+            if pad:
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
             return torch.from_numpy(arr).to(self.device, dtype)
 
+        return take
+
+    def _feature_inputs(self, feats: Dict[str, Any], count: int, fused: bool,
+                        take) -> Dict[str, torch.Tensor]:
+        """The program's inputs but the new nodes' links (the legacy
+        contract's compact node features are built here, on the host)."""
+        x = {k: take(feats[k]) for k in contract_keys(fused, self.use_evidence)}
+        if self.text_tower is not None:
+            x["text_ids"] = take(feats["text_ids"], torch.int64)
+            x["text_mask"] = take(feats["text_mask"])
+            if not fused:
+                del x["text"]  # the tower computes the text features
+        if self.use_gnn and not fused:
+            x["xg_new"] = take(compact_node_features(
+                {k: feats[k][:count] for k in ("text", "audio", "visual", "temporal")}))
+        return x
+
+    def _graph_inputs(self, feats: Dict[str, Any], count: int, sparse: bool,
+                      take) -> Dict[str, torch.Tensor]:
+        """The new nodes' links to the corpus: (B, N) rows, or (B, K) lists
+        with `sparse`, and their self weights; {} without a GCN."""
+        if not self.use_gnn:
+            return {}
+        ocr_sets = feats["ocr_sets"][:count]
+        if sparse:
+            idx, w, self_w = self._new_node_lists(ocr_sets)
+            return {"link_idx": take(idx, torch.int64), "link_w": take(w), "self_w": take(self_w)}
+        a_rows, self_w = self._new_node_rows(ocr_sets)
+        return {"a_rows": take(a_rows), "self_w": take(self_w)}
+
+    def program_inputs(self, feats: Dict[str, Any], count: int, fused: bool,
+                       sparse: bool) -> Dict[str, torch.Tensor]:
+        """Every input of the scoring program for the first `count` rows of
+        a featurize() output, on the device and padded to the bucket."""
+        take = self._bucket_take(count)
+        return {**self._feature_inputs(feats, count, fused, take),
+                **self._graph_inputs(feats, count, sparse, take)}
+
+    def _run_program(self, feats: Dict[str, Any], count: int, fused: bool):
+        """The program's outputs for one chunk. Its two stages are queued
+        apart: the host builds the new-node rows while the card runs the
+        first, whose inputs are all uploaded before (a pageable copy queued
+        behind the tower would wait for it)."""
+        program = self._program(fused)
+        take = self._bucket_take(count)
+        x = self._feature_inputs(feats, count, fused, take)
+        stage = program.features(x)
+        x.update(self._graph_inputs(feats, count, self.sparse_graph, take))
+        return program.score(*stage, x)
+
+    def _score_chunk(self, feats: Dict[str, Any], count: int, collect_fused: bool = False):
+        """Score the first `count` rows of one featurized chunk in one pass;
+        with collect_fused, (rows, fused (count, H), aux (count, 2)) numpy.
+        A cache that carries "temporal" (a full feature cache: the legacy
+        featurize, or a persisted trainer cache) takes the legacy program,
+        a host-only one the fused program, whichever this Predictor's
+        default."""
         with torch.inference_mode():
-            t_raw = take(feats["text"])
-            audio = take(feats["audio"])
-            visual = take(feats["visual"])
-            emo = take(feats["emo"])
-            # uploaded before any device work is queued: a pageable copy
-            # waits for the stream, and one behind the tower would hold
-            # the host's new-node rows back until the tower has run
-            ev_host = take(feats["evidence_host"]) if self.use_evidence else None
-            b = t_raw.shape[0]
-            # align(T, V) and align(T, T) as one 2B-row pass
-            both = self.align(
-                torch.cat([t_raw, t_raw]),
-                torch.cat([_pad_or_trunc(visual, t_raw.shape[1]), t_raw]),
-            )
-            u, u_tt = both[:b], both[b:]
-            an = u_tt.norm(dim=-1) + 1e-9
-            bn = u.norm(dim=-1) + 1e-9
-            delay = (1.0 - (u_tt * u).sum(dim=-1) / (an * bn)).clamp(0.0, 1.0)
-            aux = torch.stack([delay, emo], dim=1)
-            model_in = {
-                "audio_features": audio,
-                "visual_features": visual,
-                "temporal_features": u,
-                "text_features": (
-                    self.text_tower(
-                        take(feats["text_ids"], torch.int64),
-                        take(feats["text_mask"]),
-                    )
-                    if self.text_tower is not None
-                    else t_raw
-                ),
-            }
-            if self.use_evidence:
-                # [semantic gap, emotion intensity] from the host, the delay here
-                model_in["evidence"] = torch.cat([ev_host, delay[:, None]], dim=1)
-            if self.use_gnn:
-                by_key = {"text": t_raw, "audio": audio, "visual": visual, "temporal": u}
-                xg_new = torch.cat([by_key[k][:, :w] for k, w in SLICES], dim=1)
-                xg_new = xg_new / (xg_new.norm(dim=1, keepdim=True) + 1e-9)
-                ocr_sets = feats["ocr_sets"][:count]
-                if self.sparse_graph:
-                    idx, w, self_w = self._new_node_lists(ocr_sets)
-                    model_in["gnn_feat"] = self.gnn.extend_sparse(
-                        take(idx, torch.int64), take(w), take(self_w), xg_new, self.XG,
-                        self.H_CORPUS)
-                else:
-                    a_rows, self_w = self._new_node_rows(ocr_sets)
-                    model_in["gnn_feat"] = self.gnn.extend(
-                        take(a_rows), take(self_w), xg_new, self.XG, self.H_CORPUS
-                    )
-            fo = self.fusion(model_in)
-            probs = self.clf(fo["fused"], aux)["probs"]
+            probs, forensic, fused_rows, aux = self._run_program(
+                feats, count, "temporal" not in feats)
             # one device -> host copy for everything the rows need
-            host = torch.stack(
-                [probs[:, 1]] + [fo["forensic"][k] for k in FORENSIC_KEYS]
-            )[:, :count].cpu().numpy()
+            host = torch.cat([probs[None, :, 1], forensic])[:, :count].cpu().numpy()
             if collect_fused:
-                fused_np = fo["fused"][:count].cpu().numpy()
+                fused_np = fused_rows[:count].cpu().numpy()
                 aux_np = aux[:count].cpu().numpy()
         rows = [
             {

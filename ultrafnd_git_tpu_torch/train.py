@@ -1,11 +1,11 @@
-"""Train and test the v2 model with the port (counterpart of run_train_eval.py).
+"""Train and test with the port (counterpart of run_train_eval.py).
 
     python -m ultrafnd_git_tpu_torch.train --data_root R --out_dir O \
         [--use_evidence] [--ocr_phrase_pkl P] [--epochs 12] [--batch_size 16] \
         [--train_text_tower [--moe_experts E] [--remat_tower]] [--fused_adamw] \
         [--sparse_graph] [--bf16] [--hash_salt S | --auto_salt a,b] [--resume] \
         [--save_every_steps K] [--profile_dir P] [--debug_nans] [--model_dir D] \
-        [--device cuda|cpu] [--export_model_dir M]
+        [--trainer v2|integrated] [--device cuda|cpu] [--export_model_dir M]
 
 The run's feature cache is out_dir's own when it has a usable one, else
 that of `--model_dir` (a model directory from
@@ -19,6 +19,13 @@ CPU. `--auto_salt` trains one run per candidate salt from `--data_root`
 (`training/salt_search.py`), adopts the winner's artifacts into out_dir and
 tests its best slot. Prints the `==== Final Results ====` block of
 run_train_eval.py.
+
+`--trainer integrated` trains the integrated variant instead
+(`training/trainer_integrated.py`: per-batch annealed OCR-Jaccard graphs,
+GNNModel, label smoothing, cosine LR) from the same cache ladder and the
+flags run_train_eval.py passes it; the flags of its list that apply to the
+v2 trainer only are ignored with its warning. Its checkpoints cannot be
+served, so it refuses `--export_model_dir`.
 """
 from __future__ import annotations
 
@@ -121,10 +128,68 @@ def parse_args(argv=None):
                         "a step)")
     p.add_argument("--eval_only", action="store_true",
                    help="Skip training; load best and test")
+    p.add_argument("--trainer", choices=("v2", "integrated"), default="v2",
+                   help="v2 = canonical cache trainer (transductive GCN); "
+                        "integrated = per-batch annealed OCR-Jaccard graphs, "
+                        "GNNModel, label smoothing, cosine LR")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--export_model_dir", default=None,
                    help="write the best slot here as a servable model dir")
     return p.parse_args(argv)
+
+
+# run_train_eval.py's list of flags the integrated trainer ignores, those of
+# them this CLI has (it has no mesh flags)
+V2_ONLY = (
+    ("--train_text_tower", lambda a: a.train_text_tower),
+    ("--sparse_graph", lambda a: a.sparse_graph),
+    ("--freeze_gnn", lambda a: a.freeze_gnn),
+    ("--select_metric", lambda a: a.select_metric != "auc"),
+    ("--auto_salt", lambda a: bool(a.auto_salt)),
+    ("--grad_accum", lambda a: a.grad_accum > 1),
+    ("--moe_experts", lambda a: a.moe_experts > 0),
+)
+
+
+def main_integrated(args, data_root: Path, ocr_pkl: Path, out_dir: Path) -> dict:
+    """The `--trainer integrated` branch of run_train_eval.py."""
+    from ultrafnd_git_tpu_torch.training.trainer_integrated import (
+        IntegratedForensicTrainer,
+        IntegratedTrainConfig,
+    )
+
+    if args.export_model_dir:
+        raise SystemExit("--export_model_dir: a checkpoint of the integrated trainer "
+                         "cannot be served (serving.Predictor takes v2 checkpoints only)")
+    ignored = [flag for flag, on in V2_ONLY if on(args)]
+    if ignored:
+        print(f"⚠️  {' '.join(ignored)} apply to the v2 trainer only; "
+              "the integrated trainer ignores them")
+    icfg = IntegratedTrainConfig(
+        data_root=str(data_root),
+        ocr_phrase_pkl=str(ocr_pkl) if ocr_pkl.exists() else None,
+        out_dir=str(out_dir),
+        model_dir=args.model_dir,
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        lr=args.lr,
+        weight_decay=args.weight_decay,
+        gnn_dim=args.gnn_dim,
+        gnn_overlap_thresh=args.gnn_overlap_thresh,
+        seed=args.seed,
+        use_gnn=not args.no_gnn,
+        use_evidence=args.use_evidence,
+        profile_dir=args.profile_dir,
+        bf16_compute=args.bf16,
+        resume=args.resume,
+        hash_salt=args.hash_salt,
+    )
+    trainer = IntegratedForensicTrainer(icfg, device=args.device)
+    results = trainer.test() if args.eval_only else trainer.train()
+    print("\n==== Final Results ====")
+    for k, v in results.items():
+        print(f"{k.replace('test_', 'Test ').title()}: {v:.4f}")
+    return results
 
 
 def main(argv=None) -> dict:
@@ -135,6 +200,17 @@ def main(argv=None) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     data_root = Path(args.data_root).expanduser()
     ocr_pkl = Path(args.ocr_phrase_pkl).expanduser()
+    if args.trainer == "integrated":
+        print("==== ultrafnd_git_tpu_torch integrated ====")
+        print(f"Device:          {args.device}")
+        print(f"Data root:       {data_root}")
+        print(f"Output dir:      {out_dir}")
+        print(f"Epochs:          {args.epochs}")
+        print(f"Batch size:      {args.batch_size}")
+        print(f"Use GNN:         {not args.no_gnn}")
+        print(f"GNN overlap thr: {args.gnn_overlap_thresh}")
+        print("=============================")
+        return main_integrated(args, data_root, ocr_pkl, out_dir)
     cfg = TrainConfig(
         data_root=str(data_root),
         ocr_phrase_pkl=str(ocr_pkl) if ocr_pkl.exists() else None,

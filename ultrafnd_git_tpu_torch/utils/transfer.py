@@ -100,6 +100,12 @@ def gcn_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
     return out
 
 
+def gnn_model_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
+    """The integrated trainer's GNNModel params -> the port's `GNNModel`
+    state dict: the same `torch_dense` lin1 / lin2 layout as SimpleGCN's."""
+    return gcn_state_dict_from_params(params)
+
+
 def tower_state_dict(params: Mapping[str, Any]) -> StateDict:
     """Flax `TextTransformer` params -> port `TextTransformer` state dict,
     dense or MoE blocks (`block{i}/moe/{router,w_in,b_in,w_out,b_out}`; the
@@ -212,11 +218,16 @@ def export_trained(
     trainer's cache ladder); a run without one (an injected cache) takes it
     with its dims from the model directory `align_from`.
     Writes weights.pt, meta.json and feature_cache.npz into `model_dir`.
+    A slot of the integrated trainer raises ValueError, as the Predictor
+    would (`serving.check_trainer_kind`).
     """
+    from ultrafnd_git_tpu_torch.serving import check_trainer_kind
+
     src = Path(out_dir) / slot
-    payload = torch.load(src / "state.pt", map_location="cpu", weights_only=True)
     with open(src / "meta.json", "r", encoding="utf-8") as fh:
         ckpt_meta = json.load(fh)
+    check_trainer_kind(ckpt_meta.get("trainer", "v2"))
+    payload = torch.load(src / "state.pt", map_location="cpu", weights_only=True)
     run_align = load_align(out_dir)
     if run_align is not None:
         align = run_align["state_dict"]
