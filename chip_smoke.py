@@ -6,9 +6,10 @@ every single-device lever (f32, bf16, int8), explain it, put it behind the
 HTTP server, train and serve it again on the sparse graph layout, train a
 switch-MoE tower (remat, a profile, a killed and resumed run) and serve it,
 train an evidence model from a raw FakeSV data root through the CLI and
-serve it, search the hash salt over that root, serve frozen scoring
-artifacts (torch.export) and the legacy two-dispatch path, and train with
---trainer integrated.
+serve it, encode text through the text ladder's tower rung (seeded and
+trained) and serve a training out_dir, search the hash salt over that
+root, serve frozen scoring artifacts (torch.export) and the legacy
+two-dispatch path, and train with --trainer integrated.
 
     python3 chip_smoke.py
 
@@ -45,7 +46,8 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      495 TFLOP/s, K2-bf16's two and K3/K4-bf16's five bf16 products over
      989 TFLOP/s, K1's f32
      arithmetic over 67 TFLOP/s, computed from this
-     run's shapes. K1, K2's bf16 mode (its tensor maps are encoded on the
+     run's shapes; K2 is also checked and timed at (512, 12, 256, 64), the
+     seeded text rung's chunk. K1, K2's bf16 mode (its tensor maps are encoded on the
      host every call) and their library calls are also timed with the
      host's work included (no lead). K2 and its bf16 mode are swept over S
      and D (B * S = 16384);
@@ -104,6 +106,20 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      test metrics printed. A second main(--eval_only) on the same out_dir
      reuses the cache (printed, file untouched) and launches K2 = depth x
      test chunks and nothing else;
+ 10b. text_tower — the text ladder's tower rung. Seeded
+     (ULTRAFND_TEXT_DEVICE=1): the feature cache of phase 10's data root
+     built on the card with its text column from the seeded tower (768
+     wide, depth 4, 12 heads of 64, S = 256; chunks of 512 strings): K2
+     launches = 4 x chunks and nothing else, the text pass's wall time, one
+     profiled chunk (device ms, K2 and GEMM ms, idle share), the first 64
+     records' text within 1e-5 of the largest value of a CPU build of the
+     same draw. Trained (ULTRAFND_TEXT_DEVICE_CKPT = phase 10's out_dir):
+     Predictor(out_dir=, checkpoint_name="latest") on the card answers
+     three requests (8, 64, 300 raw records, five sends each after a
+     warm-up): K2 launches = depth x (string chunks + 1) a send, rows within
+     1e-4 of the CPU Predictor of the slot and the rung, latencies beside
+     the hash rung's; Predictor(out_dir=, "best") within 1e-4 of the run's
+     exported model directory;
  11. evidence_serve — the export answers three requests (8, 64, 300 raw
      records, each sent five times after a warm-up) and explain(grad) of 8
      on the card: K2 launches = depth x (15 + 1), rows within 1e-4 of the
@@ -220,8 +236,10 @@ BWD_BF16_REL = 8e-3  # K3/K4-bf16 dq, dk, dv, dbias: max|kernel - twin| / max|tw
 TRAIN_BATCH = 512
 SERVING_SHAPE = (256, 6, 64, 128)
 TRAIN_SHAPE = (TRAIN_BATCH, 6, 64, 128)
+TEXT_TOWER_SHAPE = (512, 12, 256, 64)  # the seeded text rung's K2 call: a chunk of 512 strings
 CHECK_SHAPES = (
     SERVING_SHAPE,
+    TEXT_TOWER_SHAPE,
     (64, 6, 64, 128),  # the bucket of the 8- and 64-record requests
     TRAIN_SHAPE,  # training batch; also the bucket of the 300-record request
     (8, 4, 64, 192),  # the test fixture's tower head width
@@ -253,6 +271,9 @@ SWEEP = ((128, 64), (128, 256), (128, 1024), (128, 2048), (64, 64), (64, 2048),
 RAW_TOPICS = 128  # OCR topics of the raw data root (about 42 records each)
 CACHE_REL = 1e-5  # card vs CPU cache build: align-derived columns, of their largest value
 TOWER = dict(width=768, depth=2, heads=6, vocab_size=32768, max_len=64, gelu="tanh")
+SEEDED_RUNG = dict(dim=768, depth=4, heads=12, max_len=256)  # ULTRAFND_TEXT_DEVICE=1's tower
+TEXT_CHUNK = 512  # DeviceTextEncoder.encode_batch's strings a chunk
+TEXT_CHECK_RECORDS = 64  # records of the seeded build held against a CPU build
 MOE_EXPERTS = 8  # MoEFFN's default
 MOE_SAVE_EVERY = 3  # moe_resume's --save_every_steps
 MOE_REMAT_TURNS = 4  # steps each of remat on and off, in turns, after the fit
@@ -490,7 +511,8 @@ def check_flash(dev):
                 rel_err=json.dumps(rel, separators=(",", ":")))
 
         # K2: serving bucket and training shape; kernel, plain, library
-        for key, shape, seed in (("serve", SERVING_SHAPE, 99), ("train", TRAIN_SHAPE, 97)):
+        for key, shape, seed in (("serve", SERVING_SHAPE, 99), ("train", TRAIN_SHAPE, 97),
+                                 ("text_tower", TEXT_TOWER_SHAPE, 96)):
             q, k, v, do, mask = _attention_inputs(shape, seed, dev)
             bias = fa.padding_bias(mask)
             lib_err = _max_err(_sdpa(q, k, v, bias), fa.reference_attention(q, k, v, bias)[0])
@@ -503,7 +525,9 @@ def check_flash(dev):
             if key == "serve":
                 res["fwd"].update(t)
             else:
-                res["fwd"]["train_shape"] = {"shape": list(shape), **t}
+                res["fwd"][f"{key}_shape"] = {"shape": list(shape), **t}
+            del q, k, v, do, mask, bias
+            torch.cuda.empty_cache()
         res["fwd"]["library_call"] = ("torch.nn.functional.scaled_dot_product_attention(q, k, v, "
                                       "attn_mask=bias) under sdpa_kernel(EFFICIENT_ATTENTION), f32")
         res["fwd"]["sweep"] = sweep_flash(dev)
@@ -754,10 +778,10 @@ def full_width_params(dev):
     from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
     from ultrafnd_git_tpu_torch.models.initializers import jax_init_
     from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
-    from ultrafnd_git_tpu_torch.training.trainer import CLASSIFIER
+    from ultrafnd_git_tpu_torch.utils.config import classifier_config
 
     gen = torch.Generator().manual_seed(3)
-    mods = {"fusion": CrossModalTransformer(), "clf": DeepTruthClassifier(**CLASSIFIER),
+    mods = {"fusion": CrossModalTransformer(), "clf": DeepTruthClassifier(**classifier_config()),
             "gnn": SimpleGCN(416, 256, 128), "text_tower": TextTransformer(**TOWER)}
     return {k: jax_init_(k, m, gen).to(dev) for k, m in mods.items()}
 
@@ -1514,8 +1538,9 @@ def phase_raw_train(root):
     launches = _launch_counts()
     wall_s = time.perf_counter() - t1
     built = re.search(r"feature cache: built from .* \((\d+) records\): host featurize (\S+) s, "
-                      r"align pass (\S+) s on (\S+)", said)
-    if built is None or int(built.group(1)) != N_CORPUS or not built.group(4).startswith("cuda"):
+                      r"align pass (\S+) s on ([^,\s]+), text rung (\S+)", said)
+    if built is None or int(built.group(1)) != N_CORPUS or not built.group(4).startswith("cuda") \
+            or built.group(5) != "hash":
         raise RuntimeError(f"the run did not build its cache from the data root on the card: "
                            f"{built and built.group(0)}")
 
@@ -1588,7 +1613,186 @@ def phase_raw_train(root):
                            f"(expected {eval_expect})")
     log("raw_train", eval_only="reused the cache", launches=json.dumps(eval_launches))
     return {"launches": launches, "median_step_ms": median_step, "data_root": data_root,
-            "exported": exported}
+            "exported": exported, "out_dir": out}
+
+
+def _fields(rec):
+    """The strings the text ladder encodes for a record: title, OCR and up
+    to 10 comments, the non-empty ones."""
+    return [t for t in [rec.get("title"), rec.get("ocr"), *(rec.get("comments") or [])[:10]] if t]
+
+
+def phase_text_tower(data_root, out_dir, exported, requests):
+    """The text ladder's tower rung on the card. Seeded (ULTRAFND_TEXT_DEVICE=1):
+    the feature cache of raw_train's data root built with the text column
+    from the seeded 768-wide tower (depth 4, 12 heads of 64, S = 256), K2
+    launches = depth x chunks, a profiled chunk, the first records' text
+    against a CPU build. Trained (ULTRAFND_TEXT_DEVICE_CKPT = raw_train's
+    out_dir): Predictor(out_dir=, checkpoint_name="latest") serves the three
+    requests against the CPU Predictor of the slot, beside the hash rung's
+    latency; Predictor(out_dir=, "best") against the run's exported model
+    directory."""
+    import os
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ultrafnd_git_tpu_torch.data import cache as cache_mod
+    from ultrafnd_git_tpu_torch.data.dataset import FakeSVRawDataset
+    from ultrafnd_git_tpu_torch.models.encoders import (
+        TEXT_DEVICE,
+        TEXT_DEVICE_CKPT,
+        TextFieldEncoder,
+        tower_rung,
+    )
+    from ultrafnd_git_tpu_torch.serving import FORENSIC_KEYS, Predictor
+
+    saved = {k: os.environ.get(k) for k in (TEXT_DEVICE, TEXT_DEVICE_CKPT)}
+    preds = []
+    try:
+        # ---- the seeded rung: the cache build on the card ------------------
+        os.environ[TEXT_DEVICE] = "1"
+        os.environ.pop(TEXT_DEVICE_CKPT, None)
+        raw = FakeSVRawDataset(str(data_root))
+        records = [raw.get_item(i) for i in range(len(raw))]
+        strings = [t for r in records for t in _fields(r)]
+        chunks = -(-len(strings) // TEXT_CHUNK)
+        enc = cache_mod.make_encoders(seed=0, device="cuda")
+        text = enc["text"]
+        tower = text._tower()
+        dims = dict(dim=tower.dim, depth=len(tower.tower.blocks),
+                    heads=tower.tower.blocks[0].attn.heads, max_len=tower.max_len)
+        if dims != SEEDED_RUNG or tower_rung() != "tower-seeded" or tower.device.type != "cuda":
+            raise RuntimeError(f"the seeded rung is {dims} ({tower_rung()}) on {tower.device}")
+        text_s = []
+        fields = text.encode_fields_batch
+
+        def timed_fields(recs):
+            t = time.perf_counter()
+            out = fields(recs)
+            text_s.append(time.perf_counter() - t)  # one copy back a chunk: synchronised
+            return out
+
+        text.encode_fields_batch = timed_fields
+        seconds = {}
+        _reset_counts()  # this path's run only
+        t0 = time.perf_counter()
+        built = cache_mod.build_feature_cache(raw, seed=0, encoders=enc, timings=seconds)
+        build_s = time.perf_counter() - t0
+        seeded_launches = _launch_counts()
+        expect = {"fwd": SEEDED_RUNG["depth"] * chunks, "fwd_bf16": 0, "bwd": 0, "bwd_bf16": 0,
+                  "adamw": 0}
+        if seeded_launches != expect:
+            raise RuntimeError(f"seeded rung launches {seeded_launches}, expected {expect}")
+        t = built["text"]
+        norms = np.linalg.norm(t, axis=1)
+        if not (np.isfinite(t).all() and np.abs(norms[norms > 0] - 1).max() < 1e-4):
+            raise RuntimeError("the seeded rung's text column is not finite and unit-norm")
+
+        # one full chunk: unprofiled wall times, then its device time by kernel
+        chunk = strings[:TEXT_CHUNK]
+        walls = []
+        for _ in range(3):
+            s = time.perf_counter()
+            tower.encode_batch(chunk)
+            walls.append(1e3 * (time.perf_counter() - s))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tower.encode_batch(chunk)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        k2_ms = sum(e.self_device_time_total for e in kernels
+                    if "flash" in e.key.lower()) / 1e3
+        gemm_ms = sum(e.self_device_time_total for e in kernels
+                      if "gemm" in e.key.lower() or "sgemm" in e.key.lower()) / 1e3
+        chunk_ms = statistics.median(walls)
+
+        # the first records against a CPU build of the same seeded draw
+        t1 = time.perf_counter()
+        cpu_text = TextFieldEncoder(device="cpu").encode_fields_batch(records[:TEXT_CHECK_RECORDS])
+        cpu_s = time.perf_counter() - t1
+        rel = float(np.abs(t[:TEXT_CHECK_RECORDS] - cpu_text).max()
+                    / max(np.abs(cpu_text).max(), 1e-30))
+        log("text_tower", rung="seeded", **{f"tower_{k}": v for k, v in dims.items()},
+            records=len(records), strings=len(strings), chunks=chunks,
+            launches=json.dumps(seeded_launches, separators=(",", ":")),
+            expected=json.dumps(expect, separators=(",", ":")),
+            text_pass_s=text_s[0], cache_build_s=build_s, host_featurize_s=seconds["host_s"],
+            align_pass_s=seconds["align_s"], chunk_wall_ms=chunk_ms,
+            chunk_device_ms=device_ms, chunk_k2_ms=k2_ms, chunk_gemm_ms=gemm_ms,
+            chunk_idle_share=max(0.0, 1.0 - device_ms / chunk_ms),
+            cpu_check_records=TEXT_CHECK_RECORDS, cpu_check_s=cpu_s,
+            gpu_vs_cpu_text_rel=rel, bound=CACHE_REL)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            log("text_tower", kernel=json.dumps(e.key[:90]), calls=e.count,
+                device_ms=e.self_device_time_total / 1e3)
+        if not rel <= CACHE_REL:
+            raise RuntimeError(f"seeded rung: the card's text column is {rel} of its largest "
+                               f"value from the CPU build (bound {CACHE_REL})")
+        del built, enc, text, tower
+        torch.cuda.empty_cache()
+
+        # ---- the trained rung: serving raw_train's out_dir -------------------
+        os.environ[TEXT_DEVICE] = "0"
+        hashed = Predictor(out_dir=str(out_dir), checkpoint_name="latest", device="cuda")
+        preds.append(hashed)
+        os.environ[TEXT_DEVICE] = "1"
+        os.environ[TEXT_DEVICE_CKPT] = str(out_dir)
+        rung = tower_rung()
+        if rung != f"tower:{Path(out_dir).resolve()}/best":
+            raise RuntimeError(f"the trained rung is {rung}")
+        gpu = Predictor(out_dir=str(out_dir), checkpoint_name="latest", device="cuda")
+        cpu = Predictor(out_dir=str(out_dir), checkpoint_name="latest", device="cpu")
+        best = Predictor(out_dir=str(out_dir), checkpoint_name="best", device="cuda")
+        model = Predictor(str(exported), device="cuda")
+        preds += [gpu, cpu, best, model]
+        gpu.warmup(max(REQUEST_SIZES))
+        hashed.warmup(max(REQUEST_SIZES))
+        _reset_counts()
+        rows, lat = _timed_requests(gpu, requests)
+        served_launches = _launch_counts()
+        trained_depth = len(gpu._encoders["text"]._tower().tower.blocks)
+        served_expect = {"fwd": trained_depth * REPEATS * sum(
+            -(-sum(len(_fields(r)) for r in recs) // TEXT_CHUNK) + 1 for recs in requests),
+            "fwd_bf16": 0, "bwd": 0, "bwd_bf16": 0, "adamw": 0}
+        if served_launches != served_expect:
+            raise RuntimeError(f"trained rung serving launched {served_launches}, expected "
+                               f"{served_expect}")
+        hash_rows, hash_lat = _timed_requests(hashed, requests)
+        cpu_rows = [cpu.predict(recs) for recs in requests]
+        best_rows = [best.predict(recs) for recs in requests]
+        model_rows = [model.predict(recs) for recs in requests]
+        engaged = not np.allclose(gpu.featurize(requests[0])["text"],
+                                  hashed.featurize(requests[0])["text"], atol=1e-3)
+    finally:
+        for pred in preds:
+            pred.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    keys = ("prob_fake", *FORENSIC_KEYS)
+    vs_cpu = {k: float(np.max(np.abs(_values(rows, k) - _values(cpu_rows, k)))) for k in keys}
+    best_vs_model = {k: float(np.max(np.abs(_values(best_rows, k) - _values(model_rows, k))))
+                     for k in keys}
+    vs_hash = float(np.max(np.abs(_values(rows) - _values(hash_rows))))
+    p = _values(rows)
+    log("text_tower", rung=rung, requests=json.dumps([len(x) for x in requests]),
+        trained_depth=trained_depth, launches=json.dumps(served_launches, separators=(",", ":")),
+        expected=json.dumps(served_expect, separators=(",", ":")),
+        median_latency_ms=json.dumps([1e3 * x for x in lat]),
+        hash_rung_median_latency_ms=json.dumps([1e3 * x for x in hash_lat]), repeats=REPEATS,
+        gpu_vs_cpu_max_abs=json.dumps(vs_cpu, separators=(",", ":")),
+        best_vs_exported_max_abs=json.dumps(best_vs_model, separators=(",", ":")),
+        prob_vs_hash_rung_max_abs=vs_hash, text_differs_from_hash=engaged)
+    if not (max(vs_cpu.values()) <= PROB_ATOL and max(best_vs_model.values()) <= PROB_ATOL):
+        raise RuntimeError(f"trained rung serving: GPU vs CPU {vs_cpu}, best slot vs its "
+                           f"export {best_vs_model} (bound {PROB_ATOL})")
+    if not (engaged and np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()):
+        raise RuntimeError("trained rung serving: the rung did not engage or bad prob_fake")
+    return {"launches": {k: seeded_launches[k] + served_launches[k] for k in seeded_launches},
+            "strings": len(strings), "chunks": chunks}
 
 
 def phase_evidence_serve(model_dir, requests):
@@ -2342,6 +2546,9 @@ def main() -> int:
         moe_serve = phase_moe_serve(str(moe_served), requests)
         moe_resume = phase_moe_resume(seeded, Path(root))
         raw = phase_raw_train(Path(root))
+        rng = np.random.default_rng(4)
+        text_tower = phase_text_tower(raw["data_root"], raw["out_dir"], raw["exported"],
+                                      [raw_records(n, rng, f"t{n}") for n in REQUEST_SIZES])
         rng = np.random.default_rng(3)
         evidence = phase_evidence_serve(
             str(raw["exported"]), [raw_records(n, rng, f"q{n}") for n in REQUEST_SIZES])
@@ -2365,7 +2572,7 @@ def main() -> int:
               "moe_train": moe["launches"][key], "moe_resume": moe_resume[key],
               "moe_serve": moe_serve["launches"].get(key, 0), "auto_salt": salt[key],
               "artifact_serve": artifact.get(key, 0), "legacy_serve": legacy_n,
-              "integrated_train": integrated[key]}
+              "integrated_train": integrated[key], "text_tower": text_tower["launches"][key]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [

@@ -682,3 +682,52 @@ def test_artifact_and_legacy_path_on_gpu_match(cuda, tmp_path):
     for key in keys:
         np.testing.assert_allclose([r[key] for r in l_rows], [r[key] for r in live],
                                    atol=1e-5, err_msg=key)
+
+
+def test_seeded_text_rung_on_gpu_launches_k2_and_matches_cpu(cuda):
+    """The seeded tower at full width (768, 12 heads of 64, S = 256, depth 4)
+    on the card: K2 once per block and chunk (600 strings in chunks of 256:
+    3 chunks), rows within 1e-5 of the same draw on the CPU."""
+    from ultrafnd_git_tpu_torch.models.transformer import DeviceTextEncoder
+
+    words = ("外星人", "入侵", "警告", "辟谣", "证据", "科学", "视频", "专家")
+    rng = np.random.default_rng(0)
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(1, 9)))) for _ in range(600)]
+    kw = dict(dim=768, depth=4, heads=12, max_len=256, seed=0)
+    gpu, cpu = DeviceTextEncoder(**kw, device="cuda"), DeviceTextEncoder(**kw, device="cpu")
+    before = fa.launches
+    out = gpu.encode_batch(texts, batch_size=256)
+    assert fa.launches - before == 4 * 3
+    np.testing.assert_allclose(out, cpu.encode_batch(texts, batch_size=256), atol=1e-5)
+
+
+def test_trained_text_rung_serves_an_out_dir_on_gpu_as_on_cpu(cuda, tmp_path, monkeypatch):
+    """ULTRAFND_TEXT_DEVICE_CKPT at a run trained on the card: the Predictor
+    of its latest slot featurizes through the trained tower (K2 in the
+    featurize thread and in the scoring program: 2 launches a chunk at
+    depth 1) and scores as the CPU Predictor of the slot (atol 1e-4)."""
+    from ultrafnd_git_tpu_torch.predict import load_records
+    from ultrafnd_git_tpu_torch.serving import Predictor
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+    root = FIXTURES / "fakesv_tiny"
+    out = tmp_path / "run"
+    cfg = TrainConfig(data_root=str(root), out_dir=str(out), batch_size=16, epochs=1, seed=0,
+                      train_text_tower=True, text_tower_depth=1, text_tower_heads=4)
+    ForensicTrainer(cfg, device="cuda").fit()
+    monkeypatch.setenv("ULTRAFND_TEXT_DEVICE", "1")
+    monkeypatch.setenv("ULTRAFND_TEXT_DEVICE_CKPT", str(out))
+    records = load_records(root / "data_complete.json")
+    gpu = Predictor(out_dir=str(out), checkpoint_name="latest", device="cuda")
+    cpu = Predictor(out_dir=str(out), checkpoint_name="latest", device="cpu")
+    try:
+        before = fa.launches
+        g_rows = gpu.predict(records)
+        assert fa.launches - before == 2  # 64 records: one chunk
+        c_rows = cpu.predict(records)
+    finally:
+        gpu.close()
+        cpu.close()
+    for key in ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity"):
+        np.testing.assert_allclose([r[key] for r in g_rows], [r[key] for r in c_rows],
+                                   atol=1e-4, err_msg=key)

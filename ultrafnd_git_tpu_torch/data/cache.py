@@ -7,7 +7,9 @@
     temporal (N,256) | aux (N,2) | evidence (N,3) | text_ids, text_mask (N,64)
     ocr_sets list[set] | split (tr, va, te)
 
-  * text = mean of the title / OCR / <= 10 comment encodings, L2-normed;
+  * text = mean of the title / OCR / <= 10 comment encodings, L2-normed
+    (the hash rung, or the text tower on the encoders' device under
+    `ULTRAFND_TEXT_DEVICE=1`, `models/encoders.py`);
   * audio = encoding of the proxy `title + " " + first comment`;
   * visual = flow proxy ++ ELA proxy of the OCR (else the title), fit to
     512 and L2-normed;
@@ -46,7 +48,11 @@ from ultrafnd_git_tpu_torch.data.dataset import FakeSVRawDataset
 from ultrafnd_git_tpu_torch.data.ocr import ocr_sets_for_records
 from ultrafnd_git_tpu_torch.data.splits import make_split
 from ultrafnd_git_tpu_torch.models.affective import AffectiveForensics
-from ultrafnd_git_tpu_torch.models.encoders import ProxyTextEncoder, TextFieldEncoder
+from ultrafnd_git_tpu_torch.models.encoders import (
+    ProxyTextEncoder,
+    TextFieldEncoder,
+    tower_rung,
+)
 from ultrafnd_git_tpu_torch.models.semantic import SemanticForgeryAnalyzer
 from ultrafnd_git_tpu_torch.models.temporal import TemporalSyncNet
 from ultrafnd_git_tpu_torch.models.transformer import hash_tokenize_batch
@@ -61,6 +67,7 @@ FEATURES_VERSION = 3
 TOWER_IDS_LEN = 64  # tokens kept per record for the tower
 TOWER_VOCAB = 32768  # stable-hash vocabulary
 ALIGN_INIT = "torch"  # the port's align draw, named in its fingerprint
+TEXT_INIT = "torch"  # the port's seeded text tower, named in its fingerprint
 ALIGN_FILE = "align.pt"  # a run's align MLP: {"state_dict", "in_dim", "out_dim"}
 
 
@@ -95,15 +102,19 @@ def make_encoders(
     seed: int = 42,
     with_evidence: bool = True,
     device: str = "cuda",
+    text_device: Optional[str] = None,
 ) -> Dict[str, Any]:
     """The encoder set of the cache contract, built once and reusable:
     "text", "audio", "flow", "ela", "tsync" and, `with_evidence`,
     "affective" and "semantic". The align MLP ("tsync") is the seeded draw
-    on `device` (cuda by default; raises without a GPU)."""
+    on `device` (cuda by default; raises without a GPU). The text ladder
+    (`models/encoders.TextFieldEncoder`) runs its tower rung, when
+    `ULTRAFND_TEXT_DEVICE=1` selects it, on `text_device` (default
+    `device`)."""
     dev = resolve_device(device)
     proxy = ProxyTextEncoder(visual_dim // 2)  # flow and ELA: one hash rung
     enc: Dict[str, Any] = {
-        "text": TextFieldEncoder(text_dim),
+        "text": TextFieldEncoder(text_dim, device=text_device or str(dev)),
         "audio": ProxyTextEncoder(audio_dim),
         "flow": proxy,
         "ela": proxy,
@@ -230,7 +241,13 @@ def build_feature_cache(
 def cache_fingerprint(data_root: str, seed: int, ocr_phrase_pkl: Optional[str]) -> str:
     """Config identity of a cache built here: the JAX fingerprint's fields
     (data root, seed, OCR pickle, and the hash salt when one is set) plus
-    the port's align draw. The feature-code version is stored beside it."""
+    the port's align draw, and the text rung when it is not the hash rung
+    (`models/encoders.tower_rung`: "text_rung": "tower-seeded" with
+    "text_init": "torch", the port's seeded draw, or "tower:<path>/<slot>"),
+    so a hash-rung fingerprint is the same as before the tower rung existed
+    and neither rung takes the other's cache. The JAX fingerprint does not
+    name the rung (ROADMAP.md, faults of the reference). The feature-code
+    version is stored beside it."""
     cfg: Dict[str, Any] = {
         "data_root": str(Path(data_root).resolve()),
         "seed": int(seed),
@@ -240,6 +257,11 @@ def cache_fingerprint(data_root: str, seed: int, ocr_phrase_pkl: Optional[str]) 
     salt = get_hash_salt()
     if salt:
         cfg["hash_salt"] = salt
+    rung = tower_rung()
+    if rung is not None:
+        cfg["text_rung"] = rung
+        if rung == "tower-seeded":
+            cfg["text_init"] = TEXT_INIT
     return json.dumps(cfg, sort_keys=True)
 
 
@@ -330,7 +352,7 @@ def load_cache(
                 exp_cfg, _ = _parse_fingerprint(expected_fingerprint)
                 if stored and stored_cfg != exp_cfg:
                     print(f"⚠️  cache at {p} was built under a different config "
-                          "(data_root/seed/ocr_phrase_pkl/align draw) — rebuilding")
+                          "(data_root/seed/ocr_phrase_pkl/align draw/text rung) — rebuilding")
                     return None
                 if not stored:
                     print(f"⚠️  cache at {p} predates config fingerprints; "
@@ -477,7 +499,8 @@ def bootstrap_cache(
                                 timings=seconds)
     tsync = enc["tsync"]
     print(f"feature cache: built from {data_root} ({len(raw)} records): host featurize "
-          f"{seconds['host_s']} s, align pass {seconds['align_s']} s on {tsync.device}")
+          f"{seconds['host_s']} s, align pass {seconds['align_s']} s on {tsync.device}, "
+          f"text rung {tower_rung() or 'hash'}")
     if cache_to_disk:
         save_cache(built, str(own), fingerprint=fp)
         save_align(out_dir, tsync.module.state_dict(), tsync.in_dim, tsync.out_dim)

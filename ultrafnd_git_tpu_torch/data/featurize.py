@@ -2,7 +2,9 @@
 
 What the JAX `Predictor.featurize` runs: under fused-align serving
 `build_feature_cache(..., with_align=False)`, the host half, with the hash
-rungs of the encoders and, for an evidence checkpoint, the two host
+rungs of the encoders (the text ladder's tower under
+`ULTRAFND_TEXT_DEVICE=1`, on the device the encoders give it) and, for an
+evidence checkpoint, the two host
 evidence columns (alignment, delay, aux and the evidence delay column are
 computed by the scoring program); on the legacy two-dispatch path
 `with_align=True`, the full cache, whose align pass runs on the encoders'
@@ -56,7 +58,8 @@ def featurize_records(
 
     Hashing follows the port's process-wide salt (`ops.hashing.set_hash_salt`):
     the caller sets it first. `encoders` (from `make_encoders`) are built
-    on the CPU when not given.
+    on the CPU when not given (the Predictors pass theirs, whose text
+    ladder runs on the Predictor's device).
     """
     if encoders is None:
         encoders = make_encoders(with_evidence=with_evidence, device="cpu")

@@ -37,7 +37,9 @@ a symbolic batch dimension cannot turn into a Python int, and JAX's
 `jax.export` refuses the same program for the same reason.
 
     python -m ultrafnd_git_tpu_torch.export_serving --model_dir D --artifact A \
-        [--bf16] [--quantize] [--batch_size 64] [--platforms cpu,cuda] [--device cuda]
+        [--bf16] [--quantize] [--batch_size 64] [--platforms cpu,cuda] [--device cuda | --cpu]
+    python -m ultrafnd_git_tpu_torch.export_serving --out_dir O [--checkpoint best|latest] \
+        --artifact A ...
     python -m ultrafnd_git_tpu_torch.predict --artifact A --input new.json
     python -m ultrafnd_git_tpu_torch.serve --artifact A --port 8080
 """
@@ -55,7 +57,7 @@ from ultrafnd_git_tpu_torch.data.cache import TOWER_IDS_LEN, make_encoders
 from ultrafnd_git_tpu_torch.models.temporal import TemporalSyncNet
 from ultrafnd_git_tpu_torch.ops.hashing import set_hash_salt
 from ultrafnd_git_tpu_torch.serving import Predictor, contract_keys
-from ultrafnd_git_tpu_torch.utils.device import resolve_device
+from ultrafnd_git_tpu_torch.utils.device import add_device_args, resolve_cpu_flag, resolve_device
 
 FORMAT = "ultrafnd-serving-artifact-torch/1"
 JAX_FORMAT = "ultrafnd-serving-artifact/1"  # ultrafnd_git_tpu.export_serving's
@@ -213,7 +215,8 @@ class ExportedPredictor(Predictor):
 
             ep = move_to_device_pass(ep, self.device)
         self._scorer = ep.module()
-        self._encoders = make_encoders(with_evidence=self.use_evidence, device="cpu")
+        self._encoders = make_encoders(with_evidence=self.use_evidence, device="cpu",
+                                       text_device=str(self.device))
         if not self.fused_align:
             a = meta["align"]
             sd = {k[len("align:"):]: v for k, v in arrays.items() if k.startswith("align:")}
@@ -241,11 +244,11 @@ class ExportedPredictor(Predictor):
 
 
 def main(argv=None) -> None:
+    from ultrafnd_git_tpu_torch.predict import add_source_args, check_source_args, make_predictor
+
     ap = argparse.ArgumentParser(
         description="ultrafnd_git_tpu_torch — export a frozen serving artifact")
-    ap.add_argument("--model_dir", required=True,
-                    help="exported model dir (scripts/export_torch_model.py, or the "
-                         "trainer's --export_model_dir)")
+    add_source_args(ap, artifact=False)
     ap.add_argument("--artifact", required=True, help="directory to write the artifact into")
     ap.add_argument("--batch_size", type=int, default=64,
                     help="default serving chunk size recorded in the artifact "
@@ -255,12 +258,11 @@ def main(argv=None) -> None:
     ap.add_argument("--bf16", action="store_true", help="export the bf16 scoring program")
     ap.add_argument("--quantize", action="store_true",
                     help="export int8 weights, dequantized in the program")
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="where the Predictor runs while the program is traced")
-    args = ap.parse_args(argv)
+    add_device_args(ap, help="where the Predictor runs while the program is traced")
+    args = resolve_cpu_flag(ap.parse_args(argv))
+    check_source_args(ap, args, artifact=False)
     platforms = tuple(p.strip() for p in args.platforms.split(",") if p.strip())
-    predictor = Predictor(args.model_dir, batch_size=args.batch_size, device=args.device,
-                          bf16=args.bf16, quantize=args.quantize)
+    predictor = make_predictor(args, artifact=False)
     try:
         root = export_artifact(predictor, args.artifact, platforms=platforms)
     finally:

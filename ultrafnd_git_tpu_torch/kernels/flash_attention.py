@@ -44,7 +44,9 @@ launches, `bwd_launches` f32 backward launches and `bwd_bf16_launches` bf16
 backward launches (one per backward call, K3 and K4 fused), and nothing
 else, so a run can show that its path went through the kernels and in which
 mode; the CPU path leaves all four unchanged. Under
-`torch.inference_mode()` only K2 runs.
+`torch.inference_mode()` only K2 runs. The counts are safe to add to from
+several host threads (a lock); each library is built and loaded once under
+`_build`'s lock, whichever thread launches first.
 
 The ops are `ufnd::flash_attention_fwd` and `ufnd::flash_attention_fwd_bf16`,
 (q, k, v, bias) -> (out, lse), registered when this module is imported:
@@ -58,6 +60,7 @@ module first.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -72,6 +75,10 @@ launches = 0  # K2 (f32) launches since import (or since a caller reset it)
 bf16_launches = 0  # K2 bf16-mode launches
 bwd_launches = 0  # f32 backward (K3 + K4 fused) launches, one per call
 bwd_bf16_launches = 0  # bf16-mode backward launches, one per call
+# a count is read, added to and written back under this lock: the text
+# ladder's tower launches K2 from featurize threads while scoring launches it
+# from another (serving.Predictor, server.DynamicBatcher)
+_COUNT_LOCK = threading.Lock()
 _lib = None
 _bf16_lib = None
 _bwd_lib = None
@@ -330,7 +337,8 @@ def _fwd_cuda(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(q, k, v, bias)
     out, lse = _launch_fwd(_kernel(), "flash_attention_fwd", q, k, v, bias)
     global launches
-    launches += 1
+    with _COUNT_LOCK:
+        launches += 1
     return out, lse
 
 
@@ -339,7 +347,8 @@ def _fwd_bf16_cuda(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(q, k, v, bias, dtype=torch.bfloat16)
     out, lse = _launch_fwd(_bf16_kernel(), "flash_attention_fwd_bf16", q, k, v, bias)
     global bf16_launches
-    bf16_launches += 1
+    with _COUNT_LOCK:
+        bf16_launches += 1
     return out, lse
 
 
@@ -479,7 +488,8 @@ def flash_attention_bwd(
             f"at shape {(b, h, s, d)}"
         )
     global bwd_launches
-    bwd_launches += 1
+    with _COUNT_LOCK:
+        bwd_launches += 1
     if key_blocks > 1:
         dq = dq.sum(dim=0)
     dbias = part.sum(dim=1).view(b, 1, 1, s) if part is not None else None
@@ -542,7 +552,8 @@ def flash_attention_bwd_bf16(
             f"at shape {(b, h, s, d)}"
         )
     global bwd_bf16_launches
-    bwd_bf16_launches += 1
+    with _COUNT_LOCK:
+        bwd_bf16_launches += 1
     if key_blocks > 1:
         dq = dq.sum(dim=0).to(torch.bfloat16)
     dbias = part.sum(dim=1).view(b, 1, 1, s).to(bias.dtype) if part is not None else None

@@ -29,10 +29,21 @@ final layer norm and the pooling are f32. The bf16 tower is differentiable
 (gradients reach the f32 params through the casts); a fully masked record
 keeps finite gradients (its rows' P is 1 per key in the backward, and the
 pooling gives them no gradient).
+
+`DeviceTextEncoder` is the text ladder's tower rung (JAX
+`models/transformer.py:367-535`): a `TextTransformer` on an explicit device
+that encodes strings in chunks of power-of-two buckets (padded with "",
+whose fully masked rows pool to zeros and are dropped), either the seeded
+draw (`models/initializers.jax_init_("text_tower", ...)` from a
+torch.Generator: JAX's distribution, not its numbers) or the trained tower
+of a `--train_text_tower` checkpoint (`from_checkpoint`), tokenized under
+the salt that checkpoint was trained with.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import json
+from pathlib import Path
+from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,8 +56,11 @@ from ultrafnd_git_tpu_torch.kernels.flash_attention import (
     padding_bias,
 )
 from ultrafnd_git_tpu_torch.models.dropout import apply_mask, draw_mask
+from ultrafnd_git_tpu_torch.models.initializers import jax_init_
 from ultrafnd_git_tpu_torch.models.layers import Dense, LayerNorm
 from ultrafnd_git_tpu_torch.ops.hashing import basis_for_salt, fnv1a_64
+from ultrafnd_git_tpu_torch.training.checkpoint import find_slot, read_slot
+from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon (torch defaults to 1e-5)
 
@@ -228,3 +242,139 @@ class TextTransformer(nn.Module):
                 return pooled, pooled.new_zeros((), dtype=torch.float32)
             return pooled, aux_total / float(len(self.blocks))
         return pooled
+
+
+def _is_model_dir(root: Path) -> bool:
+    return (root / "weights.pt").exists() and (root / "meta.json").exists()
+
+
+def checkpoint_identity(path: str) -> str:
+    """`<resolved path>/<slot>` of the tower `DeviceTextEncoder.from_checkpoint(path)`
+    serves (the resolved path alone for an exported model directory)."""
+    root = Path(path).resolve()
+    return str(root) if _is_model_dir(root) else f"{root}/{find_slot(str(root))}"
+
+
+class DeviceTextEncoder(nn.Module):
+    """Corpus-wide text encoding through a `TextTransformer` on `device`
+    (cuda by default; raises without a GPU), its attention on K2 there.
+
+    The seeded tower is a fixed random-feature map until trained weights
+    are installed (`load_state_dict`, `from_checkpoint`); it warns once when
+    it encodes untrained, as the JAX encoder does.
+    """
+
+    def __init__(
+        self,
+        dim: int = 768,
+        depth: int = 4,
+        heads: int = 6,
+        max_len: int = 256,
+        vocab_size: int = 32768,
+        seed: int = 0,
+        moe_experts: int = 0,
+        moe_capacity_factor: float = 1.25,
+        gelu: str = "tanh",
+        device: str = "cuda",
+        init_params: bool = True,
+    ):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.dim, self.max_len, self.vocab_size = int(dim), int(max_len), int(vocab_size)
+        self.tower = TextTransformer(width=dim, depth=depth, heads=heads, vocab_size=vocab_size,
+                                     max_len=max_len, gelu=gelu, moe_experts=moe_experts,
+                                     moe_capacity_factor=moe_capacity_factor)
+        if init_params:  # else the caller installs weights (load_state_dict)
+            jax_init_("text_tower", self.tower, torch.Generator().manual_seed(int(seed)))
+        self.tower.to(self.device).eval()
+        self.trained = False
+        self._warned = False
+        # None tokenizes under the process-wide salt; from_checkpoint pins the
+        # salt the tower was trained under without touching the process's
+        self.hash_salt: Optional[str] = None
+
+    def load_state_dict(self, state_dict: Mapping[str, Any], strict: bool = True, assign=False):
+        """Install tower weights in `TextTransformer`'s layout (numpy arrays,
+        as `utils/transfer.tower_state_dict` gives them, or tensors): the
+        JAX encoder's `load_params`; the encoder counts as trained after."""
+        sd = {k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+              for k, v in state_dict.items()}
+        out = self.tower.load_state_dict(sd, strict=strict, assign=assign)
+        self.tower.to(self.device)
+        self.trained = True
+        return out
+
+    @classmethod
+    def from_checkpoint(
+        cls, path: str, checkpoint_name: Optional[str] = None, device: str = "cuda"
+    ) -> "DeviceTextEncoder":
+        """The trained tower of a `--train_text_tower` run, as JAX's
+        `DeviceTextEncoder.from_checkpoint`: a slot of the port's out_dir
+        (`training/checkpoint.read_slot`: `checkpoint_name`, else `best`
+        then `latest`; FileNotFoundError without one, ValueError for a JAX
+        out_dir) or an exported model directory (weights.pt, meta.json:
+        `scripts/export_torch_model.py` carries a JAX out_dir across).
+        ValueError when the run did not train a tower. Width and vocabulary
+        come from the embedding, max_len from pos_embed, depth, heads, gelu
+        and MoE from the recorded tower dims, else from the cfg with JAX's
+        defaults (2, 12, "exact": a meta that predates tower_gelu was
+        trained exact-erf, 0 experts). The cfg's hash_salt is pinned on
+        the encoder."""
+        root = Path(path)
+        if _is_model_dir(root):
+            with open(root / "meta.json", "r", encoding="utf-8") as fh:
+                meta = json.load(fh)
+            dims = meta.get("text_tower") or {}
+            weights = torch.load(root / "weights.pt", map_location="cpu", weights_only=True,
+                                 mmap=True)
+            sd = weights.get("text_tower")
+        else:
+            payload, meta = read_slot(str(root), checkpoint_name)
+            dims = (meta.get("model") or {}).get("text_tower") or {}
+            sd = payload["params"].get("text_tower")
+        cfg = meta.get("cfg", {})
+        if not cfg.get("train_text_tower") or sd is None:
+            raise ValueError(f"checkpoint at {root} was not trained with --train_text_tower; "
+                             "nothing to serve")
+        embed, pos = sd["tok_embed.weight"], sd["pos_embed"]
+        enc = cls(
+            dim=int(embed.shape[1]),
+            depth=int(dims.get("depth", cfg.get("text_tower_depth", 2))),
+            heads=int(dims.get("heads", cfg.get("text_tower_heads", 12))),
+            max_len=int(pos.shape[1]),
+            vocab_size=int(embed.shape[0]),
+            moe_experts=int(dims.get("moe_experts", cfg.get("moe_experts", 0))),
+            moe_capacity_factor=float(dims.get("moe_capacity_factor", 1.25)),
+            gelu=str(dims.get("gelu", cfg.get("tower_gelu", "exact"))),
+            device=device,
+            init_params=False,
+        )
+        enc.load_state_dict(sd)
+        enc.hash_salt = str(cfg.get("hash_salt", ""))
+        return enc
+
+    def encode_batch(self, texts: Sequence[str], batch_size: int = 512) -> np.ndarray:
+        """(N, dim) f32 pooled, L2-normalised encodings. Chunks of
+        `batch_size` strings, each padded with "" to a power-of-two bucket of
+        at least 8 rows (at most batch_size), tokenized by
+        `hash_tokenize_batch` under `hash_salt`; one copy back per chunk."""
+        if not self.trained and not self._warned:
+            self._warned = True
+            print("⚠️  DeviceTextEncoder is serving UNTRAINED (seeded random) features — "
+                  "experimental rung; point ULTRAFND_TEXT_DEVICE_CKPT at a "
+                  "--train_text_tower run for trained weights")
+        out = []
+        with torch.inference_mode():
+            for s in range(0, len(texts), batch_size):
+                chunk = list(texts[s: s + batch_size])
+                n = len(chunk)
+                bucket = 8
+                while bucket < n:
+                    bucket *= 2
+                chunk += [""] * (min(bucket, batch_size) - n)
+                ids, mask = hash_tokenize_batch(chunk, self.max_len, self.vocab_size,
+                                                salt=self.hash_salt)
+                enc = self.tower(to_device(torch.from_numpy(ids).long(), self.device),
+                                 to_device(torch.from_numpy(mask), self.device))
+                out.append(enc[:n].cpu().numpy())
+        return np.concatenate(out) if out else np.zeros((0, self.dim), np.float32)

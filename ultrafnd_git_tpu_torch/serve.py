@@ -1,7 +1,9 @@
-"""Serve a model directory or a frozen artifact over HTTP (counterpart of scripts/serve.py).
+"""Serve a model directory, a training out_dir or a frozen artifact over HTTP
+(counterpart of scripts/serve.py).
 
     python -m ultrafnd_git_tpu_torch.serve --model_dir D [--port 8080] \
-        [--bf16] [--quantize] [--device cuda|cpu]
+        [--bf16] [--quantize] [--device cuda|cpu | --cpu]
+    python -m ultrafnd_git_tpu_torch.serve --out_dir O [--checkpoint best|latest] ...
     python -m ultrafnd_git_tpu_torch.serve --artifact A [--port 8080] [--device cuda|cpu]
     curl -s localhost:8080/healthz
     curl -s -X POST localhost:8080/predict \
@@ -9,35 +11,31 @@
     curl -s -X POST localhost:8080/explain -d '{"records": [...], "method": "shap"}'
 
 `--model_dir` is a model directory from `scripts/export_torch_model.py` or
-`python -m ultrafnd_git_tpu_torch.train --export_model_dir`; `--artifact`
-a frozen artifact from `python -m ultrafnd_git_tpu_torch.export_serving`
+`python -m ultrafnd_git_tpu_torch.train --export_model_dir`; `--out_dir` a
+run of that trainer, served from its `--checkpoint` slot; `--artifact` a
+frozen artifact from `python -m ultrafnd_git_tpu_torch.export_serving`
 (pass exactly one; an artifact's `--bf16` and `--quantize` were fixed at
 export, and /explain answers 500 for it). The flags are scripts/serve.py's
-but for `--serve_dp` (multi-device dispatch is not ported) and
-`--checkpoint` (a model directory holds one set of weights); `--device`
-takes the place of `--cpu`. The device defaults to cuda and raises when
-there is no GPU.
+but for `--serve_dp` (multi-device dispatch is not ported); `--device`
+stands beside `--cpu`. The device defaults to cuda and raises when there
+is no GPU.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from ultrafnd_git_tpu_torch.predict import check_source_args, make_predictor
+from ultrafnd_git_tpu_torch.predict import add_source_args, check_source_args, make_predictor
+from ultrafnd_git_tpu_torch.utils.device import add_device_args, resolve_cpu_flag
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="ultrafnd_git_tpu_torch — HTTP serving")
-    ap.add_argument("--model_dir", default=None,
-                    help="exported model dir (scripts/export_torch_model.py)")
-    ap.add_argument("--artifact", default=None,
-                    help="frozen serving artifact dir (python -m "
-                         "ultrafnd_git_tpu_torch.export_serving); mutually exclusive "
-                         "with --model_dir")
+    add_source_args(ap)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--batch_size", type=int, default=64)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    add_device_args(ap)
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 tower, fusion and classifier (the tower's attention "
                          "on the bf16 flash kernel); scores move within the bf16 envelope")
@@ -58,7 +56,7 @@ def parse_args(argv=None):
     ap.add_argument("--warmup", type=int, default=64, metavar="N",
                     help="run the bucket ladder up to N records before opening the "
                          "socket (builds the kernels; 0 disables)")
-    args = ap.parse_args(argv)
+    args = resolve_cpu_flag(ap.parse_args(argv))
     check_source_args(ap, args)
     return args
 
@@ -83,7 +81,7 @@ def main(argv=None) -> None:
         gap_ms=args.gap_ms,
     )
     host, port = server.server_address[:2]
-    print(f"serving {args.artifact or args.model_dir} on http://{host}:{port} "
+    print(f"serving {args.artifact or args.model_dir or args.out_dir} on http://{host}:{port} "
           "(POST /predict, POST /explain, GET /healthz, GET /stats)", flush=True)
     try:
         server.serve_forever()

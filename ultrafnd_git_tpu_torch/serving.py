@@ -8,8 +8,11 @@ path, everything it serves on one device:
     rows = predictor.explain(records, method="grad" | "shap")
 
 `model_dir` comes from `scripts/export_torch_model.py` or the port's own
-trainer (weights.pt, meta.json, feature_cache.npz). A request is
-featurized on the host (hash rungs), then one chunk runs the whole scoring
+trainer (weights.pt, meta.json, feature_cache.npz); `Predictor(out_dir=O,
+checkpoint_name="best" | "latest")` serves a slot of the port's training
+out_dir directly. A request is featurized on the host (hash rungs; the
+text ladder's tower on the device under `ULTRAFND_TEXT_DEVICE=1`), then
+one chunk runs the whole scoring
 program on the device: temporal alignment, delay and aux, the text tower
 (its attention on the flash kernel), the new-node GCN extension against
 the corpus graph, fusion and the classifier. A new record attaches to the
@@ -305,7 +308,22 @@ class ScoringProgram(nn.Module):
 
 
 class Predictor:
-    """Loads an exported model directory and scores FakeSV-style records."""
+    """Loads an exported model directory, or a slot of a training out_dir,
+    and scores FakeSV-style records.
+
+    Pass exactly one of `model_dir` (weights.pt, meta.json,
+    feature_cache.npz) and `out_dir`, a run of the port's trainer served
+    from its `checkpoint_name` slot ("best" or "latest", as the JAX
+    Predictor's `out_dir` / `checkpoint_name`): the weights and meta that
+    `utils/transfer.export_trained` would write (`trained_model`, the align
+    MLP from `<out_dir>/align.pt`), read in memory, and the out_dir's own
+    feature_cache.npz. A JAX out_dir is refused with the way across
+    (`scripts/export_torch_model.py`).
+
+    The text column of new records comes from the text ladder
+    (`models/encoders.TextFieldEncoder`): under `ULTRAFND_TEXT_DEVICE=1` its
+    tower runs on this Predictor's device, in f32 whatever `bf16` and
+    `quantize` say (those levers are the scoring program's)."""
 
     # the scoring program exists at one batch shape (see export_serving):
     # _pipeline then never chunks past batch_size
@@ -313,7 +331,7 @@ class Predictor:
 
     def __init__(
         self,
-        model_dir: str,
+        model_dir: Optional[str] = None,
         batch_size: int = 64,
         device: str = "cuda",
         bf16: bool = False,
@@ -321,16 +339,27 @@ class Predictor:
         fused_align: bool = True,
         serve_dp: Optional[int] = None,
         sparse_graph: Optional[bool] = None,
+        out_dir: Optional[str] = None,
+        checkpoint_name: str = "best",
     ):
         if serve_dp not in (None, 1):
             raise _todo("multi-device dispatch (serve_dp)")
+        if (model_dir is None) == (out_dir is None):
+            raise ValueError("pass exactly one of model_dir / out_dir")
         self.device = resolve_device(device)
-        self.model_dir = Path(model_dir)
         self.batch_size = max(1, int(batch_size))
         self.bf16, self.quantize = bool(bf16), bool(quantize)
         self.fused_align = bool(fused_align)
-        with open(self.model_dir / "meta.json", "r", encoding="utf-8") as fh:
-            self.meta = json.load(fh)
+        if out_dir is not None:
+            from ultrafnd_git_tpu_torch.utils.transfer import trained_model
+
+            self.model_dir = Path(out_dir)  # where its feature_cache.npz lives
+            weights, self.meta = trained_model(out_dir, checkpoint_name)
+        else:
+            self.model_dir = Path(model_dir)
+            with open(self.model_dir / "meta.json", "r", encoding="utf-8") as fh:
+                self.meta = json.load(fh)
+            weights = None
         check_trainer_kind(self.meta.get("trainer", "v2"))
         cfg = self.meta["cfg"]
         self.use_evidence = bool(cfg.get("use_evidence", False))
@@ -352,12 +381,14 @@ class Predictor:
             raise FileNotFoundError(f"no usable feature_cache.npz in {self.model_dir}")
         # the host encoders, built once (the scorers only for an evidence
         # checkpoint); their align MLP is unused: the scoring program runs
-        # the checkpoint's own
-        self._encoders = make_encoders(with_evidence=self.use_evidence, device="cpu")
+        # the checkpoint's own; the text ladder's tower runs on this device
+        self._encoders = make_encoders(with_evidence=self.use_evidence, device="cpu",
+                                       text_device=str(self.device))
 
-        weights = torch.load(
-            self.model_dir / "weights.pt", map_location="cpu", weights_only=True
-        )
+        if weights is None:
+            weights = torch.load(
+                self.model_dir / "weights.pt", map_location="cpu", weights_only=True
+            )
         # full-precision modules (explain() and its background read these)
         self.modules = build_modules(self.meta, torch.bfloat16 if self.bf16 else None)
         for name, mod in self.modules.items():

@@ -5,7 +5,7 @@
         [--train_text_tower [--moe_experts E] [--remat_tower]] [--fused_adamw] \
         [--sparse_graph] [--bf16] [--hash_salt S | --auto_salt a,b] [--resume] \
         [--save_every_steps K] [--profile_dir P] [--debug_nans] [--model_dir D] \
-        [--trainer v2|integrated] [--device cuda|cpu] [--export_model_dir M]
+        [--trainer v2|integrated] [--device cuda|cpu | --cpu] [--export_model_dir M]
 
 The run's feature cache is out_dir's own when it has a usable one, else
 that of `--model_dir` (a model directory from
@@ -14,8 +14,11 @@ built from the raw FakeSV `--data_root` (its data_complete.json), with its
 align pass on the device. `--export_model_dir` writes the trained `best`
 slot, with the align MLP its cache was built with, as a model directory
 that `python -m ultrafnd_git_tpu_torch.predict` serves. The device defaults
-to cuda and raises when there is no GPU; pass --device cpu to run on the
-CPU. `--auto_salt` trains one run per candidate salt from `--data_root`
+to cuda and raises when there is no GPU; pass --device cpu (or
+run_train_eval.py's --cpu) to run on the CPU. `--no_scan_epoch` and
+`--no_fast_dropout_rng` are accepted as run_train_eval.py accepts them and
+have no effect (the TrainConfig fields they set have none in the port).
+`--auto_salt` trains one run per candidate salt from `--data_root`
 (`training/salt_search.py`), adopts the winner's artifacts into out_dir and
 tests its best slot. Prints the `==== Final Results ====` block of
 run_train_eval.py.
@@ -31,6 +34,8 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
+
+from ultrafnd_git_tpu_torch.utils.device import add_device_args, resolve_cpu_flag
 
 
 def parse_args(argv=None):
@@ -132,10 +137,16 @@ def parse_args(argv=None):
                    help="v2 = canonical cache trainer (transductive GCN); "
                         "integrated = per-batch annealed OCR-Jaccard graphs, "
                         "GNNModel, label smoothing, cosine LR")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--no_scan_epoch", action="store_true",
+                   help="accepted for run_train_eval.py parity; no effect: the "
+                        "port dispatches one step per Python call")
+    p.add_argument("--no_fast_dropout_rng", action="store_true",
+                   help="accepted for run_train_eval.py parity; no effect: the "
+                        "port draws dropout masks from one torch.Generator")
+    add_device_args(p)
     p.add_argument("--export_model_dir", default=None,
                    help="write the best slot here as a servable model dir")
-    return p.parse_args(argv)
+    return resolve_cpu_flag(p.parse_args(argv))
 
 
 # run_train_eval.py's list of flags the integrated trainer ignores, those of
@@ -144,6 +155,7 @@ V2_ONLY = (
     ("--train_text_tower", lambda a: a.train_text_tower),
     ("--sparse_graph", lambda a: a.sparse_graph),
     ("--freeze_gnn", lambda a: a.freeze_gnn),
+    ("--no_fast_dropout_rng", lambda a: a.no_fast_dropout_rng),
     ("--select_metric", lambda a: a.select_metric != "auc"),
     ("--auto_salt", lambda a: bool(a.auto_salt)),
     ("--grad_accum", lambda a: a.grad_accum > 1),
@@ -180,6 +192,7 @@ def main_integrated(args, data_root: Path, ocr_pkl: Path, out_dir: Path) -> dict
         use_gnn=not args.no_gnn,
         use_evidence=args.use_evidence,
         profile_dir=args.profile_dir,
+        scan_epoch=not args.no_scan_epoch,
         bf16_compute=args.bf16,
         resume=args.resume,
         hash_salt=args.hash_salt,
@@ -237,6 +250,8 @@ def main(argv=None) -> dict:
         moe_aux_weight=args.moe_aux_weight,
         remat_tower=args.remat_tower,
         bf16_compute=args.bf16,
+        scan_epoch=not args.no_scan_epoch,
+        fast_dropout_rng=not args.no_fast_dropout_rng,
         hash_salt=args.hash_salt,
         select_metric=args.select_metric,
         resume=args.resume,

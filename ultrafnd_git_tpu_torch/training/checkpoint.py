@@ -9,6 +9,12 @@ cfg, np_random_state, plus the resolved module dims under "model"). Writes
 are synchronous. Commit protocol as in the JAX store: the old meta.json is
 removed first and the new one renamed into place after the state file, so
 a meta.json means a complete slot.
+
+`read_slot` is the one reader of a trained out_dir's slot for serving (the
+Predictor's `out_dir=` and the text ladder's trained tower): a named slot,
+or `best` then `latest` as the JAX `DeviceTextEncoder.from_checkpoint`
+tries them. A slot of the JAX package (an Orbax `state/` directory, no
+`state.pt`) is refused with the way across, `scripts/export_torch_model.py`.
 """
 from __future__ import annotations
 
@@ -51,3 +57,30 @@ def load_checkpoint(
 
 def checkpoint_exists(directory: str, name: str) -> bool:
     return (Path(directory).resolve() / name / "meta.json").exists()
+
+
+SLOTS = ("best", "latest")
+
+
+def find_slot(directory: str, name: Optional[str] = None) -> str:
+    """The slot `read_slot` reads: `name`, or the first of `best`, `latest`
+    holding a meta.json. FileNotFoundError when there is none; ValueError for
+    a slot written by the JAX package."""
+    root = Path(directory)
+    slots = [name] if name else list(SLOTS)
+    for slot in slots:
+        if (root / slot / "meta.json").exists():
+            if not (root / slot / "state.pt").exists() and (root / slot / "state").is_dir():
+                raise ValueError(
+                    f"{root / slot} is a checkpoint of the JAX package (an Orbax state/ "
+                    "directory): carry it across with python scripts/export_torch_model.py "
+                    f"--out_dir {root} --checkpoint {slot} --model_dir M and serve M")
+            return slot
+    raise FileNotFoundError(f"no checkpoint slot ({'/'.join(slots)}) under {root}")
+
+
+def read_slot(
+    directory: str, name: Optional[str] = None
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(state payload, meta) of the slot `find_slot` picks."""
+    return load_checkpoint(directory, find_slot(directory, name))

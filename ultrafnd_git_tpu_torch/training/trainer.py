@@ -51,11 +51,13 @@ Differences that are the port's own: one step per Python call (no
 dropout masks (so `fast_dropout_rng` has no effect), one AdamW route (K1
 is bit-identical to the plain update, so `fused_adamw` has no effect and
 every run launches K1 on a GPU), parameters drawn from
-the JAX package's distributions but not its numbers, the fusion and
-classifier dims of the shipped YAMLs (the port reads no YAML), no GCN when
+the JAX package's distributions but not its numbers, no GCN when
 `use_gnn=False` (the JAX trainer builds and weight-decays one it never
 uses), and a cache built from `data_root` has the port's own align draw
-(`models/temporal.TemporalSyncNet`).
+(`models/temporal.TemporalSyncNet`). The fusion and classifier are built
+from `fusion_config` / `classifier_config` (flat YAML, `utils/config.py`),
+with the keys and defaults of the JAX modules' `from_config`; their dims
+go into every slot's meta "model".
 
 Every single-device field of the JAX `TrainConfig` trains: `moe_experts`
 swaps the tower's MLPs for switch-MoE FFNs (`models/moe.py`), whose aux
@@ -111,15 +113,9 @@ from ultrafnd_git_tpu_torch.training.loop import (
 )
 from ultrafnd_git_tpu_torch.training.metrics import aggregate_epoch_metrics, pretty_print
 from ultrafnd_git_tpu_torch.training.state import TrainState, make_optimizer
+from ultrafnd_git_tpu_torch.utils.config import classifier_config, fusion_config
 from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
 
-# the shipped configs/model_configs/{fusion,classifier}.yaml (equal to the
-# JAX modules' defaults); the GPU machine has no PyYAML to read them
-FUSION_HIDDEN = 512
-FUSION_DROPOUT = 0.1
-CLASSIFIER = dict(hidden=512, num_classes=2, use_aux=True, aux_dim=2,
-                  node_trees=6, node_depth=4, node_tau=10.0,
-                  temperature_init=1.0, dropout=0.1, node_dropout=0.3)
 GNN_DROPOUT = 0.2
 MOE_CAPACITY_FACTOR = 1.25  # the JAX tower's moe_capacity_factor (no TrainConfig field)
 TRAINER_KIND = "v2"
@@ -196,6 +192,20 @@ def _unsupported(cfg: TrainConfig) -> list:
             ("shard_corpus", cfg.shard_corpus), ("shard_graph", cfg.shard_graph),
         ) if on
     ]
+
+
+def module_configs(cfg, text_width: int, widths: Dict[str, int]):
+    """(CrossModalTransformer kwargs but dtype, DeepTruthClassifier kwargs
+    but in_dim and dtype) from `cfg.fusion_config` and
+    `cfg.classifier_config` (`utils/config.py`), as the JAX trainers build
+    them (`CrossModalTransformer.from_config`, then use_gnn off without
+    the trainer's; the GCN's width is the trainer's gnn_dim)."""
+    fusion = fusion_config(cfg.fusion_config)
+    fusion_kw = dict(hidden=fusion["hidden"], text_dim=int(text_width),
+                     **{f"{k}_dim": int(widths[k]) for k in ("audio", "visual", "temporal")},
+                     use_gnn=bool(fusion["use_gnn"] and cfg.use_gnn), gnn_dim=int(cfg.gnn_dim),
+                     dropout=fusion["dropout"])
+    return fusion_kw, classifier_config(cfg.classifier_config)
 
 
 def _raise_on_nan(where: str, *tensors: torch.Tensor) -> None:
@@ -343,22 +353,16 @@ class ForensicTrainer:
         widths = {k: int(self.cache[k].shape[1]) for k in ("audio", "visual", "temporal")}
         # bf16-compute / f32-master (JAX trainer.py:536-542, :598); the GCN stays f32
         dtype = torch.bfloat16 if cfg.bf16_compute else None
+        fusion_kw, clf_kw = module_configs(cfg, text_width, widths)
         self.model_meta: Dict[str, Any] = {
-            "fusion": {"hidden": FUSION_HIDDEN, "use_gnn": cfg.use_gnn,
-                       "gnn_dim": cfg.gnn_dim, "text_dim": text_width,
-                       **{f"{k}_dim": w for k, w in widths.items()}},
-            "classifier": {k: v for k, v in CLASSIFIER.items()
-                           if k not in ("dropout", "node_dropout")},
+            "fusion": {k: v for k, v in fusion_kw.items() if k != "dropout"},
+            "classifier": {k: v for k, v in clf_kw.items() if k not in ("dropout", "node_dropout")},
             "gnn": None,
             "text_tower": None,
         }
         params: Dict[str, nn.Module] = {
-            "fusion": CrossModalTransformer(
-                hidden=FUSION_HIDDEN, text_dim=text_width,
-                audio_dim=widths["audio"], visual_dim=widths["visual"],
-                temporal_dim=widths["temporal"], use_gnn=cfg.use_gnn,
-                gnn_dim=cfg.gnn_dim, dropout=FUSION_DROPOUT, dtype=dtype),
-            "clf": DeepTruthClassifier(in_dim=FUSION_HIDDEN, **CLASSIFIER, dtype=dtype),
+            "fusion": CrossModalTransformer(**fusion_kw, dtype=dtype),
+            "clf": DeepTruthClassifier(in_dim=fusion_kw["hidden"], **clf_kw, dtype=dtype),
         }
         if cfg.use_gnn:
             in_dim = int(self.corpus["ax"].shape[1])

@@ -27,6 +27,9 @@ with per-batch graphs in place of the transductive corpus graph:
   restored step, the threshold from the restored epoch) and adopts the
   slot's `hash_salt`.
 
+The fusion and classifier are built from `fusion_config` /
+`classifier_config` as the v2 trainer builds them (`trainer.module_configs`),
+and each slot's meta records their dims under "model".
 `bf16_compute` runs fusion and classifier in bf16 with f32 parameters,
 AdamW state and checkpoints; `profile_dir` writes a torch.profiler trace
 of `train()` (`<dir>/fit.trace.json`); `scan_epoch` is accepted and has no
@@ -68,12 +71,7 @@ from ultrafnd_git_tpu_torch.training.loop import (
 )
 from ultrafnd_git_tpu_torch.training.metrics import safe_auc
 from ultrafnd_git_tpu_torch.training.state import TrainState
-from ultrafnd_git_tpu_torch.training.trainer import (
-    CLASSIFIER,
-    FUSION_DROPOUT,
-    FUSION_HIDDEN,
-    _adopt_model_dir_fields,
-)
+from ultrafnd_git_tpu_torch.training.trainer import _adopt_model_dir_fields, module_configs
 from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
 
 TRAINER_KIND = "integrated"
@@ -224,12 +222,15 @@ class IntegratedForensicTrainer:
         # ---- modules (the JAX package's initial distributions) -------------
         widths = {k: int(self.cache[k].shape[1]) for k in ("text", "audio", "visual", "temporal")}
         dtype = torch.bfloat16 if cfg.bf16_compute else None  # f32 masters either way
+        fusion_kw, clf_kw = module_configs(cfg, widths["text"], widths)
+        # the fusion and classifier dims, in every slot's meta as the v2 trainer's
+        self.model_meta = {
+            "fusion": {k: v for k, v in fusion_kw.items() if k != "dropout"},
+            "classifier": {k: v for k, v in clf_kw.items() if k not in ("dropout", "node_dropout")},
+        }
         params: Dict[str, nn.Module] = {
-            "fusion": CrossModalTransformer(
-                hidden=FUSION_HIDDEN, text_dim=widths["text"], audio_dim=widths["audio"],
-                visual_dim=widths["visual"], temporal_dim=widths["temporal"],
-                use_gnn=cfg.use_gnn, gnn_dim=cfg.gnn_dim, dropout=FUSION_DROPOUT, dtype=dtype),
-            "clf": DeepTruthClassifier(in_dim=FUSION_HIDDEN, **CLASSIFIER, dtype=dtype),
+            "fusion": CrossModalTransformer(**fusion_kw, dtype=dtype),
+            "clf": DeepTruthClassifier(in_dim=fusion_kw["hidden"], **clf_kw, dtype=dtype),
         }
         if cfg.use_gnn:
             params["gnn"] = GNNModel(int(self.corpus["xg"].shape[1]), GNN_HID, cfg.gnn_dim,
@@ -393,12 +394,13 @@ class IntegratedForensicTrainer:
                 "train_auc": tr_auc, "val_loss": val_loss, "val_acc": val_acc,
                 "val_auc": val_auc,
             })
-            tracker.update(val_auc, self.state, epoch, asdict(cfg))
+            extra = {"model": self.model_meta}
+            tracker.update(val_auc, self.state, epoch, asdict(cfg), extra)
             self.best_score = tracker.best
             self.no_improve = tracker.no_improve
             # `latest` every epoch: restart-from-latest fault recovery
             ckpt.save_checkpoint(cfg.out_dir, "latest", self.state,
-                                 tracker.meta(epoch, asdict(cfg)))
+                                 {**tracker.meta(epoch, asdict(cfg)), **extra})
             if tracker.should_stop:
                 tracker.announce_stop()
                 break

@@ -1,6 +1,8 @@
 """Device selection for the port: CUDA by default, the CPU only when asked."""
 from __future__ import annotations
 
+import argparse
+
 import torch
 
 
@@ -39,3 +41,17 @@ def to_device(t: torch.Tensor, dev: torch.device, dtype=None) -> torch.Tensor:
     if dev.type != "cuda":
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def add_device_args(p: argparse.ArgumentParser, help: str = None) -> None:
+    """A CLI's `--device cuda|cpu` (cuda by default) and the JAX CLIs'
+    `--cpu`, which means `--device cpu` (`resolve_cpu_flag`)."""
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=help)
+    p.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+
+
+def resolve_cpu_flag(args: argparse.Namespace) -> argparse.Namespace:
+    """`args` with `--cpu` turned into `args.device = "cpu"`."""
+    if args.cpu:
+        args.device = "cpu"
+    return args

@@ -15,14 +15,16 @@ A model directory holds `weights.pt` ({part: state_dict}, loadable with
 plus resolved module dims; a tower's record `moe_experts` and
 `moe_capacity_factor`, 0 and 1.25 for dense blocks) and the corpus
 `feature_cache.npz`.
-`export_trained` writes one from a checkpoint of the port's own trainer.
+`export_trained` writes one from a checkpoint of the port's own trainer;
+`trained_model` gives the same weights and meta in memory (the Predictor's
+`out_dir=`).
 """
 from __future__ import annotations
 
 import json
 import shutil
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -206,28 +208,23 @@ def write_model_dir(
     return root
 
 
-def export_trained(
-    out_dir: str, slot: str, model_dir: str, align_from: Optional[str] = None
-) -> Path:
-    """A servable model directory from a checkpoint of the port's trainer.
-
-    Reads `<out_dir>/<slot>/` (state.pt and meta.json, whose "model" entry
-    holds the resolved module dims) and `<out_dir>/feature_cache.npz`. The
-    temporal align MLP, which the trainer does not train, is the one the
-    run's cache was built with, `<out_dir>/align.pt` (written by the
-    trainer's cache ladder); a run without one (an injected cache) takes it
-    with its dims from the model directory `align_from`.
-    Writes weights.pt, meta.json and feature_cache.npz into `model_dir`.
+def trained_model(
+    out_dir: str, slot: str, align_from: Optional[str] = None
+) -> Tuple[Dict[str, Mapping[str, Any]], Dict[str, Any]]:
+    """({part: state dict}, meta) of a model directory for the checkpoint
+    `<out_dir>/<slot>/` of the port's trainer (`training/checkpoint.read_slot`:
+    state.pt and meta.json, whose "model" entry holds the resolved module
+    dims), in memory. The temporal align MLP, which the trainer does not
+    train, is the one the run's cache was built with, `<out_dir>/align.pt`
+    (written by the trainer's cache ladder); a run without one (an injected
+    cache) takes it with its dims from the model directory `align_from`.
     A slot of the integrated trainer raises ValueError, as the Predictor
-    would (`serving.check_trainer_kind`).
-    """
+    would (`serving.check_trainer_kind`); so does a JAX out_dir's slot."""
     from ultrafnd_git_tpu_torch.serving import check_trainer_kind
+    from ultrafnd_git_tpu_torch.training.checkpoint import read_slot
 
-    src = Path(out_dir) / slot
-    with open(src / "meta.json", "r", encoding="utf-8") as fh:
-        ckpt_meta = json.load(fh)
+    payload, ckpt_meta = read_slot(out_dir, slot)
     check_trainer_kind(ckpt_meta.get("trainer", "v2"))
-    payload = torch.load(src / "state.pt", map_location="cpu", weights_only=True)
     run_align = load_align(out_dir)
     if run_align is not None:
         align = run_align["state_dict"]
@@ -242,7 +239,15 @@ def export_trained(
             f"{out_dir} carries no align.pt (its cache was injected): pass "
             "align_from, the model directory whose align MLP built that cache")
     meta = {"cfg": ckpt_meta["cfg"], **ckpt_meta["model"], "align": align_meta}
-    return write_model_dir(
-        model_dir, {**payload["params"], "align": align}, meta,
-        cache_npz=str(Path(out_dir) / "feature_cache.npz"),
-    )
+    return {**payload["params"], "align": align}, meta
+
+
+def export_trained(
+    out_dir: str, slot: str, model_dir: str, align_from: Optional[str] = None
+) -> Path:
+    """A servable model directory from a checkpoint of the port's trainer:
+    `trained_model`'s weights.pt and meta.json, and a copy of
+    `<out_dir>/feature_cache.npz`, written into `model_dir`."""
+    weights, meta = trained_model(out_dir, slot, align_from)
+    return write_model_dir(model_dir, weights, meta,
+                           cache_npz=str(Path(out_dir) / "feature_cache.npz"))
