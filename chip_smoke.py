@@ -9,7 +9,8 @@ train an evidence model from a raw FakeSV data root through the CLI and
 serve it, encode text through the text ladder's tower rung (seeded and
 trained) and serve a training out_dir, search the hash salt over that
 root, serve frozen scoring artifacts (torch.export) and the legacy
-two-dispatch path, and train with --trainer integrated.
+two-dispatch path, train with --trainer integrated, and run the v1
+raw-media ensemble pipeline (decode, the device CV stage, the ensemble).
 
     python3 chip_smoke.py
 
@@ -182,6 +183,26 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      the dropout-off gradient of 512 rows on the card against the CPU from
      the same initial parameters (1e-4 of each leaf's largest; --bf16: the
      bf16 bounds of phase 4b);
+ 11f. v1_train — the v1 raw-media ensemble pipeline: (1) the device CV stage
+     on 8 clips x 30 frames x 256^2 of 8-px blocks whose content moves
+     (-4, +2) px a frame (host gray uploaded, as the path does): against
+     its CPU run 0 block displacements flipped, flow_feat 1e-5, cuts 1e-6,
+     flow_mags 1e-5 of their largest, bit-identical over two calls on the
+     card, the median inner block flow within 0.3 px of the shift; its
+     device ms, launches and upload bytes and ms (torch.profiler); (2)
+     BatchFeatureExtractor.stream over 6 such batches, ms a sample in turns
+     with the host cv2 ladder (stage, host, host, stage), a profiled
+     batch's device and idle share, the host ms of ELA, spectral stats and
+     text, one batch under ULTRAFND_TEXT_DEVICE=1 (K2 = 4 x string chunks);
+     (3) EnsembleTrainer (E = 2, fusion 512, classifier.yaml) on those
+     features, batch 8, 3 passes: K1 launches = steps and nothing else,
+     the dropout-off gradient on the card against the CPU within 1e-4 of
+     each leaf's largest + 1e-9, the median step, K1 at this parameter
+     count with its bound and plain version; (4) the CLI's main() on a copy
+     of the fixture's 8 records with video (--epochs 2 --batch_size 4
+     --eval_every 1, then --debug): loss finite, K1 = steps, every CV stage
+     dispatch on the card, decode_failures printed; the phase's and the
+     script's wall time;
  12. a check that no module of jax or of the JAX package ultrafnd_git_tpu
      was loaded (server threads included), a JSON line of the kernels, then
      the JSON result line.
@@ -190,7 +211,9 @@ kernel (torch.profiler), the breakdown PERF.md keeps.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -198,13 +221,16 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
+T0 = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
+FIXTURE = REPO / "tests" / "fixtures" / "fakesv_tiny"  # its 8 .avi clips with .wav sidecars
 
 N_CORPUS = 5376  # FakeSV scale
 OCR_VOCAB = 4096
@@ -296,6 +322,12 @@ main(sys.argv[1:])
 """
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd",
            "flash_attention_bwd_bf16", "adamw")
+V1_BATCH, V1_FRAMES = 8, 30  # the v1 collate's clips: (B, 30, 256, 256, 3) uint8
+V1_SHIFT = (-4, 2)  # (dy, dx) px a frame the v1_train clips' content moves
+V1_STREAM_BATCHES = 6  # batches of the feature stage's timed stream
+V1_EPOCHS = 3  # passes of the ensemble over those batches' features
+CV_FEAT_ATOL, CV_CUTS_ATOL, CV_MAGS_REL = 1e-5, 1e-6, 1e-5  # CV stage, card vs CPU
+V1_GRAD_FLOOR = 1e-9  # f32 floor of the v1 gradient check (tests/test_torch_pipeline_v1.py)
 BWD_BF16_SHAPES = (TRAIN_SHAPE,) + tuple((4, 4, s, d) for d in (64, 192, 256) for s in (64, 100, 512))
 CJK_WORDS = ("外星人", "入侵", "地球", "警告", "辟谣", "谣言", "不实", "疫苗",
              "危险", "致命", "隐瞒", "专家", "证据", "科学", "视频", "记录")
@@ -2506,6 +2538,309 @@ def phase_integrated_train(data_root, root):
     return total
 
 
+def v1_clips(rng, n=V1_BATCH, frames=V1_FRAMES):
+    """(n, frames, 256, 256, 3) uint8 clips of 8-px colour blocks (bench.py's
+    structured frames), whose content moves V1_SHIFT = (dy, dx) px a frame:
+    frame t is the 256 x 256 window of a 384 x 384 base at (-dy t, 64 - dx t)."""
+    dy, dx = V1_SHIFT
+    base = np.kron(rng.integers(0, 256, (n, 48, 48, 3), dtype=np.uint8),
+                   np.ones((1, 8, 8, 1), np.uint8))
+    return np.stack([base[:, -dy * t : -dy * t + 256, 64 - dx * t : 320 - dx * t]
+                     for t in range(frames)], axis=1)
+
+
+def v1_batch(rng, i):
+    """A collated raw-media batch of V1_BATCH records: text fields, 5 s
+    waveforms (a tone in noise), moving clips and alternating labels."""
+    recs = raw_records(V1_BATCH, rng, f"v1_{i}")
+    t = np.arange(80000, dtype=np.float32) / 16000.0
+    tones = rng.uniform(100.0, 3000.0, (V1_BATCH, 1)).astype(np.float32)
+    audio = (0.3 * np.sin(2 * np.pi * tones * t) + 0.05 * rng.standard_normal(
+        (V1_BATCH, 80000))).astype(np.float32)
+    return {"text_data": [{k: r[k] for k in ("title", "ocr", "comments")} for r in recs],
+            "audio_waveform": audio, "video_frames": v1_clips(rng),
+            "label": np.arange(V1_BATCH, dtype=np.int64) % 2, "video_id": [r["video_id"] for r in recs]}
+
+
+def _profiled(fn, phase=None, rows=5):
+    """(result, kernel launches, device ms of the kernels, HtoD copy ms,
+    wall ms) of one call of `fn` under torch.profiler; with `phase`, its
+    `rows` longest kernels are logged."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - s)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.key.startswith("Memcpy") or e.key.startswith("Memset")]
+    kernels = [e for e in events if e not in copies]
+    if phase is not None:
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]
+        log(phase, top_kernels=json.dumps([[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                                           for e in top]))
+    return (out, sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.self_device_time_total for e in copies if "HtoD" in e.key) / 1e3, wall_ms)
+
+
+def phase_v1_train(dev, root):
+    """The v1 raw-media ensemble pipeline on the card: the device CV stage at
+    the path's size against its CPU run, the feature stage in turns with the
+    host cv2 ladder, the ensemble's steps through K1, and the CLI on a copy
+    of the fixture's records with video."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels import adamw as aw, preprocess as pre
+    from ultrafnd_git_tpu_torch.training import pipeline_v1 as v1
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    dy, dx = V1_SHIFT
+    launches = {"fwd": 0, "fwd_bf16": 0, "bwd": 0, "bwd_bf16": 0, "adamw": 0}
+
+    # 1. the device CV stage at (8, 30, 256, 256), on the host gray the path uploads
+    clips = v1_clips(rng)
+    gray = v1.BatchFeatureExtractor._gray_host(clips)
+    gpu, cpu = pre.DeviceCVStage(device=str(dev)), pre.DeviceCVStage(device="cpu")
+    first, second, ref = gpu(gray), gpu(gray), cpu(gray)
+    if any(not np.array_equal(first[k], second[k]) for k in first):
+        raise RuntimeError("v1_train: the CV stage differs between two calls on the card")
+
+    def block_flow(dev):
+        half = pre._pyr_down(pre.gray_resize(torch.from_numpy(gray).to(dev)))
+        with torch.inference_mode():
+            u, v = pre.block_match_flow(half[:, :-1].reshape(-1, 128, 128),
+                                        half[:, 1:].reshape(-1, 128, 128))
+        return 2 * u.cpu().numpy(), 2 * v.cpu().numpy()  # full-raster px
+
+    (gu, gv), (cu, cv) = block_flow(dev), block_flow("cpu")
+    flips = int((np.abs(gu - cu) > 0.25).sum() + (np.abs(gv - cv) > 0.25).sum())
+    inner = (slice(None), slice(2, -2), slice(2, -2))
+    med = (float(np.median(gv[inner])), float(np.median(gu[inner])))
+    gaps = {"flow_feat": float(np.abs(first["flow_feat"] - ref["flow_feat"]).max()),
+            "cuts": float(np.abs(first["cuts"] - ref["cuts"]).max()),
+            "flow_mags_rel": float(np.abs(first["flow_mags"] - ref["flow_mags"]).max()
+                                   / np.abs(ref["flow_mags"]).max())}
+    if (flips or gaps["flow_feat"] > CV_FEAT_ATOL or gaps["cuts"] > CV_CUTS_ATOL
+            or gaps["flow_mags_rel"] > CV_MAGS_REL or abs(med[0] - dy) > 0.3
+            or abs(med[1] - dx) > 0.3 or not np.isfinite(first["flow_feat"]).all()):
+        raise RuntimeError(f"v1_train: CV stage on the card vs the CPU: {flips} flips, gaps "
+                           f"{gaps}, median block flow {med} for {V1_SHIFT}")
+    gpu.dispatch(gray)  # warm
+    # dispatch enqueues upload and stage without waiting for the device: no
+    # operation in it may synchronise (torch's sync debug mode names any)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            gpu.dispatch(gray)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:120] for w in caught if "synchroniz" in str(w.message)]
+    if syncs:
+        raise RuntimeError(f"v1_train: the CV stage's dispatch synchronised: {syncs}")
+    _, stage_launches, stage_device_ms, upload_ms, stage_wall_ms = _profiled(
+        lambda: gpu.dispatch(gray), phase="v1_train")
+    stage_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        gpu.finalize(gpu.dispatch(gray))
+        stage_ms.append(1e3 * (time.perf_counter() - s))
+    s = time.perf_counter()
+    cpu(gray)
+    cpu_stage_ms = 1e3 * (time.perf_counter() - s)
+    log("v1_train", part="cv_stage", clips=list(clips.shape), upload=list(gray.shape),
+        upload_bytes=gray.nbytes, upload_ms=upload_ms, stage_device_ms=stage_device_ms,
+        stage_launches=stage_launches, profiled_wall_ms=stage_wall_ms,
+        stage_median_ms=statistics.median(stage_ms), stage_cpu_ms=cpu_stage_ms, flips=flips,
+        median_flow_dy_dx=json.dumps(med), shift=json.dumps(V1_SHIFT), dispatch_syncs=0, **gaps,
+        bounds=json.dumps([CV_FEAT_ATOL, CV_CUTS_ATOL, CV_MAGS_REL]), bit_identical=True)
+
+    # 2. the feature stage over V1_STREAM_BATCHES batches, in turns with the host ladder
+    batches = [v1_batch(rng, i) for i in range(V1_STREAM_BATCHES)]
+    ext = v1.BatchFeatureExtractor(seed=0, device=str(dev))
+    ext_host = v1.BatchFeatureExtractor(seed=0, device=str(dev), use_device_cv=False)
+    if ext._device_cv is None or ext_host._device_cv is not None:
+        raise RuntimeError("v1_train: the extractor on the card did not take the CV stage")
+
+    def stream(e):
+        s = time.perf_counter()
+        feats = [f for f, _, _ in e.stream((b, i) for i, b in enumerate(batches))]
+        return feats, 1e3 * (time.perf_counter() - s) / (V1_BATCH * len(batches))
+
+    ext(batches[0])  # warm both rungs (pool threads, first launches)
+    ext_host(batches[0])
+    per_sample = {"stage": [], "host_ladder": []}
+    feats = {}
+    for name in ("stage", "host_ladder", "host_ladder", "stage"):
+        feats[name], ms = stream(ext if name == "stage" else ext_host)
+        per_sample[name].append(ms)
+    for k in ("text", "audio"):
+        if not all(np.array_equal(a[k], b[k]) for a, b in zip(feats["stage"],
+                                                               feats["host_ladder"])):
+            raise RuntimeError(f"v1_train: the two rungs' {k} columns differ")
+    if not all(np.isfinite(f[k]).all() for f in feats["stage"] for k in f):
+        raise RuntimeError("v1_train: a non-finite feature")
+    _, batch_launches, batch_device_ms, _, batch_wall_ms = _profiled(lambda: ext(batches[1]))
+    b0 = batches[0]
+    records = [{"title": t["title"], "ocr": t["ocr"], "comments": t["comments"]}
+               for t in b0["text_data"]]
+    host_ms = {}
+    for name, fn in (("ela", lambda: [ext.ela.ela_lbp(c) for c in b0["video_frames"]]),
+                     ("spectral", lambda: ext.audio_enc.extract_waveform_batch(
+                         b0["audio_waveform"])),
+                     ("text", lambda: ext.text_enc.encode_fields_batch(records))):
+        s = time.perf_counter()
+        fn()
+        host_ms[name] = 1e3 * (time.perf_counter() - s)
+    os.environ["ULTRAFND_TEXT_DEVICE"] = "1"  # the text ladder's seeded tower rung
+    try:
+        ext_tower = v1.BatchFeatureExtractor(seed=0, device=str(dev))
+    finally:
+        del os.environ["ULTRAFND_TEXT_DEVICE"]
+    _reset_counts()  # this batch only
+    s = time.perf_counter()
+    tower_feats = ext_tower(b0)
+    torch.cuda.synchronize()
+    tower_ms = 1e3 * (time.perf_counter() - s)
+    tower_launches = _launch_counts()
+    ext_tower.close()
+    strings = sum(1 for r in records for t in [r["title"], r["ocr"], *r["comments"][:10]] if t)
+    chunks = -(-strings // TEXT_CHUNK)
+    if tower_launches != dict(dict.fromkeys(launches, 0), fwd=4 * chunks) or not np.isfinite(
+            tower_feats["text"]).all():
+        raise RuntimeError(f"v1_train: the tower rung launched {tower_launches} over "
+                           f"{chunks} chunks")
+    for k in launches:
+        launches[k] += tower_launches[k]
+    log("v1_train", part="features", batches=len(batches), batch=V1_BATCH,
+        stage_ms_per_sample=json.dumps(per_sample["stage"]),
+        host_ladder_ms_per_sample=json.dumps(per_sample["host_ladder"]),
+        profiled_batch_wall_ms=batch_wall_ms, profiled_batch_device_ms=batch_device_ms,
+        profiled_batch_launches=batch_launches,
+        device_idle_share=max(0.0, 1.0 - batch_device_ms / batch_wall_ms),
+        host_ms=json.dumps({k: round(v, 3) for k, v in host_ms.items()}),
+        text_tower_batch_ms=tower_ms, text_tower_strings=strings,
+        text_tower_k2=tower_launches["fwd"], text_tower_chunks=chunks)
+    ext.close()
+    ext_host.close()
+
+    # 3. the ensemble (E = 2, the configured widths) on the stage's features
+    labels = [b["label"] for b in batches]
+    cfg = v1.V1Config(batch_size=V1_BATCH, ensemble_size=2, seed=0)
+    trainer = v1.EnsembleTrainer(cfg, device=str(dev))
+    lam, perm = v1.mixup_arrays(np.random.default_rng(0), V1_BATCH, cfg.mixup_alpha)
+    g_grads = trainer.grads_of(feats["stage"][0], labels[0], lam, perm)[1]
+    c_grads = v1.EnsembleTrainer(cfg, device="cpu").grads_of(feats["stage"][0], labels[0], lam,
+                                                            perm)[1]
+    worst = (0.0, "")
+    for e, (gm, cm) in enumerate(zip(g_grads, c_grads)):
+        for part in gm:
+            for name, g in gm[part].items():
+                r = cm[part][name].numpy()
+                gap = float(np.abs(g.cpu().numpy() - r).max())
+                rel = (gap - V1_GRAD_FLOOR) / max(float(np.abs(r).max()), 1e-30)
+                if rel > worst[0]:
+                    worst = (rel, f"member {e} {part}.{name}")
+    if worst[0] > GRAD_RTOL:
+        raise RuntimeError(f"v1_train: GPU vs CPU gradient {worst[1]} differs by {worst[0]} "
+                           "of its largest")
+    host_rng = np.random.default_rng(0)
+    step_ms, losses = [], []
+    _reset_counts()  # the ensemble's run only
+    for _ in range(V1_EPOCHS):
+        for f, y in zip(feats["stage"], labels):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            losses.append(trainer.train_batch(f, y, host_rng))
+            step_ms.append(1e3 * (time.perf_counter() - s))
+    ens_launches = _launch_counts()
+    if ens_launches != dict(dict.fromkeys(launches, 0), adamw=trainer.step_count) \
+            or not np.isfinite(losses).all():
+        raise RuntimeError(f"v1_train: ensemble launches {ens_launches} over "
+                           f"{trainer.step_count} steps, losses {losses}")
+    for k in launches:
+        launches[k] += ens_launches[k]
+    _, step_launches, step_device_ms, _, step_wall_ms = _profiled(
+        lambda: trainer.train_batch(feats["stage"][0], labels[0], host_rng), phase="v1_train")
+    probs = trainer.predict_batch(feats["stage"][0])
+    n_params = sum(p.numel() for m in trainer.params.values() for p in m.parameters())
+    leaves = trainer.tx._leaves(trainer.params, trainer.opt_state, trainer._grad_bufs)
+    scal = trainer.tx.scalars(trainer._grad_bufs, trainer.opt_state["count"])
+    k1_ms = _median_ms(lambda: aw.fused_adamw_(leaves, scal), runs=20, calls=5)
+    k1_plain_ms = _median_ms(lambda: [aw.adamw_reference_(*leaf, scal) for leaf in leaves],
+                             runs=10, calls=2, lead=False)
+    log("v1_train", part="ensemble", members=2, batch=V1_BATCH, params=n_params,
+        leaves=len(leaves), steps=trainer.step_count, launches=json.dumps(ens_launches),
+        median_step_ms=statistics.median(step_ms[1:]), first_step_ms=step_ms[0],
+        profiled_step_launches=step_launches, profiled_step_device_ms=step_device_ms,
+        profiled_step_wall_ms=step_wall_ms,
+        step_idle_share=max(0.0, 1.0 - step_device_ms / statistics.median(step_ms[1:])),
+        losses=json.dumps([round(x, 6) for x in losses[:: V1_STREAM_BATCHES]]),
+        gpu_vs_cpu_grad_max_rel=worst[0], worst_leaf=worst[1], grad_floor=V1_GRAD_FLOOR,
+        probs_finite=bool(np.isfinite(probs).all()), k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
+        **_bound(4 * 7 * n_params, ADAMW_FLOP * n_params, F32_FLOPS))
+
+    # 4. the CLI on the fixture's records with video, then --debug
+    v1_root = root / "v1_root"
+    (v1_root / "video_comment").mkdir(parents=True)
+    have = {p.stem for p in (FIXTURE / "videos").glob("*.avi")}
+    lines = [ln for ln in (FIXTURE / "data_complete.json").read_text(encoding="utf-8")
+             .splitlines() if json.loads(ln)["video_id"] in have][:8]
+    (v1_root / "data_complete.json").write_text("\n".join(lines), encoding="utf-8")
+    shutil.copytree(FIXTURE / "videos", v1_root / "videos")
+    for f in (FIXTURE / "video_comment").glob("*.json"):
+        shutil.copy(f, v1_root / "video_comment" / f.name)
+    stage_devices = []
+    dispatch = pre.DeviceCVStage.dispatch
+
+    def recording(self, frames):
+        out = dispatch(self, frames)
+        stage_devices.append(sorted({t.device.type for t in out.values()}))
+        return out
+
+    pre.DeviceCVStage.dispatch = recording
+    cli = {}
+    try:
+        for name, argv in (("data_dir", ["--data_dir", str(v1_root), "--epochs", "2"]),
+                           ("debug", ["--debug", "--epochs", "2"])):
+            stage_devices.clear()
+            tee = _Tee(sys.stdout)
+            _reset_counts()  # this run only
+            s = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                res = v1.main(argv + ["--batch_size", "4", "--eval_every", "1",
+                                      "--device", dev.type])
+            wall_s = time.perf_counter() - s
+            run = _launch_counts()
+            said = "".join(tee.text)
+            m = re.search(r"decode_failures: (\d+)", said)
+            ok = (np.isfinite(res["loss"]) and res["steps"] > 0
+                  and run == dict(dict.fromkeys(launches, 0), adamw=res["steps"]))
+            if name == "data_dir":
+                ok = ok and m is not None and bool(stage_devices) and all(
+                    d == [dev.type] for d in stage_devices)
+            if not ok:
+                raise RuntimeError(f"v1_train CLI {name}: results {res}, launches {run}, "
+                                   f"stage dispatches on {stage_devices}")
+            for k in launches:
+                launches[k] += run[k]
+            cli[name] = {"results": res, "wall_s": wall_s, "stage_dispatches": len(stage_devices),
+                         "decode_failures": int(m.group(1)) if m else None}
+    finally:
+        pre.DeviceCVStage.dispatch = dispatch
+    log("v1_train", part="cli", runs=json.dumps(cli, default=float), launches=json.dumps(launches),
+        phase_wall_s=time.perf_counter() - t_phase, script_wall_s=time.perf_counter() - T0)
+    return launches
+
+
 def main() -> int:
     dev = phase_device()
     import torch
@@ -2556,6 +2891,7 @@ def main() -> int:
         artifact = phase_artifact_serve(str(served), requests, serve, Path(root))
         legacy = phase_legacy_serve(str(served), requests)
         integrated = phase_integrated_train(raw["data_root"], Path(root))
+        v1_train = phase_v1_train(dev, Path(root))
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -2572,7 +2908,8 @@ def main() -> int:
               "moe_train": moe["launches"][key], "moe_resume": moe_resume[key],
               "moe_serve": moe_serve["launches"].get(key, 0), "auto_salt": salt[key],
               "artifact_serve": artifact.get(key, 0), "legacy_serve": legacy_n,
-              "integrated_train": integrated[key], "text_tower": text_tower["launches"][key]}
+              "integrated_train": integrated[key], "text_tower": text_tower["launches"][key],
+              "v1_train": v1_train[key]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [

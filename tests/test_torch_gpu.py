@@ -731,3 +731,57 @@ def test_trained_text_rung_serves_an_out_dir_on_gpu_as_on_cpu(cuda, tmp_path, mo
     for key in ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity"):
         np.testing.assert_allclose([r[key] for r in g_rows], [r[key] for r in c_rows],
                                    atol=1e-4, err_msg=key)
+
+
+def test_device_cv_stage_on_gpu_matches_cpu(cuda):
+    """The v1 device CV stage on the card against the same torch code on the
+    CPU: (2, 6, 256, 256) gray clips of 8-px blocks moving (-4, +2) px a
+    frame; integer block displacements equal, flow_feat 1e-5, cuts 1e-6,
+    flow_mags 1e-5 of their largest; two calls on the card bit-identical."""
+    from ultrafnd_git_tpu_torch.kernels import preprocess as pre
+
+    rng = np.random.default_rng(0)
+    base = np.kron(rng.integers(0, 256, (48, 48)), np.ones((8, 8))).astype(np.uint8)
+    # frame t shows base[4t :, 64 - 2t :]: the content moves up 4 px, right 2
+    clips = np.stack([np.stack([base[4 * t : 256 + 4 * t, 64 - 2 * t : 320 - 2 * t]
+                                for t in range(6)])] * 2)
+    gpu, cpu = pre.DeviceCVStage(device="cuda"), pre.DeviceCVStage(device="cpu")
+    g, g2, c = gpu(clips), gpu(clips), cpu(clips)
+    for k in g:
+        assert np.array_equal(g[k], g2[k]), k
+    np.testing.assert_allclose(g["flow_feat"], c["flow_feat"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(g["cuts"], c["cuts"], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(g["flow_mags"], c["flow_mags"],
+                               atol=1e-5 * float(np.abs(c["flow_mags"]).max()), rtol=0)
+    half = pre._pyr_down(pre.gray_resize(torch.from_numpy(clips).to(cuda)))
+    u, v = pre.block_match_flow(half[:, :-1].reshape(-1, 128, 128),
+                                half[:, 1:].reshape(-1, 128, 128))
+    inner = (slice(None), slice(2, -2), slice(2, -2))
+    assert abs(float(v[inner].median()) * 2 + 4.0) < 0.3  # full-raster px
+    assert abs(float(u[inner].median()) * 2 - 2.0) < 0.3
+
+
+def test_v1_ensemble_steps_through_k1_on_gpu(cuda):
+    """The v1 ensemble (E = 2, batch 8): one K1 launch a step and nothing
+    else launches it; one dropout-off gradient on the card against the CPU
+    within 1e-4 of each leaf's largest value plus 1e-9."""
+    from ultrafnd_git_tpu_torch.training import pipeline_v1 as v1
+
+    cfg = v1.V1Config(batch_size=8, ensemble_size=2)
+    gpu, cpu = v1.EnsembleTrainer(cfg, device="cuda"), v1.EnsembleTrainer(cfg, device="cpu")
+    feats, labels = v1._dummy_feature_batches(8, 8, seed=0)[0]
+    lam, perm = v1.mixup_arrays(np.random.default_rng(0), 8, 0.2)
+    g_grads = gpu.grads_of(feats, labels, lam, perm)[1]
+    c_grads = cpu.grads_of(feats, labels, lam, perm)[1]
+    for gm, cm in zip(g_grads, c_grads):
+        for part in gm:
+            for name, g in gm[part].items():
+                r = cm[part][name].numpy()
+                gap = float(np.abs(g.cpu().numpy() - r).max())
+                assert gap <= 1e-4 * float(np.abs(r).max()) + 1e-9, f"{part}.{name}"
+    before = aw.launches
+    rng = np.random.default_rng(1)
+    losses = [gpu.train_batch(feats, labels, rng) for _ in range(3)]
+    assert aw.launches - before == 3 == gpu.step_count
+    assert np.isfinite(losses).all()
+    assert gpu.predict_batch(feats).shape == (8, 2)

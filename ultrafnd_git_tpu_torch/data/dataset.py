@@ -2,8 +2,9 @@
 
 `data_complete.json` is read as one JSON array or as JSONL, after a BOM
 and any leading whitespace. Labels follow the v2 convention: 假 / fake ->
-1, 辟谣 / true / real -> 0, anything else 0. The augmentation helpers of
-the raw-media path are not ported (ROADMAP.md).
+1, 辟谣 / true / real -> 0, anything else 0. The augmentation helpers
+(`:88-125`) are numpy on the host, as there: the same draws from the same
+generator give the same results.
 """
 from __future__ import annotations
 
@@ -58,3 +59,34 @@ class FakeSVRawDataset:
             "comments": comments,
             "label": int(self.labels[idx]),
         }
+
+    # ------------------------------------------------------------------
+    # Light augmentation helpers (host numpy)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def augment_audio(audio: np.ndarray, rng: np.random.Generator | None = None) -> np.ndarray:
+        rng = rng or np.random.default_rng()
+        noise_factor = rng.uniform(0.005, 0.05)
+        return audio + noise_factor * rng.standard_normal(len(audio))
+
+    @staticmethod
+    def augment_video(video: np.ndarray, rng: np.random.Generator | None = None) -> np.ndarray:
+        """Random horizontal flip, then a random rotation by k * 90 degrees,
+        of the (H, W) plane of every frame of a (T, H, W, C) clip (of the
+        image itself for a single frame)."""
+        rng = rng or np.random.default_rng()
+        spatial = video.ndim >= 4  # (T, H, W, C) clip vs single frame
+        if rng.random() < 0.5:
+            video = np.flip(video, axis=2 if spatial else 1)
+        if rng.random() < 0.5:
+            video = np.rot90(video, k=int(rng.choice([1, 2, 3])),
+                             axes=(1, 2) if spatial else (0, 1))
+        return video
+
+    @staticmethod
+    def augment_text(text: str, rng: np.random.Generator | None = None) -> str:
+        rng = rng or np.random.default_rng()
+        words = text.split()
+        if len(words) > 2:
+            words[int(rng.integers(0, len(words)))] = "random"
+        return " ".join(words)

@@ -1,4 +1,4 @@
-"""Temporal alignment (counterpart of `models/temporal.py:25-67`, `:120-199`).
+"""Temporal alignment (counterpart of `models/temporal.py:25-67`, `:120-244`).
 
 `TemporalAlignMLP` is the module; `TemporalSyncNet` owns one with fixed
 weights and applies it to the whole corpus, as `build_feature_cache`
@@ -8,7 +8,9 @@ sqrt(fan_in)) weights and biases, the JAX package's distribution, from a
 package's `jax.random.PRNGKey(seed)` draw, so a cache built here differs
 from a JAX-built one in `temporal`, `aux[:, 0]` and `evidence[:, 2]`
 unless the JAX weights are passed in as `state_dict`
-(`utils/transfer.align_state_dict`).
+(`utils/transfer.align_state_dict`). Its two host helpers, `delay_score`
+(a length-mismatch proxy) and `estimate_av_lag` (FFT cross-correlation,
+positive when the audio arrives late), are the JAX numpy code.
 """
 from __future__ import annotations
 
@@ -106,3 +108,53 @@ class TemporalSyncNet:
         both = self._apply(torch.cat([t, t]), torch.cat([v, t]))
         n = t.shape[0]
         return both[:n], both[n:]
+
+    @staticmethod
+    def delay_score(audio_len: int, video_len: int) -> float:
+        """Length-mismatch proxy in [0,1]; 0 = matched."""
+        a = float(max(0, audio_len))
+        v = float(max(0, video_len))
+        m = max(1.0, max(a, v))
+        return float(abs(a - v) / m)
+
+    @staticmethod
+    def estimate_av_lag(
+        audio_envelope: np.ndarray,
+        mouth_open: np.ndarray,
+        sr: float = 16000.0,
+        fps: Optional[float] = None,
+        max_lag_s: float = 0.5,
+    ) -> float:
+        """FFT cross-correlation A/V lag in seconds.
+
+        Sign convention: **positive = the audio arrives late** (delayed
+        relative to the video signal); negative = the audio leads.
+
+        `fps`: sample rate of `mouth_open` when it is a per-frame video
+        signal; it is resampled to `sr` before correlating. None means
+        both signals already share rate `sr`.
+        """
+        a = np.asarray(audio_envelope, dtype=np.float32).ravel()
+        m = np.asarray(mouth_open, dtype=np.float32).ravel()
+        if fps is not None and fps > 0 and fps != sr and m.size > 1:
+            t_m = np.arange(m.size) / float(fps)
+            t_target = np.arange(int(t_m[-1] * sr) + 1) / float(sr)
+            m = np.interp(t_target, t_m, m).astype(np.float32)
+        L = min(len(a), len(m))
+        if L < 4:
+            return 0.0
+        a = (a[:L] - a[:L].mean()) / (a[:L].std() + 1e-9)
+        m = (m[:L] - m[:L].mean()) / (m[:L].std() + 1e-9)
+
+        n = 1
+        while n < 2 * L:
+            n <<= 1
+        xc = np.fft.irfft(np.fft.rfft(a, n) * np.conj(np.fft.rfft(m, n)), n)
+        xc = np.concatenate([xc[-(L - 1):], xc[:L]])
+
+        max_lag = int(max_lag_s * sr)
+        center = len(xc) // 2
+        lo = max(0, center - max_lag)
+        hi = min(len(xc), center + max_lag + 1)
+        lag_samples = (lo + int(np.argmax(xc[lo:hi]))) - center
+        return float(lag_samples / sr)

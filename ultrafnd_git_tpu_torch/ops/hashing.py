@@ -2,7 +2,8 @@
 
 The port's own copy of `ultrafnd_git_tpu/ops/hashing.py`, reduced to what
 the port calls: the salted FNV-1a hash, the process-wide featurization
-salt, `hash_embed_batch` and `token_vocabulary`. The salt here is this
+salt, `hash_embed` / `hash_embed_batch`, `stable_unit_score` and
+`token_vocabulary`. The salt here is this
 package's own process state; it does not follow the JAX package's.
 
 FNV-1a is stable across processes, hosts and Python versions, so cached
@@ -94,6 +95,24 @@ class _TokenHashCache:
 _CACHE = _TokenHashCache()
 
 
+def hash_embed(text: str, dim: int, max_tokens: int | None = None) -> np.ndarray:
+    """One text's embedding, as a row of `hash_embed_batch` on the numpy
+    path: whitespace tokens (the first `max_tokens`), +1 per token, the
+    norm + 1e-9; an empty text, or one of no tokens, stays zero."""
+    v = np.zeros(dim, dtype=np.float32)
+    if not text:
+        return v
+    toks = text.split()
+    if max_tokens is not None:
+        toks = toks[:max_tokens]
+    for tok in toks:
+        v[_CACHE.bucket(tok, dim)] += 1.0
+    n = float(np.linalg.norm(v))
+    if n == 0.0:
+        return v
+    return (v / (n + 1e-9)).astype(np.float32)
+
+
 def hash_embed_batch(
     texts: Sequence[str], dim: int, max_tokens: int | None = None
 ) -> np.ndarray:
@@ -128,6 +147,11 @@ def hash_embed_batch(
         norms = np.linalg.norm(out, axis=1, keepdims=True)
         np.divide(out, norms + 1e-9, out=out, where=norms > 0)
     return out.astype(np.float32)
+
+
+def stable_unit_score(text: str) -> float:
+    """A deterministic score in [0, 1) of a string: (fnv1a % 1000) % 100 / 100."""
+    return float((fnv1a_64(text) % 1000) % 100) / 100.0
 
 
 def token_vocabulary(token_sets: Iterable[Iterable[str]]) -> Dict[str, int]:

@@ -8,7 +8,9 @@ out) become `Linear.weight` (out, in). Fusion, classifier and GCN map to
 the reference PyTorch layout (`fusion_/classifier_/gcn_state_dict_from_params`,
 the port's copies of the functions of the JAX package's
 `utils/torch_transfer.py`), whose keys the port's modules are named after.
-The caller converts arrays to numpy.
+The v1 ensemble's stacked tree (a leading member axis on every leaf) maps
+member by member (`ensemble_state_dicts_from_params`). The caller
+converts arrays to numpy.
 
 A model directory holds `weights.pt` ({part: state_dict}, loadable with
 `torch.load(..., weights_only=True)`), `meta.json` (the checkpoint cfg
@@ -24,7 +26,7 @@ from __future__ import annotations
 import json
 import shutil
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -180,6 +182,22 @@ def port_state_dicts(
     if "text_tower" in params:
         out["text_tower"] = tower_state_dict(params["text_tower"])
     return out
+
+
+def ensemble_state_dicts_from_params(
+    params: Mapping[str, Any], node_tau: float = 10.0
+) -> List[Tuple[StateDict, StateDict]]:
+    """The v1 ensemble's stacked {"fusion", "clf"} tree (every leaf with a
+    leading (E,) member axis; params or gradients) -> E pairs of
+    (fusion, classifier) state dicts, member by member."""
+    def member(tree: Mapping[str, Any], e: int) -> Dict[str, Any]:
+        return {k: member(v, e) if isinstance(v, Mapping) else np.asarray(v)[e]
+                for k, v in tree.items()}
+
+    size = len(np.asarray(params["clf"]["temperature"]))
+    return [(fusion_state_dict(member(params["fusion"], e)),
+             classifier_state_dict_from_params(member(params["clf"], e), tau=node_tau))
+            for e in range(size)]
 
 
 def write_model_dir(
