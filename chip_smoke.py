@@ -188,7 +188,8 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      (-4, +2) px a frame (host gray uploaded, as the path does): against
      its CPU run 0 block displacements flipped, flow_feat 1e-5, cuts 1e-6,
      flow_mags 1e-5 of their largest, bit-identical over two calls on the
-     card, the median inner block flow within 0.3 px of the shift; its
+     card and over two on the CPU (the reference), the median inner block
+     flow within 0.3 px of the shift; its
      device ms, launches and upload bytes and ms (torch.profiler); (2)
      BatchFeatureExtractor.stream over 6 such batches, ms a sample in turns
      with the host cv2 ladder (stage, host, host, stage), a profiled
@@ -197,8 +198,10 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      (3) EnsembleTrainer (E = 2, fusion 512, classifier.yaml) on those
      features, batch 8, 3 passes: K1 launches = steps and nothing else,
      the dropout-off gradient on the card against the CPU within 1e-4 of
-     each leaf's largest + 1e-9, the median step, K1 at this parameter
-     count with its bound and plain version; (4) the CLI's main() on a copy
+     each leaf's largest + 1e-9, the median step, K1 on this path's leaf
+     table and no-clip mode bit for bit against the plain update from the
+     trained state, and K1 at this parameter count with its bound and plain
+     version; (4) the CLI's main() on a copy
      of the fixture's 8 records with video (--epochs 2 --batch_size 4
      --eval_every 1, then --debug): loss finite, K1 = steps, every CV stage
      dispatch on the card, decode_failures printed; the phase's and the
@@ -2607,9 +2610,11 @@ def phase_v1_train(dev, root):
     clips = v1_clips(rng)
     gray = v1.BatchFeatureExtractor._gray_host(clips)
     gpu, cpu = pre.DeviceCVStage(device=str(dev)), pre.DeviceCVStage(device="cpu")
-    first, second, ref = gpu(gray), gpu(gray), cpu(gray)
+    first, second, ref, ref2 = gpu(gray), gpu(gray), cpu(gray), cpu(gray)
     if any(not np.array_equal(first[k], second[k]) for k in first):
         raise RuntimeError("v1_train: the CV stage differs between two calls on the card")
+    if any(not np.array_equal(ref[k], ref2[k]) for k in ref):  # the reference must hold still
+        raise RuntimeError("v1_train: the CV stage differs between two calls on the CPU")
 
     def block_flow(dev):
         half = pre._pyr_down(pre.gray_resize(torch.from_numpy(gray).to(dev)))
@@ -2774,6 +2779,25 @@ def phase_v1_train(dev, root):
     n_params = sum(p.numel() for m in trainer.params.values() for p in m.parameters())
     leaves = trainer.tx._leaves(trainer.params, trainer.opt_state, trainer._grad_bufs)
     scal = trainer.tx.scalars(trainer._grad_bufs, trainer.opt_state["count"])
+    # K1 on this path's table and mode (210 leaves of two members, no clip of
+    # its own, the members' pre-scaled grads) bit for bit against the plain
+    # update, each on its own copy of the trained state
+    fused_copy = [tuple(t.clone() for t in leaf) for leaf in leaves]
+    plain_copy = [tuple(t.clone() for t in leaf) for leaf in leaves]
+    scalar_before = aw.scalar_leaves
+    aw.fused_adamw_(fused_copy, scal)
+    for leaf in plain_copy:
+        aw.adamw_reference_(*leaf, scal)
+    torch.cuda.synchronize()
+    k1_err = 0.0
+    for i, (a, b) in enumerate(zip(fused_copy, plain_copy)):
+        for t, (x, y) in enumerate(zip(a[:3], b[:3])):  # p, m, v
+            if not torch.equal(x, y):
+                raise RuntimeError(f"v1_train: K1 differs from the plain update at leaf {i} "
+                                   f"({'pmv'[t]})")
+            k1_err = max(k1_err, _max_err(x, y))
+    k1_scalar_leaves = aw.scalar_leaves - scalar_before
+    del fused_copy, plain_copy
     k1_ms = _median_ms(lambda: aw.fused_adamw_(leaves, scal), runs=20, calls=5)
     k1_plain_ms = _median_ms(lambda: [aw.adamw_reference_(*leaf, scal) for leaf in leaves],
                              runs=10, calls=2, lead=False)
@@ -2785,7 +2809,9 @@ def phase_v1_train(dev, root):
         step_idle_share=max(0.0, 1.0 - step_device_ms / statistics.median(step_ms[1:])),
         losses=json.dumps([round(x, 6) for x in losses[:: V1_STREAM_BATCHES]]),
         gpu_vs_cpu_grad_max_rel=worst[0], worst_leaf=worst[1], grad_floor=V1_GRAD_FLOOR,
-        probs_finite=bool(np.isfinite(probs).all()), k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
+        probs_finite=bool(np.isfinite(probs).all()), k1_vs_plain_max_abs_err=k1_err,
+        k1_bit_identical=True, k1_scalar_leaves=k1_scalar_leaves, k1_ms=k1_ms,
+        k1_plain_ms=k1_plain_ms,
         **_bound(4 * 7 * n_params, ADAMW_FLOP * n_params, F32_FLOPS))
 
     # 4. the CLI on the fixture's records with video, then --debug

@@ -134,6 +134,33 @@ def test_adamw_reference_is_optax_order_one_leaf():
     np.testing.assert_array_equal(tv.numpy(), v1)
 
 
+def test_no_clip_scalars_take_no_norm(monkeypatch):
+    """Without a clip (the v1 ensemble's optax.adamw) the scalar row takes no
+    global norm and holds 0 in its gnorm slot, and the update from it equals
+    the update from a row that carries the true norm, bit for bit."""
+    rng = np.random.default_rng(5)
+    grads = {"x": {"a": torch.tensor(rng.normal(size=(33,)).astype(np.float32)),
+                   "b": torch.tensor(rng.normal(size=(7, 5)).astype(np.float32))}}
+
+    def no_norm(_):
+        raise AssertionError("global_norm taken without a clip")
+
+    monkeypatch.setattr(aw, "global_norm", no_norm)
+    scal = aw.AdamW(lambda c: 1e-3, weight_decay=1e-2, grad_clip=0.0).scalars(grads, 3)
+    assert scal.dtype == torch.float32 and scal.shape == (16,)
+    assert float(scal[0]) == 0.0 and float(scal[9]) == 0.0  # gnorm, has_clip
+    carried = scal.clone()
+    carried[0] = torch.sqrt(sum((g * g).sum() for g in grads["x"].values()))
+    p0 = rng.normal(size=(33,)).astype(np.float32)
+    outs = []
+    for row in (scal, carried):
+        leaf = [torch.tensor(p0), torch.full((33,), 0.1), torch.full((33,), 0.2)]
+        aw.adamw_reference_(*leaf, grads["x"]["a"], row)
+        outs.append(leaf)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def test_kernel_route_rejects_what_it_cannot_take():
     p = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="no AdamW kernel"):

@@ -17,6 +17,7 @@ Predictor (the JAX suite's own envelope, tests/test_serving.py:133), and
 the labels agree.
 """
 import importlib.util
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -150,7 +151,8 @@ def exported(tower_ckpt, tmp_path_factory):
     spec.loader.exec_module(mod)
     out = tmp_path_factory.mktemp("torch_model")
     mod.export(tower_ckpt["out"], str(out))
-    return str(out)
+    yield str(out)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 @pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "bf16_quantize"])

@@ -71,6 +71,14 @@ FIT_PROB = 2e-2
 
 
 @pytest.fixture(autouse=True)
+def _drop_run_dirs(tmp_path):
+    """Delete the test's run directories when it ends: one checkpoint's state.pt is
+    ~150 MB, and what the tests leave behind would otherwise fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture(autouse=True)
 def _keep_salts():
     """The trainer and the Predictor set each package's process-wide salt."""
     prev = port_hashing.get_hash_salt(), jax_hashing.get_hash_salt()

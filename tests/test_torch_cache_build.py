@@ -53,6 +53,14 @@ def salted(salt):
         port_hashing.set_hash_salt(prev[1])
 
 
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(tmp_path):
+    """Delete the test's run directories when it ends: one checkpoint's state.pt is
+    ~150 MB, and what the tests leave behind would otherwise fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def encoders():
     """(JAX encoders, the port's with the JAX align params)."""

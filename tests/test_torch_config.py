@@ -10,6 +10,7 @@ Predictor serves them. The shipped files give the dims the port had
 before it read them.
 """
 import json
+import shutil
 from pathlib import Path
 
 import jax
@@ -30,6 +31,14 @@ REPO = Path(__file__).resolve().parents[1]
 TINY = str(REPO / "tests" / "fixtures" / "fakesv_tiny")
 FUSION_256 = "# a wider fusion\nhidden_dim: 256   # was 512\ndropout: 0.2\n\nuse_gnn: true\n"
 CLF_128 = "hidden_dim: 128\nnode_trees: 3\nnode_depth: 2\ntemperature: 1.5\n"
+
+
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(tmp_path):
+    """Delete the test's run directories when it ends: one checkpoint's state.pt is
+    ~150 MB, and what the tests leave behind would otherwise fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("text,expected", [

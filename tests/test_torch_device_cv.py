@@ -109,6 +109,28 @@ def test_static_clip_has_zero_flow_and_tamper():
     assert float(out["tamper"][0]) == 0.0
 
 
+def test_cpu_stage_is_deterministic_at_any_thread_count():
+    """The CPU stage is the reference the card's is held to: over two calls
+    and at 1, 2 and the default number of threads its cues are identical."""
+    rng = np.random.default_rng(12)
+    base = np.kron(rng.integers(0, 256, (2, 48, 48, 3), dtype=np.uint8),
+                   np.ones((1, 8, 8, 1), np.uint8))
+    clip = np.stack([base[:, 4 * t : 4 * t + 256, 64 - 2 * t : 320 - 2 * t]
+                     for t in range(4)], axis=1)  # (2, 4, 256, 256, 3), moving (-4, +2)
+    stage = port_pre.DeviceCVStage(device="cpu")
+    ref = stage(clip)
+    threads = torch.get_num_threads()
+    try:
+        for n in (threads, 1, 2):
+            torch.set_num_threads(n)
+            out = stage(clip)
+            for k in ref:
+                assert np.array_equal(out[k], ref[k]), (k, n)
+    finally:
+        torch.set_num_threads(threads)
+    assert float(ref["flow_mags"].max()) > 0
+
+
 def test_block_match_recovers_translation():
     """Content moved up 3 px and left 2 px: v = -3, u = -2."""
     rng = np.random.default_rng(1)

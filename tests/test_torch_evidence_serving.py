@@ -13,6 +13,7 @@ the HTTP batcher's featurize / predict_featurized split give the f32 rows.
 """
 import importlib.util
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -35,7 +36,8 @@ def evidence_ckpt(fixture_data_root, tmp_path_factory):
         data_root=fixture_data_root, out_dir=str(out), batch_size=8, epochs=1, seed=0,
         log_metrics_jsonl=False, use_evidence=True, train_text_tower=True,
         text_tower_depth=1, text_tower_heads=4)).fit()
-    return str(out)
+    yield str(out)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +48,8 @@ def exported(evidence_ckpt, tmp_path_factory):
     spec.loader.exec_module(mod)
     out = tmp_path_factory.mktemp("evidence_model")
     mod.export(evidence_ckpt, str(out))
-    return str(out)
+    yield str(out)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

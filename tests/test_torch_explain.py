@@ -17,6 +17,7 @@ held by its solver and its axioms, not its samples:
 """
 import importlib.util
 import json
+import shutil
 from pathlib import Path
 
 import jax
@@ -136,7 +137,8 @@ def exported(tower_ckpt, tmp_path_factory):
     spec.loader.exec_module(mod)
     out = tmp_path_factory.mktemp("torch_model")
     mod.export(tower_ckpt["out"], str(out))
-    return str(out)
+    yield str(out)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -785,3 +785,32 @@ def test_v1_ensemble_steps_through_k1_on_gpu(cuda):
     assert aw.launches - before == 3 == gpu.step_count
     assert np.isfinite(losses).all()
     assert gpu.predict_batch(feats).shape == (8, 2)
+
+
+def test_v1_ensemble_k1_step_equals_plain_update_on_gpu(cuda):
+    """Two steps of the v1 ensemble through K1 (its 2-member leaf table, no
+    clip of its own, each member's grads scaled by its own clip, member 0's
+    over it) against the same steps through the plain update on the card,
+    from the same state: params, mu and nu bit for bit."""
+    from ultrafnd_git_tpu_torch.training import pipeline_v1 as v1
+
+    cfg = v1.V1Config(batch_size=8, ensemble_size=2)
+    fused, plain = v1.EnsembleTrainer(cfg, device="cuda"), v1.EnsembleTrainer(cfg, device="cuda")
+    plain.tx = aw.AdamW(fused.tx.schedule, fused.tx.weight_decay, fused.tx.grad_clip)
+    feats, labels = v1._dummy_feature_batches(8, 8, seed=0)[0]
+    lam, perm = v1.mixup_arrays(np.random.default_rng(0), 8, 0.2)
+    before = aw.launches
+    for step in range(2):
+        grads = fused.grads_of(feats, labels, lam, perm)[1]
+        grads[0] = {part: {n: g * 1e3 for n, g in d.items()} for part, d in grads[0].items()}
+        fused.apply_grads(grads)
+        plain.apply_grads(grads)
+    torch.cuda.synchronize()
+    assert aw.launches - before == 2
+    for part, mod in fused.params.items():
+        other = dict(plain.params[part].named_parameters())
+        for n, p in mod.named_parameters():
+            assert torch.equal(p, other[n]), f"{part}.{n}"
+            for slot in ("mu", "nu"):
+                assert torch.equal(fused.opt_state[slot][part][n],
+                                   plain.opt_state[slot][part][n]), f"{slot} {part}.{n}"

@@ -19,15 +19,30 @@ from ultrafnd_git_tpu.models import audio as jax_audio
 from ultrafnd_git_tpu.models import chronos as jax_chronos
 from ultrafnd_git_tpu.models import visual as jax_visual
 from ultrafnd_git_tpu.models.temporal import TemporalSyncNet as JaxSync
+from ultrafnd_git_tpu.ops import hashing as jax_hashing
 from ultrafnd_git_tpu_torch.data import media as port_media
 from ultrafnd_git_tpu_torch.models import audio as port_audio
 from ultrafnd_git_tpu_torch.models import chronos as port_chronos
 from ultrafnd_git_tpu_torch.models import visual as port_visual
 from ultrafnd_git_tpu_torch.models.temporal import TemporalSyncNet as PortSync
+from ultrafnd_git_tpu_torch.ops import hashing as port_hashing
 
 REPO = Path(__file__).resolve().parents[1]
 VIDEOS = sorted((REPO / "tests" / "fixtures" / "fakesv_tiny" / "videos").glob("*.avi"))
 FRAMES = 6
+
+
+@pytest.fixture(autouse=True)
+def _same_salts():
+    """Strings hash under each package's process-wide salt, which a module run
+    before this one in the same process may have left set in only one of them:
+    give both the unsalted basis for each test, then put back what was there."""
+    prev = port_hashing.get_hash_salt(), jax_hashing.get_hash_salt()
+    port_hashing.set_hash_salt("")
+    jax_hashing.set_hash_salt("")
+    yield
+    port_hashing.set_hash_salt(prev[0])
+    jax_hashing.set_hash_salt(prev[1])
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ stay f32. The quantized port Predictor matches the JAX
 `Predictor(quantize=True)` within 1e-4 on prob_fake and the forensic keys.
 """
 import importlib.util
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -91,7 +92,8 @@ def exported(tower_ckpt, tmp_path_factory):
     spec.loader.exec_module(mod)
     out = tmp_path_factory.mktemp("torch_model")
     mod.export(tower_ckpt["out"], str(out))
-    return str(out)
+    yield str(out)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ file run as a script:
 """
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -31,6 +32,14 @@ if __name__ != "__main__":  # the worker runs without pytest's path to the tests
 CLI = ["--train_text_tower", "--text_tower_depth", "2", "--text_tower_heads", "4",
        "--moe_experts", "4", "--batch_size", "8", "--epochs", "2", "--seed", "0",
        "--save_every_steps", "2", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(tmp_path):
+    """Delete the test's run directories when it ends: one checkpoint's state.pt is
+    ~150 MB, and what the tests leave behind would otherwise fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _worker(model_dir: str, out_dir: str, kill: bool, extra) -> None:

@@ -11,6 +11,7 @@ records exactly as the export of a direct `--hash_salt <winner>` run does
 the winner's salt live.
 """
 import json
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +27,14 @@ REPO = Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "fakesv_tiny"
 CLI = ["--data_root", str(FIXTURE), "--epochs", "1", "--batch_size", "8", "--seed", "0",
        "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(tmp_path):
+    """Delete the test's run directories when it ends: one checkpoint's state.pt is
+    ~150 MB, and what the tests leave behind would otherwise fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)

@@ -11,6 +11,7 @@ a fresh process that loads no module of jax or of ultrafnd_git_tpu (its
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -44,7 +45,8 @@ def exported(tower_ckpt, tmp_path_factory):
     spec.loader.exec_module(mod)
     out = tmp_path_factory.mktemp("torch_model")
     mod.export(tower_ckpt["out"], str(out))
-    return str(out)
+    yield str(out)
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def _serve(predictor, **kw):

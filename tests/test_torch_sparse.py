@@ -17,6 +17,7 @@ package on the CPU.
 """
 import json
 import os
+import shutil
 import warnings
 
 import jax
@@ -51,6 +52,14 @@ def _cache(n=96, seed=0):
            for k, w in (("text", 768), ("audio", 128), ("visual", 512), ("temporal", 256))},
         "ocr_sets": _random_sets(n, seed + 1),
     }
+
+
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(tmp_path):
+    """Delete the test's run directories when it ends: one checkpoint's state.pt is
+    ~150 MB, and what the tests leave behind would otherwise fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["binary", "weighted"])
@@ -156,14 +165,16 @@ def bridged(jax_sparse, tmp_path_factory):
     from ultrafnd_git_tpu_torch.data.cache import load_cache
 
     cache = load_cache(os.path.join(jax_sparse.cfg.out_dir, "feature_cache.npz"))
+    out = tmp_path_factory.mktemp("port_sparse")
     pt = port.ForensicTrainer(port.TrainConfig(
-        out_dir=str(tmp_path_factory.mktemp("port_sparse")), batch_size=8, epochs=1, seed=0,
+        out_dir=str(out), batch_size=8, epochs=1, seed=0,
         sparse_graph=True), cache=cache, device="cpu")
     assert "a_norm" not in pt.corpus and pt.corpus["nbr_idx"].dtype == torch.int64
     sds = port_state_dicts(jax.device_get(jax_sparse.state.params), None, node_tau=10.0)
     for part, mod in pt.state.params.items():
         mod.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in sds[part].items()})
-    return pt
+    yield pt
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def test_sparse_training_gradient_matches_jax(jax_sparse, bridged):

@@ -11,6 +11,7 @@ seven flags that train the MoE tower, remat, mid-epoch slots, the
 profile, the NaN checks and the salt search.
 """
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,14 @@ from ultrafnd_git_tpu_torch.training import trainer as port
 REPO = Path(__file__).resolve().parents[1]
 PARALLEL = {"dp": 2, "tp": 2, "dcn": 2, "sp": 2, "pp": 2, "shard_corpus": True,
             "shard_graph": True}
+
+
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(tmp_path):
+    """Delete the test's run directories when it ends: one checkpoint's state.pt is
+    ~150 MB, and what the tests leave behind would otherwise fill the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _cfg(tmp_path, **kw):

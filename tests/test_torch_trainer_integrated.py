@@ -201,7 +201,8 @@ def fitted(fixture_data_root, tmp_path_factory):
     t = port.IntegratedForensicTrainer(cfg, device="cpu")
     results = t.train()
     assert aw.launches == before  # the CPU path runs the plain update
-    return str(out), t, results
+    yield str(out), t, results
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def test_train_and_test_write_finite_metrics_and_slots(fitted):

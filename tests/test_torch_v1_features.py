@@ -25,9 +25,11 @@ import jax
 import numpy as np
 import pytest
 
+from ultrafnd_git_tpu.ops import hashing as jax_hashing
 from ultrafnd_git_tpu.training import pipeline_v1 as jax_v1
 from ultrafnd_git_tpu_torch.data import media as port_media
 from ultrafnd_git_tpu_torch.models.temporal import TemporalSyncNet
+from ultrafnd_git_tpu_torch.ops import hashing as port_hashing
 from ultrafnd_git_tpu_torch.training import pipeline_v1 as port_v1
 from ultrafnd_git_tpu_torch.utils.transfer import align_state_dict
 
@@ -36,6 +38,19 @@ TINY = REPO / "tests" / "fixtures" / "fakesv_tiny"
 ALIGN_ATOL = 1e-5
 STAGE_ATOL = 1e-5
 FRAMES = 8
+
+
+@pytest.fixture(autouse=True)
+def _same_salts():
+    """Strings hash under each package's process-wide salt, which a module run
+    before this one in the same process may have left set in only one of them:
+    give both the unsalted basis for each test, then put back what was there."""
+    prev = port_hashing.get_hash_salt(), jax_hashing.get_hash_salt()
+    port_hashing.set_hash_salt("")
+    jax_hashing.set_hash_salt("")
+    yield
+    port_hashing.set_hash_salt(prev[0])
+    jax_hashing.set_hash_salt(prev[1])
 
 
 @pytest.fixture(scope="module")

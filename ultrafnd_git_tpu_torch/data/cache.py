@@ -103,7 +103,6 @@ def make_encoders(
     with_evidence: bool = True,
     device: str = "cuda",
     text_device: Optional[str] = None,
-    media: bool = False,
 ) -> Dict[str, Any]:
     """The encoder set of the cache contract, built once and reusable:
     "text", "audio", "flow", "ela", "tsync" and, `with_evidence`,
@@ -111,26 +110,14 @@ def make_encoders(
     on `device` (cuda by default; raises without a GPU). The text ladder
     (`models/encoders.TextFieldEncoder`) runs its tower rung, when
     `ULTRAFND_TEXT_DEVICE=1` selects it, on `text_device` (default
-    `device`). "audio", "flow" and "ela" are the text-proxy hash rungs,
-    or with `media` the encoders that also take waveforms and frames
-    (`models/audio.SpectralForensics`, `models/visual.OpticalFlow3DCNN`
-    and `DeepForgeryDetector`, the JAX set), whose text proxies embed
-    the same."""
+    `device`)."""
     dev = resolve_device(device)
-    if media:
-        from ultrafnd_git_tpu_torch.models.audio import SpectralForensics
-        from ultrafnd_git_tpu_torch.models.visual import DeepForgeryDetector, OpticalFlow3DCNN
-
-        audio, flow, ela = (SpectralForensics(audio_dim), OpticalFlow3DCNN(visual_dim // 2),
-                            DeepForgeryDetector(visual_dim // 2))
-    else:
-        audio = ProxyTextEncoder(audio_dim)
-        flow = ela = ProxyTextEncoder(visual_dim // 2)  # flow and ELA: one hash rung
+    proxy = ProxyTextEncoder(visual_dim // 2)  # flow and ELA: one hash rung
     enc: Dict[str, Any] = {
         "text": TextFieldEncoder(text_dim, device=text_device or str(dev)),
-        "audio": audio,
-        "flow": flow,
-        "ela": ela,
+        "audio": ProxyTextEncoder(audio_dim),
+        "flow": proxy,
+        "ela": proxy,
         "tsync": TemporalSyncNet(text_dim, temporal_dim, seed=seed, device=str(dev)),
     }
     if with_evidence:

@@ -108,10 +108,11 @@ class AdamW:
 
     def scalars(self, grads: Tensors, count: int) -> torch.Tensor:
         """The (16,) f32 scalar row (slot layout of csrc/adamw.cu), on the
-        grads' device: only gnorm is computed there, the rest on the host."""
+        grads' device: only gnorm is computed there, the rest on the host.
+        Without a clip nothing reads gnorm, so its slot holds 0 and no norm
+        is taken."""
         leaves = [g for part, d in grads.items() if part not in self.frozen
                   for g in d.values()]
-        gnorm = global_norm(leaves).to(torch.float32)
         f32 = np.float32
         host = np.array(
             [
@@ -132,6 +133,9 @@ class AdamW:
             ],
             dtype=np.float32,
         )
+        if self.grad_clip <= 0:
+            return to_device(torch.from_numpy(host), leaves[0].device)
+        gnorm = global_norm(leaves).to(torch.float32)
         host_t = to_device(torch.from_numpy(host[1:]), gnorm.device)
         return torch.cat([gnorm.reshape(1), host_t])
 

@@ -50,11 +50,13 @@ from ultrafnd_git_tpu_torch.data.media import (
     multimodal_collate,
 )
 from ultrafnd_git_tpu_torch.kernels.adamw import FusedAdamW, global_norm
+from ultrafnd_git_tpu_torch.models.audio import SpectralForensics
 from ultrafnd_git_tpu_torch.models.chronos import ChronosGuard, cut_scores
 from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
 from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
 from ultrafnd_git_tpu_torch.models.initializers import jax_init_
 from ultrafnd_git_tpu_torch.models.visual import (
+    DeepForgeryDetector,
     OpticalFlow3DCNN,
     ensure_gray,
     frames_from_input,
@@ -140,13 +142,15 @@ class BatchFeatureExtractor:
         from ultrafnd_git_tpu_torch.data.cache import make_encoders
 
         self.device = resolve_device(device)
-        enc = make_encoders(seed=seed, device=str(self.device), media=True)
+        enc = make_encoders(seed=seed, device=str(self.device))
         self.text_enc = enc["text"]
-        self.audio_enc = enc["audio"]
-        self.flow = enc["flow"]
+        # the cache's audio / flow / ELA entries are text proxies: v1 takes
+        # the encoders that read waveforms and frames, at the same widths
+        self.audio_enc = SpectralForensics(dim=128)
+        self.flow = OpticalFlow3DCNN(dim=256)
         # cv2 algorithm objects are stateful: each pool thread gets its own
         self._tls = threading.local()
-        self.ela = enc["ela"]
+        self.ela = DeepForgeryDetector(dim=256)
         self.tsync = enc["tsync"]
         self.affective = enc["affective"]
         self.chronos = ChronosGuard.from_config()
