@@ -206,6 +206,28 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      --eval_every 1, then --debug): loss finite, K1 = steps, every CV stage
      dispatch on the card, decode_failures printed; the phase's and the
      script's wall time;
+ 11g. mesh_train — the mesh layer on phase 4's model at full width (batch 512,
+     N = 5376, one epoch = 8 steps, seed 0): (a) a world of one over NCCL,
+     through the training CLI's main() in this process with --multihost
+     --dp 1 --tp 1 --shard_corpus --shard_graph and a local coordinator
+     (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES=1), against the same CLI
+     without the mesh flags: the 8 step losses, the val and test losses and
+     every parameter within 1e-6 relative (bit identity printed); launches
+     K2 = depth x (steps + eval chunks), K3/K4 = depth x steps, K1 = steps +
+     2; then steps of both trainers in turns (plain, mesh, mesh, plain):
+     the median step of each, the collectives a step launches and each
+     one's time between two synchronisations, and a profiled step of each:
+     device ms, the NCCL kernels' ms, the idle share;
+     (b) two ranks sharing the card over gloo (CUDA tensors reduced through
+     the host), each a process of its own that joins the group itself and
+     builds the trainer at --tp 2, then at --dp 2, 4 steps each, against
+     4 steps of the plain trainer in this process: the losses within 1e-6
+     of (a)'s first 4 and of the plain run's, the same on both ranks, the
+     clip's global norm of each step, and the parameters and AdamW
+     moments (the tp shards gathered) as whole trees, within 1e-6
+     relative of the plain run's, each moment leaf within 1e-2 relative
+     L2, and the replicated parameters bit-identical across the ranks
+     (sha256); (a)'s NCCL group is destroyed before (b);
  12. a check that no module of jax or of the JAX package ultrafnd_git_tpu
      was loaded (server threads included), a JSON line of the kernels, then
      the JSON result line.
@@ -322,6 +344,59 @@ def save_then_die(directory, name, state, meta):
 
 ckpt.save_checkpoint = save_then_die
 main(sys.argv[1:])
+"""
+MESH_REL = 1e-6  # mesh_train: a mesh vs the plain trainer, losses, norms and leaves (relative)
+MESH_GLOO_TOL = 1e-6  # mesh_train (b): two gloo ranks' losses vs (a)'s and the plain run's
+# mesh_train (b): each leaf of the AdamW moments, relative L2 to the plain run's. A
+# gradient summed twice, or short of a rank's share, moves its leaf's mu by 50-100%;
+# a leaf whose gradient is a cancelling sum (a forest threshold's, over 512 rows)
+# rounds to ~6e-4 when tp or dp reorders that sum
+MESH_LEAF_REL = 1e-2
+MESH_GLOO_STEPS = 4
+MESH_GLOO_LAYOUTS = (("tp2", {"tp": 2}), ("dp2", {"dp": 2}))
+MESH_GLOO_WORKER = """
+import hashlib, json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import torch
+from ultrafnd_git_tpu_torch.kernels.adamw import AdamW
+from ultrafnd_git_tpu_torch.parallel import collectives as coll
+from ultrafnd_git_tpu_torch.parallel.mesh import maybe_initialize_distributed, split_dim
+from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+layout, cfg, steps = json.loads(sys.argv[1]), json.loads(sys.argv[2]), int(sys.argv[3])
+if not maybe_initialize_distributed(backend="gloo"):
+    raise SystemExit("no coordinator")
+norms, scalars = [], AdamW.scalars
+
+def recorded(self, grads, count):  # the clip's global norm of each step
+    row = scalars(self, grads, count)
+    norms.append(float(row[0]))
+    return row
+
+AdamW.scalars = recorded
+t = ForensicTrainer(TrainConfig(**cfg, **layout), device="cuda")
+losses, step_ms = [], []
+for chunk, mask, _ in t.epoch_batches(t.tr_idx, True)[:steps]:
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    loss = t.train_step(chunk, mask)[0].detach().clone()
+    coll.all_reduce_(loss, t._data)  # the step's loss from every data rank's share
+    torch.cuda.synchronize()
+    step_ms.append(1e3 * (time.perf_counter() - s))
+    losses.append(float(loss))
+digest = hashlib.sha256()
+for part, mod in sorted(t.state.params.items()):
+    for name, p in sorted(mod.state_dict().items()):
+        if split_dim(part, name) is None:
+            digest.update(p.detach().cpu().numpy().tobytes())
+full = t.state.state_dict()  # the tp shards gathered (collective)
+torch.save({"params": full["params"], "mu": full["opt_state"]["mu"],
+            "nu": full["opt_state"]["nu"]}, f"{cfg['out_dir']}/state.rank{t.mesh.rank}.pt")
+print("RESULT " + json.dumps({"rank": t.mesh.rank, "coords": t.mesh.coords,
+                              "backend": t.mesh.backend, "device": str(t.device),
+                              "losses": losses, "norms": norms, "step_ms": step_ms,
+                              "replicated_sha256": digest.hexdigest()}), flush=True)
+torch.distributed.destroy_process_group()
 """
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd",
            "flash_attention_bwd_bf16", "adamw")
@@ -1009,6 +1084,16 @@ def _leaf_gaps(g_gpu, g_cpu):
             worst = max(worst, (rel, f"{part}.{name}"))
             worst_l2 = max(worst_l2, (l2, f"{part}.{name}"))
     return worst, worst_l2
+
+
+def _tree_gap(got, ref):
+    """The relative L2 error of a whole tree of tensors (every leaf at once)."""
+    import torch
+
+    pairs = [(got[part][name].cpu().double(), c.double())
+             for part, leaves in ref.items() for name, c in leaves.items()]
+    err = sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+    return (err / max(sum(float((b ** 2).sum()) for _, b in pairs), 1e-300)) ** 0.5
 
 
 def profile_step(trainer, median_step_ms, rows=12, phase="profile", step=None):
@@ -2867,6 +2952,273 @@ def phase_v1_train(dev, root):
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _plain_gloo_reference(cfg, out_dir):
+    """The plain trainer's first MESH_GLOO_STEPS steps of `cfg` on the card,
+    the reference of mesh_train (b): their losses, the clip norm of every
+    AdamW update (the GCN warm start's first), and the parameters and
+    AdamW moments after them (on the CPU)."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels.adamw import AdamW
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+    norms, scalars = [], AdamW.scalars
+
+    def recorded(self, grads, count):
+        row = scalars(self, grads, count)
+        norms.append(float(row[0]))
+        return row
+
+    AdamW.scalars = recorded
+    try:
+        t = ForensicTrainer(TrainConfig(**cfg, out_dir=str(out_dir)), device="cuda")
+        losses = [float(t.train_step(c, m)[0])
+                  for c, m, _ in t.epoch_batches(t.tr_idx, True)[:MESH_GLOO_STEPS]]
+    finally:
+        AdamW.scalars = scalars
+    full = t.state.state_dict()
+    cpu = lambda tree: {part: {k: v.cpu() for k, v in sd.items()}  # noqa: E731
+                        for part, sd in tree.items()}
+    ref = {"losses": losses, "norms": norms, "params": cpu(full["params"]),
+           "mu": cpu(full["opt_state"]["mu"]), "nu": cpu(full["opt_state"]["nu"])}
+    del t, full
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _profile_mesh_step(step, median_ms, label):
+    """(device ms, NCCL kernels' ms, their count, idle share) of one
+    profiled step; its six longest kernels are printed under `label`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log("mesh_train", step=label, kernel=json.dumps(e.key[:90]), calls=e.count,
+            device_ms=e.self_device_time_total / 1e3)
+    return (device_ms, sum(e.self_device_time_total for e in nccl) / 1e3,
+            sum(e.count for e in nccl), max(0.0, 1.0 - device_ms / median_ms))
+
+
+def phase_mesh_train(model_dir, root):
+    """(a) the world-1 NCCL mesh through the CLI against the plain CLI run;
+    (b) two gloo ranks on the card at --tp 2 and --dp 2. Returns (a)'s
+    launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from ultrafnd_git_tpu_torch.parallel import collectives as coll
+    from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer
+
+    argv = ["--model_dir", str(model_dir), "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+            "--seed", "0", "--train_text_tower", "--text_tower_depth", str(TOWER["depth"]),
+            "--text_tower_heads", str(TOWER["heads"]), "--tower_gelu", TOWER["gelu"],
+            "--fused_adamw"]
+    mesh_flags = ["--multihost", "--dp", "1", "--tp", "1", "--shard_corpus", "--shard_graph"]
+    runs = {}
+    train_step, init = ForensicTrainer.train_step, ForensicTrainer.__init__
+
+    def timed_step(self, idx, mask):
+        run = runs[self.cfg.out_dir]
+        torch.cuda.synchronize()
+        calls, s = coll.calls, time.perf_counter()
+        result = train_step(self, idx, mask)
+        run["losses"].append(float(result[0]))
+        torch.cuda.synchronize()
+        run["step_ms"].append(1e3 * (time.perf_counter() - s))
+        run["collectives"].append(coll.calls - calls)
+        return result
+
+    def kept_init(self, cfg, *a, **kw):
+        runs[cfg.out_dir] = {"losses": [], "step_ms": [], "collectives": [], "trainer": self}
+        init(self, cfg, *a, **kw)
+
+    env = {"JAX_COORDINATOR_ADDRESS": f"localhost:{_free_port()}", "JAX_NUM_PROCESSES": "1",
+           "JAX_PROCESS_ID": "0"}
+    ForensicTrainer.train_step, ForensicTrainer.__init__ = timed_step, kept_init
+    try:
+        plain_dir, mesh_dir = str(root / "plain_cli_run"), str(root / "mesh_cli_run")
+        t0 = time.perf_counter()
+        plain_results, _ = _train_cli(argv + ["--out_dir", plain_dir])
+        plain_s = time.perf_counter() - t0
+        os.environ.update(env)
+        _reset_counts()  # this path's run only
+        coll.calls = 0
+        t1 = time.perf_counter()
+        mesh_results, said = _train_cli(argv + ["--out_dir", mesh_dir] + mesh_flags)
+        mesh_s = time.perf_counter() - t1
+        launches = _launch_counts()
+    finally:
+        ForensicTrainer.train_step, ForensicTrainer.__init__ = train_step, init
+        for k in env:
+            os.environ.pop(k, None)
+    plain, mesh = runs[plain_dir], runs[mesh_dir]
+    pt, mt = plain["trainer"], mesh["trainer"]
+    if mt.mesh is None or mt.mesh.backend != "nccl" or dist.get_world_size() != 1 \
+            or "multi-host: no coordinator configured" not in said:
+        raise RuntimeError(f"mesh_train (a) did not run a world of one over NCCL: {mt.mesh}")
+    steps = len(mesh["losses"])
+    chunks = sum(-(-len(s) // TRAIN_BATCH) for s in (mt.va_idx, mt.te_idx))
+    depth = TOWER["depth"]
+    expect = {"fwd": depth * (steps + chunks), "fwd_bf16": 0, "bwd": depth * steps,
+              "bwd_bf16": 0, "adamw": steps + 2}
+    if steps != -(-len(mt.tr_idx) // TRAIN_BATCH) or launches != expect:
+        raise RuntimeError(f"mesh_train launches {launches} over {steps} steps, "
+                           f"expected {expect}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"], plain["losses"])]
+    rows = {d: [json.loads(ln) for ln in (Path(d) / "metrics.jsonl").read_text().splitlines()]
+            for d in (plain_dir, mesh_dir)}
+    for key in ("train_loss", "val_loss"):
+        loss_rel.append(abs(rows[mesh_dir][0][key] - rows[plain_dir][0][key])
+                        / abs(rows[plain_dir][0][key]))
+    loss_rel.append(abs(mesh_results["test_loss"] - plain_results["test_loss"])
+                    / abs(plain_results["test_loss"]))
+    final = {name: {part: {k: v.cpu() for k, v in mod.state_dict().items()}
+                    for part, mod in t.state.params.items()}
+             for name, t in (("plain", pt), ("mesh", mt))}
+    (leaf_rel, _), _ = _leaf_gaps(final["mesh"], final["plain"])
+    identical = mesh["losses"] == plain["losses"] and all(
+        torch.equal(final["mesh"][part][k], v) for part, sd in final["plain"].items()
+        for k, v in sd.items())
+    if len(mesh["losses"]) != len(plain["losses"]) or max(loss_rel) > MESH_REL \
+            or leaf_rel > MESH_REL:
+        raise RuntimeError(f"mesh_train (a): the mesh differs from the plain trainer: losses "
+                           f"{max(loss_rel)}, parameters {leaf_rel} (bound {MESH_REL})")
+    log("mesh_train", layout="(a) world 1, NCCL, CLI --multihost --dp 1 --tp 1 "
+        "--shard_corpus --shard_graph", steps=steps,
+        launches=json.dumps(launches, separators=(",", ":")),
+        expected=json.dumps(expect, separators=(",", ":")),
+        losses=json.dumps(mesh["losses"]), plain_losses=json.dumps(plain["losses"]),
+        max_loss_rel=max(loss_rel), max_leaf_rel=leaf_rel, bit_identical=identical,
+        collectives_a_step=json.dumps(mesh["collectives"]),
+        cli_s=mesh_s, plain_cli_s=plain_s)
+
+    # steps in turns on one batch: plain, mesh, mesh, plain
+    chunk, mask, _ = mt.epoch_batches(mt.tr_idx, True)[0]
+    times = {"plain": [], "mesh": []}
+    calls = []
+    for _ in range(3):
+        for name, t in (("plain", pt), ("mesh", mt), ("mesh", mt), ("plain", pt)):
+            torch.cuda.synchronize()
+            c, s = coll.calls, time.perf_counter()
+            t.train_step(chunk, mask)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - s))
+            if name == "mesh":
+                calls.append(coll.calls - c)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    # the collectives' own time in one step: each all-reduce between two
+    # synchronisations (host clock)
+    all_reduce, spent = dist.all_reduce, []
+
+    def timed_all_reduce(*a, **kw):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = all_reduce(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(1e3 * (time.perf_counter() - s))
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        mt.train_step(chunk, mask)
+    finally:
+        dist.all_reduce = all_reduce
+    plain_device_ms, _, _, plain_idle = _profile_mesh_step(
+        lambda: pt.train_step(chunk, mask), med["plain"], "plain")
+    device_ms, nccl_ms, nccl_kernels, idle = _profile_mesh_step(
+        lambda: mt.train_step(chunk, mask), med["mesh"], "mesh")
+    log("mesh_train", median_step_ms=med["mesh"], plain_median_step_ms=med["plain"],
+        samples_per_s=TRAIN_BATCH * 1e3 / med["mesh"], collectives_a_step=calls[0],
+        collective_ms=json.dumps([round(x, 4) for x in spent]),
+        step_device_ms=device_ms, plain_step_device_ms=plain_device_ms,
+        nccl_ms=nccl_ms, nccl_kernels=nccl_kernels,
+        device_idle_share=idle, plain_device_idle_share=plain_idle,
+        turns=json.dumps({k: [round(x, 3) for x in v] for k, v in times.items()}))
+    del pt, mt, runs
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the card over gloo, each joining the group itself,
+    # held against the plain trainer's first steps in this process
+    gloo_cfg = dict(model_dir=str(model_dir), batch_size=TRAIN_BATCH, epochs=1, seed=0,
+                    train_text_tower=True, text_tower_depth=TOWER["depth"],
+                    text_tower_heads=TOWER["heads"], tower_gelu=TOWER["gelu"],
+                    fused_adamw=True)
+    ref = _plain_gloo_reference(gloo_cfg, root / "mesh_gloo_plain")
+    for name, layout in MESH_GLOO_LAYOUTS:
+        port, out = _free_port(), root / f"mesh_gloo_{name}"
+        out.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for r in range(2):
+            penv = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                        JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r), PYTHONPATH=str(REPO))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MESH_GLOO_WORKER, json.dumps(layout),
+                 json.dumps({**gloo_cfg, "out_dir": str(out)}), str(MESH_GLOO_STEPS)],
+                cwd=REPO, env=penv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        t2 = time.perf_counter()
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, o in zip(procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"mesh_train (b) {name}: a rank failed:\n{o[-3000:]}")
+        res = [json.loads(o.split("RESULT ")[-1].splitlines()[0]) for o in outs]
+        gap = max(abs(a - b) for r in res for a, b in zip(r["losses"], mesh["losses"]))
+        plain_gap = max(abs(a - b) for r in res for a, b in zip(r["losses"], ref["losses"]))
+        norm_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                       for r in res for a, b in zip(r["norms"], ref["norms"]))
+        tree_rel, leaf_rel = {}, {}  # whole tree's relative L2; worst leaf's, and which
+        for r in range(2):
+            got = torch.load(out / f"state.rank{r}.pt", weights_only=True)
+            for tree in ("params", "mu", "nu"):
+                _, worst = _leaf_gaps(got[tree], ref[tree])
+                leaf_rel[tree] = max(leaf_rel.get(tree, (0.0, "")), worst)
+                tree_rel[tree] = max(tree_rel.get(tree, 0.0), _tree_gap(got[tree], ref[tree]))
+        same = res[0]["replicated_sha256"] == res[1]["replicated_sha256"]
+        if len(res[0]["losses"]) != MESH_GLOO_STEPS or res[0]["losses"] != res[1]["losses"] \
+                or len(res[0]["norms"]) != len(ref["norms"]) \
+                or len(ref["norms"]) < MESH_GLOO_STEPS \
+                or max(gap, plain_gap) > MESH_GLOO_TOL \
+                or norm_rel > MESH_REL or max(tree_rel.values()) > MESH_REL \
+                or max(leaf_rel["mu"][0], leaf_rel["nu"][0]) > MESH_LEAF_REL \
+                or not same or res[0]["backend"] != "gloo":
+            raise RuntimeError(
+                f"mesh_train (b) {name}: losses {[r['losses'] for r in res]} vs (a) "
+                f"{mesh['losses'][:MESH_GLOO_STEPS]} (gap {gap}) and the plain run "
+                f"{ref['losses']} (gap {plain_gap}, bound {MESH_GLOO_TOL}); clip norms "
+                f"{[r['norms'] for r in res]} vs {ref['norms']} (relative {norm_rel}); trees "
+                f"{tree_rel} (bound {MESH_REL}); worst leaves {leaf_rel} (moments' bound "
+                f"{MESH_LEAF_REL}); replicated parameters identical: {same}")
+        log("mesh_train", layout=f"(b) {name}, 2 gloo ranks on one card", ranks=json.dumps(
+            [{"rank": r["rank"], "coords": r["coords"], "device": r["device"]} for r in res]),
+            losses=json.dumps(res[0]["losses"]), max_gap_to_a=gap, max_gap_to_plain=plain_gap,
+            clip_norms=json.dumps(res[0]["norms"]), max_norm_rel=norm_rel,
+            tree_rel=json.dumps(tree_rel), worst_leaf_rel=json.dumps(leaf_rel),
+            replicated_bit_identical=same,
+            median_step_ms=statistics.median(res[0]["step_ms"][1:]),
+            first_step_ms=res[0]["step_ms"][0], wall_s=time.perf_counter() - t2)
+    return launches
+
+
 def main() -> int:
     dev = phase_device()
     import torch
@@ -2918,6 +3270,7 @@ def main() -> int:
         legacy = phase_legacy_serve(str(served), requests)
         integrated = phase_integrated_train(raw["data_root"], Path(root))
         v1_train = phase_v1_train(dev, Path(root))
+        mesh_train = phase_mesh_train(seeded, Path(root))
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -2935,7 +3288,7 @@ def main() -> int:
               "moe_serve": moe_serve["launches"].get(key, 0), "auto_salt": salt[key],
               "artifact_serve": artifact.get(key, 0), "legacy_serve": legacy_n,
               "integrated_train": integrated[key], "text_tower": text_tower["launches"][key],
-              "v1_train": v1_train[key]}
+              "v1_train": v1_train[key], "mesh_train": mesh_train[key]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [

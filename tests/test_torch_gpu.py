@@ -814,3 +814,84 @@ def test_v1_ensemble_k1_step_equals_plain_update_on_gpu(cuda):
             for slot in ("mu", "nu"):
                 assert torch.equal(fused.opt_state[slot][part][n],
                                    plain.opt_state[slot][part][n]), f"{slot} {part}.{n}"
+
+
+MESH_STEPS = r"""
+import json, sys
+import torch
+from ultrafnd_git_tpu_torch.kernels import adamw as aw
+from ultrafnd_git_tpu_torch.parallel import collectives as coll
+from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+model, out = sys.argv[1], sys.argv[2]
+
+
+def trainer(name, device="cuda", **mesh):
+    cfg = TrainConfig(out_dir=f"{out}/{name}", model_dir=model, batch_size=16, epochs=1,
+                      seed=0, train_text_tower=True, text_tower_depth=1, text_tower_heads=6,
+                      **mesh)
+    return ForensicTrainer(cfg, device=device)
+
+
+losses, trainers = {}, {}
+# one after the other: each trainer seeds np.random's shuffle stream
+for name, mesh in (("plain", {}), ("mesh", dict(dp=1, tp=1, shard_corpus=True, shard_graph=True))):
+    trainers[name] = t = trainer(name, **mesh)
+    before, calls = aw.launches, coll.calls
+    losses[name] = [float(t.train_step(c, m)[0]) for c, m, _ in t.epoch_batches(t.tr_idx, True)[:2]]
+    torch.cuda.synchronize()
+    losses[name + "_k1"], losses[name + "_collectives"] = aw.launches - before, coll.calls - calls
+plain, mesh = trainers["plain"], trainers["mesh"]
+worst = 0.0
+for part, mod in plain.state.params.items():
+    theirs = mesh.state.params[part].state_dict()
+    for key, p in mod.state_dict().items():
+        gap = (theirs[key] - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
+        worst = max(worst, gap)
+backend = mesh.mesh.backend
+# then a CPU mesh (against the plain trainer on the CPU: the CPU draws
+# other dropout masks) and a CUDA one again in this process: each starts
+# the local group anew with its own backend
+again = {}
+for name, device, mesh_kw in (("cpu_plain", "cpu", {}),
+                              ("cpu", "cuda", dict(dp=1, mesh_backend="cpu")),
+                              ("again", "cuda", dict(dp=1))):
+    t = trainer(name, device, **mesh_kw)
+    c, m, _ = t.epoch_batches(t.tr_idx, True)[0]
+    again[name] = [float(t.train_step(c, m)[0]), t.mesh and t.mesh.backend, str(t.device)]
+print("RESULT " + json.dumps({**losses, "worst_rel": worst, "backend": backend,
+                              "owned": sorted(mesh._owned), "again": again}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_world_one_nccl_mesh_steps_equal_the_plain_steps(cuda, tmp_path):
+    """The mesh code path at world 1 over a real NCCL group (a one-rank local
+    group; the corpus and graph rows through the owner-fills gather) takes
+    the plain trainer's two dropout steps: losses and parameters within
+    1e-6 relative, one K1 launch a step on each. A CPU mesh and then a
+    CUDA mesh after it in the same process each start the local group
+    anew with their own backend and take the same first step."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _seeded_model_dir(tmp_path / "model", tokens=True)
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", MESH_STEPS, str(tmp_path / "model"),
+                           str(tmp_path / "runs")], cwd=repo, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=str(repo)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.split("RESULT ")[-1])
+    assert res["backend"] == "nccl" and "a_norm" in res["owned"]
+    np.testing.assert_allclose(res["mesh"], res["plain"], rtol=1e-6, atol=0)
+    assert res["worst_rel"] <= 1e-6
+    assert res["plain_k1"] == res["mesh_k1"] == 2
+    assert res["plain_collectives"] == 0 < res["mesh_collectives"]
+    cpu_loss, cpu_backend, cpu_device = res["again"]["cpu"]
+    assert cpu_backend == "gloo" and cpu_device == "cpu"
+    assert abs(cpu_loss - res["again"]["cpu_plain"][0]) <= 1e-6 * abs(cpu_loss)
+    again_loss, again_backend, again_device = res["again"]["again"]
+    assert again_backend == "nccl" and again_device == "cuda:0"
+    assert abs(again_loss - res["mesh"][0]) <= 1e-6 * abs(res["mesh"][0])

@@ -5,8 +5,8 @@ format); `debug_nans` raises FloatingPointError on a run whose training
 rows hold a NaN feature and not on a clean run (without the flag the
 poisoned run trains on, with NaN losses); a trainer with every
 single-device flag on (MoE with 8 experts, remat, mid-epoch slots, a
-profile, debug_nans) constructs and trains; `_unsupported` names only the
-multi-device flags, and each of them raises; the CLI's --help lists the
+profile, debug_nans) constructs and trains; `_unsupported` names only sp
+and pp, and each of them raises; the CLI's --help lists the
 seven flags that train the MoE tower, remat, mid-epoch slots, the
 profile, the NaN checks and the salt search.
 """
@@ -98,10 +98,24 @@ def test_every_single_device_flag_at_once_trains(tmp_path):
 
 @pytest.mark.parametrize("flag", sorted(PARALLEL))
 def test_only_the_multi_device_flags_are_unsupported(tmp_path, flag):
+    """Only sp and pp raise NotImplementedError. dp, tp and dcn ask for a
+    mesh of two ranks, which one process refuses (with the launch hint, or
+    for dcn alone with JAX's inference error: one rank does not divide over
+    dcn; the multi-rank runs are test_torch_trainer_mesh.py's); shard_corpus and
+    shard_graph without a mesh place the corpus as one device does."""
     cfg = _cfg(tmp_path, **{flag: PARALLEL[flag]})
-    assert port._unsupported(cfg) == [flag]
-    with pytest.raises(NotImplementedError, match=flag):
-        port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")
+    if flag in ("sp", "pp"):
+        assert port._unsupported(cfg) == [flag]
+        with pytest.raises(NotImplementedError, match=flag):
+            port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")
+        return
+    assert port._unsupported(cfg) == []
+    if flag in ("dp", "tp", "dcn"):
+        with pytest.raises(ValueError, match="has 2 ranks but|not divisible by tp"):
+            port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")
+    else:
+        t = port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")
+        assert t.mesh is None and not t._owned
 
 
 def test_cli_help_lists_the_new_flags():

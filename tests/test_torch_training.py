@@ -372,12 +372,17 @@ def test_cuda_without_gpu_raises(model_dir, tmp_path, monkeypatch):
     {"debug_nans": True}, {"save_every_steps": 5}, {"profile_dir": "p"},
 ], ids=lambda f: next(iter(f)))
 def test_unported_flags_raise(model_dir, tmp_path, flag):
-    """The multi-device flags raise naming ROADMAP.md. The single-device
-    flags this test once listed as unported (MoE, remat, mid-epoch slots,
-    debug_nans, profile_dir) build a trainer."""
+    """sp and pp raise naming ROADMAP.md; dp and tp, ported since, ask for a
+    mesh of two ranks, which one process refuses (with the launch hint, or
+    for tp alone with JAX's inference error: one rank does not divide). The
+    single-device flags this test once listed as unported (MoE, remat,
+    mid-epoch slots, debug_nans, profile_dir) build a trainer."""
     cfg = _port_cfg(tmp_path, model_dir, **flag)
-    if next(iter(flag)) in ("dp", "tp", "sp", "pp"):
+    if next(iter(flag)) in ("sp", "pp"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port.ForensicTrainer(cfg, device="cpu")
+    elif next(iter(flag)) in ("dp", "tp"):
+        with pytest.raises(ValueError, match="has 2 ranks but|not divisible by tp"):
             port.ForensicTrainer(cfg, device="cpu")
     else:
         t = port.ForensicTrainer(cfg, device="cpu")

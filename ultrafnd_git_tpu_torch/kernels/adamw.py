@@ -29,18 +29,23 @@ in `frozen_subtrees` are left out of the global norm and left untouched
 scalars are computed once per step, exactly as the JAX `_scalars` does:
 (1 - b) is a Python f64 rounded to f32, bias correction uses count + 1,
 -schedule(count) is taken before the increment. The global norm is a torch
-reduction outside the kernel, as it is outside the Pallas call.
+reduction outside the kernel, as it is outside the Pallas call. On a
+tensor-parallel mesh (`shard_norm`) the norm is that of the logical
+parameters: the split leaves' sums of squares are all-reduced over the
+model axis; K1 itself is elementwise per leaf and runs on each rank's
+shards, one launch a step on every rank.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ultrafnd_git_tpu_torch.kernels import _build
+from ultrafnd_git_tpu_torch.parallel.collectives import Shard, all_reduce_
 from ultrafnd_git_tpu_torch.utils.device import to_device
 
 launches = 0  # K1 launches since import (or since a caller reset it)
@@ -75,9 +80,19 @@ def adamw_reference_(
     v.copy_(v_new)
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf (optax.global_norm)."""
-    return torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+def global_norm(grads: Iterable[torch.Tensor], split: Optional[List[bool]] = None,
+                tp: Optional[Shard] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf (optax.global_norm). On a
+    tensor-parallel mesh, `split[i]` marks a leaf of which this rank holds
+    a shard: its sum of squares is summed over `tp` (one all-reduce for
+    all of them) before the total, so the norm is that of the logical
+    parameters; a replicated leaf counts once."""
+    sq = torch.stack([torch.sum(g * g) for g in grads])
+    if tp is not None and any(split):
+        flags = to_device(torch.tensor(split), sq.device)
+        summed = all_reduce_(torch.where(flags, sq, torch.zeros_like(sq)), tp)
+        sq = torch.where(flags, summed, sq)
+    return torch.sqrt(sq.sum())
 
 
 class AdamW:
@@ -98,6 +113,13 @@ class AdamW:
         self.grad_clip = float(grad_clip)
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.frozen = frozenset(frozen_subtrees)
+        self.split: frozenset = frozenset()  # (part, name) of the leaves split over tp
+        self.tp: Optional[Shard] = None
+
+    def shard_norm(self, split, tp: Shard) -> None:
+        """Take the global norm over a tensor-parallel mesh: `split` names
+        the (part, name) leaves of which each rank of `tp` holds a shard."""
+        self.split, self.tp = frozenset(split), tp
 
     def init(self, params: Dict[str, nn.Module]) -> Dict[str, object]:
         zeros = lambda: {  # noqa: E731
@@ -111,8 +133,9 @@ class AdamW:
         grads' device: only gnorm is computed there, the rest on the host.
         Without a clip nothing reads gnorm, so its slot holds 0 and no norm
         is taken."""
-        leaves = [g for part, d in grads.items() if part not in self.frozen
-                  for g in d.values()]
+        named = [(part, name, g) for part, d in grads.items() if part not in self.frozen
+                 for name, g in d.items()]
+        leaves = [g for _, _, g in named]
         f32 = np.float32
         host = np.array(
             [
@@ -135,7 +158,8 @@ class AdamW:
         )
         if self.grad_clip <= 0:
             return to_device(torch.from_numpy(host), leaves[0].device)
-        gnorm = global_norm(leaves).to(torch.float32)
+        split = [(part, name) in self.split for part, name, _ in named]
+        gnorm = global_norm(leaves, split, self.tp).to(torch.float32)
         host_t = to_device(torch.from_numpy(host[1:]), gnorm.device)
         return torch.cat([gnorm.reshape(1), host_t])
 

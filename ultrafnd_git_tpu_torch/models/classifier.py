@@ -9,6 +9,9 @@ Parameter names are the reference state-dict keys that
 writes (`pre.0` / `.3`, `node.trees.{t}.gates.{k}`, `.thresh.{k}`,
 `.leaf_logits`, `.tau`, `bypass`, `temperature`).
 
+On a tensor-parallel mesh (`tp`, set by `parallel/mesh.shard_modules_`)
+the pre-MLP runs as a Megatron pair (`models/layers.mlp_pair`).
+
 `dtype=torch.bfloat16` is the JAX module's `dtype=jnp.bfloat16`: the two
 pre-MLP Dense layers and their GELUs compute in bf16; the forest, the
 bypass and the calibrated softmax stay f32.
@@ -18,11 +21,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
-from ultrafnd_git_tpu_torch.models.layers import Dense
+from ultrafnd_git_tpu_torch.models.layers import Dense, mlp_pair
 from ultrafnd_git_tpu_torch.ops.trees import leaf_bit_matrix, oblivious_forest_logits
 
 
@@ -101,6 +103,7 @@ class DeepTruthClassifier(nn.Module):
         )
         self.bypass = Dense(hidden, num_classes)
         self.temperature = nn.Parameter(torch.tensor(float(temperature_init)))
+        self.tp = None  # the model-axis Shard on a tensor-parallel mesh
 
     def forward(
         self,
@@ -112,8 +115,7 @@ class DeepTruthClassifier(nn.Module):
         x = fused
         if self.use_aux and aux is not None:
             x = torch.cat([x, aux], dim=-1)
-        h = drop(F.gelu(self.pre[0](x)), self.dropout, gen)
-        h = drop(F.gelu(self.pre[3](h)), self.dropout, gen).float()
+        h = mlp_pair(self.pre[0], self.pre[3], x, self.dropout, gen, self.tp).float()
         logits = self.node(h, gen) + self.bypass(h)
         t = self.temperature.clamp(0.5, 5.0)
         probs = torch.softmax(logits / t, dim=-1)

@@ -9,20 +9,72 @@ not the JAX masks (the generators differ); tests compare with dropout off.
 `draw_mask` and `apply_mask` are the two halves of `dropout`, for a caller
 that must draw a mask before the computation it applies to (the tower's
 rematerialised blocks: a recompute must apply the masks of the first pass).
+
+On a mesh (`parallel/mesh.py`) each rank passes a `ShardedGenerator`: it
+draws the mask of the global batch (every rank's generator is in the same
+state) and keeps this rank's rows, and, between the two layers of a
+tensor-parallel MLP pair (`cols`), this rank's columns. So dp and tp runs
+apply the masks a one-device run applies. A site whose tensor is not split
+by batch rows (the GCN's corpus hidden) takes the plain generator.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple, Union
 
 import torch
 
 
-def draw_mask(like: torch.Tensor, rate: float,
-              gen: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+@dataclass(frozen=True)
+class ShardedGenerator:
+    """A generator and this rank's part of every mask it draws: block
+    `rows[0]` of `rows[1]` along dim 0, block `cols[0]` of `cols[1]` along
+    the last dim."""
+
+    gen: torch.Generator
+    rows: Tuple[int, int] = (0, 1)
+    cols: Tuple[int, int] = (0, 1)
+
+    def with_cols(self, index: int, parts: int) -> "ShardedGenerator":
+        return replace(self, cols=(index, parts))
+
+    def draw(self, like: torch.Tensor, keep: float) -> torch.Tensor:
+        """This rank's part of the mask one device draws for the global
+        tensor: drawn in `like`'s memory order (the draws fill memory in
+        order, and `empty_like` keeps a permuted layout, such as the
+        forest's per-tree logits have), then cut."""
+        (r, nr), (c, nc) = self.rows, self.cols
+        shape = list(like.shape)
+        shape[0] *= nr
+        shape[-1] *= nc
+        order = sorted(range(like.dim()), key=lambda d: -like.stride(d))
+        full = like.new_empty([shape[d] for d in order])
+        full = full.bernoulli_(keep, generator=self.gen).bool().permute(
+            [order.index(d) for d in range(like.dim())])
+        return (full.narrow(0, r * like.shape[0], like.shape[0])
+                .narrow(-1, c * like.shape[-1], like.shape[-1]))
+
+
+Gen = Union[torch.Generator, ShardedGenerator, None]
+
+
+def column_shard(gen: Gen, index: int, parts: int) -> Gen:
+    """`gen` drawing this rank's block `index` of `parts` along the last
+    dim as well (None stays None: eval mode)."""
+    if gen is None:
+        return None
+    if not isinstance(gen, ShardedGenerator):
+        gen = ShardedGenerator(gen)
+    return gen.with_cols(index, parts)
+
+
+def draw_mask(like: torch.Tensor, rate: float, gen: Gen) -> Optional[torch.Tensor]:
     """The keep mask (bool, the shape of `like`) of one dropout site, drawn
     from `gen` as `dropout` draws it; None in eval mode."""
     if gen is None or rate <= 0.0:
         return None
+    if isinstance(gen, ShardedGenerator):
+        return gen.draw(like, 1.0 - rate)
     return torch.empty_like(like).bernoulli_(1.0 - rate, generator=gen).bool()
 
 
@@ -35,6 +87,6 @@ def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> to
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: Gen) -> torch.Tensor:
     """x with each element kept with probability 1 - rate, else zeroed."""
     return apply_mask(x, draw_mask(x, rate, gen), rate)

@@ -8,6 +8,9 @@ here). Parameter names are the reference state-dict keys that
 writes (`fuse_mlp.0` / `.3`, `classifier`, `attn_*.evidence_proj.0` /
 `.2`), so that function carries JAX fusion params across unchanged.
 
+On a tensor-parallel mesh (`tp`, set by `parallel/mesh.shard_modules_`)
+the fuse MLP runs as a Megatron pair (`models/layers.mlp_pair`).
+
 `dtype=torch.bfloat16` is the JAX module's `dtype=jnp.bfloat16`: every
 Dense but the logits head computes in bf16 (`models/layers.py`), and so do
 the evidence proxies, the co-attention and the pair features between them;
@@ -18,11 +21,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
-from ultrafnd_git_tpu_torch.models.layers import Dense
+from ultrafnd_git_tpu_torch.models.layers import Dense, mlp_pair
 
 
 def cos01(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -97,6 +98,7 @@ class CrossModalTransformer(nn.Module):
             nn.GELU(),
         )
         self.classifier = Dense(hidden, 2)  # the logits head stays f32
+        self.tp = None  # the model-axis Shard on a tensor-parallel mesh
 
     def forward(
         self,
@@ -139,8 +141,8 @@ class CrossModalTransformer(nn.Module):
         if self.use_gnn:
             parts.append(self.gnn_proj(feats["gnn_feat"]))
         mlp = self.fuse_mlp
-        h = drop(F.gelu(mlp[0](torch.cat(parts, dim=-1))), self.dropout, gen)
-        fused = drop(F.gelu(mlp[3](h)), self.dropout, gen).float()
+        fused = mlp_pair(mlp[0], mlp[3], torch.cat(parts, dim=-1), self.dropout, gen,
+                         self.tp).float()
         return {
             "fused": fused,
             "logits": self.classifier(fused),

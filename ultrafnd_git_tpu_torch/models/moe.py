@@ -24,6 +24,13 @@ FLOPs. The (e, c) slots are unique, so each backward scatter has one
 contributor per row and the gradient does not depend on atomic order.
 Dropped tokens go to one spare row past the E * C slots, which is cut off
 before the experts.
+
+On a data-parallel mesh (`dp`, the data axes' `Shard`, set by the
+trainer) each rank routes its rows of the global batch as one device
+routes the whole: C is the global batch's, a token's slot counts the
+tokens of the lower ranks routed to its expert, and the aux loss is the
+global batch's (`parallel/collectives.sum_across`, whose backward sums
+every rank's gradient of it).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from torch import nn
 from ultrafnd_git_tpu_torch.models.dropout import apply_mask, draw_mask
 from ultrafnd_git_tpu_torch.models.layers import Dense, LayerNorm
 from ultrafnd_git_tpu_torch.models.transformer import LN_EPS, MultiHeadAttention, gelu
+from ultrafnd_git_tpu_torch.parallel.collectives import sum_across
 
 
 class MoEFFN(nn.Module):
@@ -55,6 +63,7 @@ class MoEFFN(nn.Module):
         self.b_in = nn.Parameter(torch.zeros(num_experts, 1, hidden))
         self.w_out = nn.Parameter(torch.zeros(num_experts, hidden, width))
         self.b_out = nn.Parameter(torch.zeros(num_experts, 1, width))
+        self.dp = None  # the data axes' Shard on a mesh: route the global batch
 
     def capacity(self, tokens: int) -> int:
         """Slots per expert for `tokens` tokens (the JAX expression)."""
@@ -78,8 +87,28 @@ class MoEFFN(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         b, s, w = x.shape
         e, t = self.num_experts, b * s
-        cap = self.capacity(t)
+        dp = self.dp
+        t_all = t * (dp.size if dp is not None else 1)
+        cap = self.capacity(t_all)
         logits, probs, expert, gate, slot = self.route(x)
+        lse2 = torch.logsumexp(logits, dim=-1).square()
+        if dp is None:
+            frac_tokens = F.one_hot(expert, e).float().mean(dim=0)
+            frac_probs = probs.mean(dim=0)
+            z = lse2.mean()
+        else:
+            # the global batch's routing: one all-reduce of each rank's
+            # expert counts (in its own row), its prob sums and its z sum
+            counts = probs.new_zeros(dp.size, e)
+            counts[dp.rank] = F.one_hot(expert, e).sum(dim=0).float()
+            stats = sum_across(torch.cat([counts.reshape(-1), probs.sum(dim=0),
+                                          lse2.sum().reshape(1)]), dp)
+            counts = stats[: dp.size * e].detach().view(dp.size, e)
+            # a token's slot counts the tokens of lower ranks before it
+            slot = slot + counts[: dp.rank].sum(dim=0).long()[expert]
+            frac_tokens = counts.sum(dim=0) / t_all
+            frac_probs = stats[dp.size * e: dp.size * e + e] / t_all
+            z = stats[-1] / t_all
         keep = slot < cap
         dest = torch.where(keep, expert * cap + slot, e * cap)  # e * cap: the spare row
         cd = self.dtype or x.dtype
@@ -90,10 +119,7 @@ class MoEFFN(nn.Module):
         ye = torch.cat([ye.reshape(e * cap, w), ye.new_zeros(1, w)])
         yt = ye[dest] * torch.where(keep, gate, 0.0).to(cd)[:, None]
 
-        frac_tokens = F.one_hot(expert, e).float().mean(dim=0)
-        frac_probs = probs.mean(dim=0)
         balance = e * (frac_tokens * frac_probs).sum()
-        z = torch.logsumexp(logits, dim=-1).square().mean()
         return yt.view(b, s, w).to(x.dtype), balance + 1e-3 * z
 
 

@@ -5,6 +5,7 @@
         [--train_text_tower [--moe_experts E] [--remat_tower]] [--fused_adamw] \
         [--sparse_graph] [--bf16] [--hash_salt S | --auto_salt a,b] [--resume] \
         [--save_every_steps K] [--profile_dir P] [--debug_nans] [--model_dir D] \
+        [--dp N] [--tp N] [--dcn N] [--shard_corpus] [--shard_graph] [--multihost] \
         [--trainer v2|integrated] [--device cuda|cpu | --cpu] [--export_model_dir M]
 
 The run's feature cache is out_dir's own when it has a usable one, else
@@ -22,6 +23,15 @@ have no effect (the TrainConfig fields they set have none in the port).
 (`training/salt_search.py`), adopts the winner's artifacts into out_dir and
 tests its best slot. Prints the `==== Final Results ====` block of
 run_train_eval.py.
+
+The mesh flags are run_train_eval.py's. A mesh of N ranks is N processes
+of this CLI, one a rank: `--multihost` joins them through
+`torch.distributed` from JAX_COORDINATOR_ADDRESS (host:port),
+JAX_NUM_PROCESSES and JAX_PROCESS_ID, the JAX package's env contract
+(NCCL on the GPU, rank r on cuda:<local rank>; gloo with --device cpu).
+Rank 0 writes the out_dir's files; every rank prints the same results. A
+mesh of one rank needs no launcher (`--dp 1`). `--sp` and `--pp` raise
+NotImplementedError: they train only with `ultrafnd_git_tpu`.
 
 `--trainer integrated` trains the integrated variant instead
 (`training/trainer_integrated.py`: per-batch annealed OCR-Jaccard graphs,
@@ -143,22 +153,50 @@ def parse_args(argv=None):
     p.add_argument("--no_fast_dropout_rng", action="store_true",
                    help="accepted for run_train_eval.py parity; no effect: the "
                         "port draws dropout masks from one torch.Generator")
+    p.add_argument("--dp", type=int, default=None,
+                   help="Data-parallel mesh size (default: no mesh)")
+    p.add_argument("--tp", type=int, default=1, help="Tensor-parallel mesh size")
+    p.add_argument("--dcn", type=int, default=1,
+                   help="Outer data-parallel mesh axis (groups of ranks across "
+                        "nodes): batches split over (dcn, data) jointly and the "
+                        "gradient sum crosses it once a step (composes with "
+                        "--dp/--tp)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="Sequence-parallel mesh size: not ported (raises)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="Pipeline-parallel mesh size: not ported (raises)")
+    p.add_argument("--shard_corpus", action="store_true",
+                   help="Split the device-resident feature corpus rows over the "
+                        "data mesh axes")
+    p.add_argument("--shard_graph", action="store_true",
+                   help="Split the (N, N) GCN adjacency rows (or the "
+                        "--sparse_graph neighbour lists) over the data mesh axes")
+    p.add_argument("--multihost", action="store_true",
+                   help="Join the processes of a mesh before any device use "
+                        "(reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
+                        "JAX_PROCESS_ID; no-op when they are unset)")
     add_device_args(p)
     p.add_argument("--export_model_dir", default=None,
                    help="write the best slot here as a servable model dir")
     return resolve_cpu_flag(p.parse_args(argv))
 
 
-# run_train_eval.py's list of flags the integrated trainer ignores, those of
-# them this CLI has (it has no mesh flags)
+# run_train_eval.py's list of flags the integrated trainer ignores
 V2_ONLY = (
     ("--train_text_tower", lambda a: a.train_text_tower),
+    ("--dp", lambda a: a.dp is not None),
+    ("--tp", lambda a: a.tp > 1),
+    ("--dcn", lambda a: a.dcn > 1),
+    ("--shard_corpus", lambda a: a.shard_corpus),
+    ("--shard_graph", lambda a: a.shard_graph),
     ("--sparse_graph", lambda a: a.sparse_graph),
     ("--freeze_gnn", lambda a: a.freeze_gnn),
     ("--no_fast_dropout_rng", lambda a: a.no_fast_dropout_rng),
     ("--select_metric", lambda a: a.select_metric != "auc"),
     ("--auto_salt", lambda a: bool(a.auto_salt)),
     ("--grad_accum", lambda a: a.grad_accum > 1),
+    ("--sp", lambda a: a.sp > 1),
+    ("--pp", lambda a: a.pp > 1),
     ("--moe_experts", lambda a: a.moe_experts > 0),
 )
 
@@ -207,7 +245,20 @@ def main_integrated(args, data_root: Path, ocr_pkl: Path, out_dir: Path) -> dict
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    from ultrafnd_git_tpu_torch.training.checkpoint import is_primary
     from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+    world = 1
+    if args.multihost:
+        import torch.distributed as dist
+
+        from ultrafnd_git_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+        if maybe_initialize_distributed(backend="gloo" if args.device == "cpu" else "nccl"):
+            world = dist.get_world_size()
+            print(f"multi-host: process {dist.get_rank()} of {world}")
+        else:
+            print("multi-host: no coordinator configured — single process")
 
     out_dir = Path(args.out_dir).expanduser()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -259,6 +310,13 @@ def main(argv=None) -> dict:
         eval_only=args.eval_only,
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,
+        dp=args.dp,
+        tp=args.tp,
+        dcn=args.dcn,
+        sp=args.sp,
+        pp=args.pp,
+        shard_corpus=args.shard_corpus,
+        shard_graph=args.shard_graph,
     )
     print("==== ultrafnd_git_tpu_torch v2 ====")
     print(f"Device:          {args.device}")
@@ -273,6 +331,9 @@ def main(argv=None) -> dict:
     print("=============================")
     extra = None
     if args.auto_salt:
+        if world > 1:
+            raise SystemExit("--auto_salt trains its candidate runs in one process; "
+                             "it cannot run over a multi-process mesh")
         if args.eval_only or args.resume:
             raise SystemExit("--auto_salt trains fresh candidate runs; it cannot be "
                              "combined with --eval_only or --resume")
@@ -312,7 +373,7 @@ def main(argv=None) -> dict:
     print(f"Test AUC : {results['test_auc']:.4f}")
     for k in ("test_precision", "test_recall", "test_f1", "test_cmcs", "test_dfdr"):
         print(f"{k.replace('test_', 'Test ').title()}: {results[k]:.4f}")
-    if args.export_model_dir:
+    if args.export_model_dir and is_primary():
         from ultrafnd_git_tpu_torch.utils.transfer import export_trained
 
         root = export_trained(str(out_dir), "best", args.export_model_dir, args.model_dir)

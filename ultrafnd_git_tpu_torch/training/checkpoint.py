@@ -8,7 +8,9 @@ written with torch.save and read with `torch.load(weights_only=True)`, and
 cfg, np_random_state, plus the resolved module dims under "model"). Writes
 are synchronous. Commit protocol as in the JAX store: the old meta.json is
 removed first and the new one renamed into place after the state file, so
-a meta.json means a complete slot.
+a meta.json means a complete slot. In a process group every rank calls
+`save_checkpoint` (the gather of tensor-parallel shards in `state_dict()`
+is collective) and rank 0 alone writes, as JAX's process 0.
 
 `read_slot` is the one reader of a trained out_dir's slot for serving (the
 Predictor's `out_dir=` and the text ladder's trained tower): a named slot,
@@ -24,16 +26,27 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+
+def is_primary() -> bool:
+    """Whether this process writes the run's files: rank 0 of a process
+    group, or a process outside one (JAX: `jax.process_index() == 0`)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def save_checkpoint(directory: str, name: str, state, meta: Dict[str, Any]) -> None:
-    """Write `state` (a TrainState) and `meta` into `directory/name`."""
+    """Write `state` (a TrainState) and `meta` into `directory/name`; on a
+    rank other than 0, only take part in the state's gather."""
+    payload = state.state_dict()
+    if not is_primary():
+        return
     root = Path(directory).resolve() / name
     root.mkdir(parents=True, exist_ok=True)
     meta_path = root / "meta.json"
     meta_path.unlink(missing_ok=True)
     tmp = root / f".state.pt.{os.getpid()}.tmp"
-    torch.save(state.state_dict(), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, root / "state.pt")
     tmp_meta = root / "meta.json.tmp"
     tmp_meta.write_text(json.dumps(meta, ensure_ascii=False, indent=2), encoding="utf-8")

@@ -136,8 +136,9 @@ def load_checkpoint_guarded(
 
 
 def log_jsonl(out_dir: str, enabled: bool, record: Dict[str, Any]) -> None:
-    """Append one epoch record to <out_dir>/metrics.jsonl."""
-    if not enabled:
+    """Append one epoch record to <out_dir>/metrics.jsonl (in a process
+    group, rank 0 alone appends)."""
+    if not enabled or not ckpt.is_primary():
         return
     with open(os.path.join(out_dir, "metrics.jsonl"), "a", encoding="utf-8") as fh:
         fh.write(json.dumps(record, ensure_ascii=False) + "\n")

@@ -6,17 +6,25 @@ optimizer step, the parameters (a dict of `nn.Module`s, {"fusion", "clf",
 dropout generator. `make_optimizer` builds the epoch-staircase AdamW of the
 JAX trainer as `FusedAdamW`: one K1 launch per step on CUDA, the plain
 update (optax op order, the same bits) per leaf on the CPU.
+
+On a tensor-parallel mesh (`tp`, the model axis's `Shard`) the state holds
+this rank's shards of the split parameters and of their AdamW moments
+(`parallel/mesh.split_dim`); `state_dict` gathers them (every rank of the
+axis must call it), so a checkpoint has the one-device layout, and
+`load_state_dict` cuts a full payload to this rank's shards.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ultrafnd_git_tpu_torch.kernels.adamw import FusedAdamW
+from ultrafnd_git_tpu_torch.parallel.collectives import Shard
+from ultrafnd_git_tpu_torch.parallel.mesh import gather_state_dict, shard_state_dict
 
 
 @dataclass
@@ -25,20 +33,39 @@ class TrainState:
     params: Dict[str, nn.Module]
     opt_state: Dict[str, Any]  # {"count": int, "mu": {...}, "nu": {...}}
     gen: torch.Generator  # dropout masks (and the pretrain head draw)
+    tp: Optional[Shard] = None  # the model axis of a tensor-parallel mesh
 
     def state_dict(self) -> Dict[str, Any]:
-        """Tensors and ints only: loadable with torch.load(weights_only=True)."""
+        """Tensors and ints only: loadable with torch.load(weights_only=True).
+        Under `tp` the full tensors, gathered from every rank's shards."""
         opt = self.opt_state
+
+        def full(trees):
+            return {part: gather_state_dict(part, sd, self.tp) for part, sd in trees.items()}
+
         return {
             "step": torch.tensor(self.step, dtype=torch.int64),
-            "params": {k: m.state_dict() for k, m in self.params.items()},
+            "params": full({k: m.state_dict() for k, m in self.params.items()}),
             "opt_state": {
                 "count": torch.tensor(opt["count"], dtype=torch.int64),
-                "mu": opt["mu"],
-                "nu": opt["nu"],
+                "mu": full(opt["mu"]),
+                "nu": full(opt["nu"]),
             },
             "rng": self.gen.get_state(),
         }
+
+    def local_payload(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """A full state payload with its split tensors cut to this rank's
+        shards (the payload itself without `tp`)."""
+        if self.tp is None:
+            return payload
+
+        def cut(trees):
+            return {part: shard_state_dict(part, sd, self.tp) for part, sd in trees.items()}
+
+        opt = payload["opt_state"]
+        return {**payload, "params": cut(payload["params"]),
+                "opt_state": {**opt, "mu": cut(opt["mu"]), "nu": cut(opt["nu"])}}
 
     def check_compatible(self, payload: Dict[str, Any]) -> None:
         """Raise ValueError unless `payload` has this state's structure."""
@@ -66,6 +93,8 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, payload: Dict[str, Any]) -> None:
+        """Load a full payload (`state_dict`'s), cut to this rank's shards."""
+        payload = self.local_payload(payload)
         self.check_compatible(payload)
         for part, mod in self.params.items():
             mod.load_state_dict(payload["params"][part])

@@ -70,9 +70,26 @@ of an epoch but its last, with the JAX meta (`in_epoch`, `step_cursor`,
 the cursor in the saved order, bit for bit the uninterrupted run;
 `profile_dir` writes a torch.profiler trace of `fit()`; `debug_nans`
 raises FloatingPointError at the first step whose loss, outputs or
-gradients hold a NaN. The multi-device fields (`dp`, `tp`, `dcn`, `sp`,
-`pp`, `shard_corpus`, `shard_graph`) raise NotImplementedError naming
-ROADMAP.md.
+gradients hold a NaN.
+
+The mesh fields train as the JAX trainer's (`parallel/mesh.py`): `dp`,
+`tp` and `dcn` lay the world's ranks out as ([dcn,] data, model), one
+process a rank (`--multihost`, or a caller's own process group; a mesh of
+one starts a local group itself). Every rank computes the same global
+batches from the same seeded stream and keeps its rows; the masked means
+divide by the global batch's count and the gradients are summed over the
+data axes (within 'data', then across 'dcn'); the dropout masks are the
+global batch's, cut to the rank's rows (and columns between the layers of
+a tensor-parallel pair), so a mesh trains the function one device trains.
+Under `tp` the fusion and classifier MLP pairs hold Megatron shards and
+K1's clip takes the norm of the logical parameters. `shard_corpus` and
+`shard_graph` keep a rank's 1/D of the corpus rows or of the graph's rows
+(replicated when N does not divide), and each step's rows come to every
+rank by "owner fills, all-reduce sums". Val and test outputs are assembled
+on every rank before the metrics, so they are the global batch's. Rank 0
+alone writes checkpoints (the tp shards gathered, in the one-device
+format), metrics.jsonl, the feature cache and the profile; `--resume`
+re-shards. `sp` and `pp` raise NotImplementedError naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -94,12 +111,15 @@ from torch import nn
 from ultrafnd_git_tpu_torch.data.cache import TOWER_VOCAB, bootstrap_cache
 from ultrafnd_git_tpu_torch.kernels.adamw import FusedAdamW
 from ultrafnd_git_tpu_torch.models.classifier import DeepTruthClassifier
+from ultrafnd_git_tpu_torch.models.dropout import ShardedGenerator
 from ultrafnd_git_tpu_torch.models.fusion import CrossModalTransformer
 from ultrafnd_git_tpu_torch.models.gnn import SimpleGCN
 from ultrafnd_git_tpu_torch.models.initializers import jax_init_
 from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
 from ultrafnd_git_tpu_torch.ops.graphctx import build_graph_context, build_sparse_graph_context
 from ultrafnd_git_tpu_torch.ops.hashing import set_hash_salt
+from ultrafnd_git_tpu_torch.parallel import collectives as coll
+from ultrafnd_git_tpu_torch.parallel import mesh as meshlib
 from ultrafnd_git_tpu_torch.training import checkpoint as ckpt
 from ultrafnd_git_tpu_torch.training.loop import (
     ImprovementTracker,
@@ -117,6 +137,7 @@ from ultrafnd_git_tpu_torch.utils.config import classifier_config, fusion_config
 from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
 
 GNN_DROPOUT = 0.2
+CACHE_SOURCES = ("injected", "out_dir", "model_dir", "data_root")
 MOE_CAPACITY_FACTOR = 1.25  # the JAX tower's moe_capacity_factor (no TrainConfig field)
 TRAINER_KIND = "v2"
 
@@ -128,7 +149,8 @@ class TrainConfig:
     align weights) the run may take instead of building one from
     `data_root`. `scan_epoch`, `fast_dropout_rng` and `fused_adamw` are accepted (and
     adopted from a checkpoint, and written to its meta) and have no
-    effect."""
+    effect. `mesh_backend="cpu"` (JAX: a mesh over the host devices) runs
+    the ranks on the CPU over gloo."""
 
     data_root: Optional[str] = None
     ocr_phrase_pkl: Optional[str] = None
@@ -183,15 +205,13 @@ class TrainConfig:
 
 
 def _unsupported(cfg: TrainConfig) -> list:
-    """The set flags of the multi-device layouts, which the port has not
-    ported (ROADMAP.md): every single-device field trains."""
-    return [
-        flag for flag, on in (
-            ("dp", cfg.dp is not None), ("tp", cfg.tp > 1), ("dcn", cfg.dcn > 1),
-            ("sp", cfg.sp > 1), ("pp", cfg.pp > 1),
-            ("shard_corpus", cfg.shard_corpus), ("shard_graph", cfg.shard_graph),
-        ) if on
-    ]
+    """The set flags of the layouts the port has not ported (ROADMAP.md):
+    `sp` and `pp`. Every other field trains."""
+    return [flag for flag, on in (("sp", cfg.sp > 1), ("pp", cfg.pp > 1)) if on]
+
+
+def _uses_mesh(cfg: TrainConfig) -> bool:
+    return cfg.dp is not None or cfg.tp > 1 or cfg.dcn > 1
 
 
 def module_configs(cfg, text_width: int, widths: Dict[str, int]):
@@ -290,6 +310,12 @@ class ForensicTrainer:
         self.cfg = cfg
         os.makedirs(cfg.out_dir, exist_ok=True)
         _adopt_checkpoint_fields(cfg)
+        if cfg.dcn > 1 and (cfg.sp > 1 or cfg.pp > 1):
+            raise ValueError(
+                "--dcn composes with --dp/--tp only: the sp/pp shard_map "
+                "bodies address the batch by the single 'data' axis (ring "
+                "and pipeline stay within a slice by design)"
+            )
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
@@ -299,7 +325,23 @@ class ForensicTrainer:
             )
         if cfg.tower_gelu not in ("tanh", "exact"):
             raise ValueError(f"tower_gelu must be 'tanh' or 'exact', got {cfg.tower_gelu!r}")
-        self.device = dev = resolve_device(device)
+        self.device = dev = resolve_device("cpu" if cfg.mesh_backend == "cpu" else device)
+        # ---- mesh (optional): this rank's place in ([dcn,] data, model) -----
+        self.mesh: Optional[meshlib.Mesh] = None
+        if _uses_mesh(cfg):
+            self.mesh = meshlib.make_mesh(cfg.dp, cfg.tp, cfg.dcn, device=dev)
+            self.device = dev = resolve_device(str(self.mesh.device))
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            dp = meshlib.data_parallel_size(self.mesh)
+            if cfg.batch_size % dp:
+                raise ValueError(
+                    f"batch_size {cfg.batch_size} does not divide over the {dp} "
+                    "data-parallel ranks (each takes batch_size / dp rows of a batch)")
+        mesh = self.mesh
+        self._data = mesh.shard(*meshlib.data_axes(mesh)) if mesh is not None else None
+        self._tp = (mesh.shard(meshlib.MODEL_AXIS)
+                    if mesh is not None and mesh.shape[meshlib.MODEL_AXIS] > 1 else None)
         np.random.seed(cfg.seed)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -307,47 +349,50 @@ class ForensicTrainer:
         # the salt is live before any featurization (the cache build, its
         # fingerprint)
         set_hash_salt(cfg.hash_salt)
-        self.cache, self.cache_source = bootstrap_cache(
-            cfg.out_dir, cfg.model_dir, cache, cfg.cache_to_disk,
-            # a restored checkpoint was trained on the out_dir's cache
-            reuse_stale_features=bool(cfg.eval_only or cfg.resume),
-            data_root=cfg.data_root, ocr_phrase_pkl=cfg.ocr_phrase_pkl, seed=cfg.seed,
-            device=str(dev))
+        self.cache, self.cache_source = self._bootstrap_cache(cache)
         if self.cache_source == "model_dir":
             _adopt_model_dir_fields(cfg)
             set_hash_salt(cfg.hash_salt)
         self.tr_idx, self.va_idx, self.te_idx = (np.asarray(s) for s in self.cache["split"])
         self.n_total = int(self.cache["labels"].shape[0])
 
-        def put(x, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(x)).to(dev, dtype)
+        # the first row of each corpus array whose rows are split over the
+        # data axes (shard_corpus / shard_graph), by key
+        self._owned: Dict[str, int] = {}
 
+        def put(key, x, dtype=torch.float32, split=False):
+            arr = np.asarray(x)
+            rows = meshlib.owned_rows(arr.shape[0], mesh) if split and mesh is not None else None
+            if rows is not None:
+                arr = arr[rows]
+                self._owned[key] = rows.start
+            return torch.as_tensor(arr).to(dev, dtype)
+
+        split = cfg.shard_corpus
         self.corpus: Dict[str, torch.Tensor] = {
-            "audio": put(self.cache["audio"]),
-            "visual": put(self.cache["visual"]),
-            "temporal": put(self.cache["temporal"]),
-            "aux": put(self.cache["aux"]),
-            "labels": put(self.cache["labels"], torch.int64),
+            k: put(k, self.cache[k], split=split) for k in ("audio", "visual", "temporal", "aux")
         }
+        self.corpus["labels"] = put("labels", self.cache["labels"], torch.int64, split)
         if cfg.use_evidence and "evidence" in self.cache:
-            self.corpus["evidence"] = put(self.cache["evidence"])
+            self.corpus["evidence"] = put("evidence", self.cache["evidence"], split=split)
         text_width = int(self.cache["text"].shape[1])
         if cfg.train_text_tower:
             if float(np.asarray(self.cache["text_mask"]).sum()) == 0.0:
                 raise ValueError("--train_text_tower needs token ids, but this cache has none")
-            self.corpus["text_ids"] = put(self.cache["text_ids"], torch.int64)
-            self.corpus["text_mask"] = put(self.cache["text_mask"])
+            self.corpus["text_ids"] = put("text_ids", self.cache["text_ids"], torch.int64, split)
+            self.corpus["text_mask"] = put("text_mask", self.cache["text_mask"], split=split)
         else:
-            self.corpus["text"] = put(self.cache["text"])
+            self.corpus["text"] = put("text", self.cache["text"], split=split)
+        split = cfg.shard_graph
         if cfg.use_gnn and cfg.sparse_graph:
             sctx = build_sparse_graph_context(self.cache, cfg.gnn_overlap_thresh)
-            self.corpus["nbr_idx"] = put(sctx.nbr_idx, torch.int64)
-            self.corpus["nbr_w"] = put(sctx.nbr_w)
-            self.corpus["ax"] = put(sctx.ax)
+            self.corpus["nbr_idx"] = put("nbr_idx", sctx.nbr_idx, torch.int64, split)
+            self.corpus["nbr_w"] = put("nbr_w", sctx.nbr_w, split=split)
+            self.corpus["ax"] = put("ax", sctx.ax)
         elif cfg.use_gnn:
             gctx = build_graph_context(self.cache, cfg.gnn_overlap_thresh)
-            self.corpus["a_norm"] = put(gctx.a_norm)
-            self.corpus["ax"] = put(gctx.ax)
+            self.corpus["a_norm"] = put("a_norm", gctx.a_norm, split=split)
+            self.corpus["ax"] = put("ax", gctx.ax)
 
         # ---- modules (the JAX package's initial distributions) -------------
         widths = {k: int(self.cache[k].shape[1]) for k in ("audio", "visual", "temporal")}
@@ -381,6 +426,11 @@ class ForensicTrainer:
         init_gen = torch.Generator().manual_seed(cfg.seed)  # same draws on any device
         for part, mod in params.items():
             jax_init_(part, mod, init_gen).to(dev)
+        if self._tp is not None:  # the full draws, then this rank's shards
+            meshlib.shard_modules_(params, self._tp)
+        if mesh is not None and cfg.moe_experts > 0:  # route the global batch
+            for block in params["text_tower"].blocks:
+                block.moe.dp = self._data
 
         if cfg.use_gnn and not (cfg.eval_only and ckpt.checkpoint_exists(cfg.out_dir, "best")):
             self._pretrain_gnn(params["gnn"], gen)
@@ -393,8 +443,12 @@ class ForensicTrainer:
             cfg.lr, cfg.weight_decay, cfg.grad_clip, steps_per_epoch,
             frozen_subtrees=() if cfg.train_gnn else ("gnn",),
         )
+        if self._tp is not None:
+            self.tx.shard_norm([(part, name) for part, mod in params.items()
+                                for name, _ in mod.named_parameters()
+                                if meshlib.split_dim(part, name) is not None], self._tp)
         self.state = TrainState(step=0, params=params, opt_state=self.tx.init(params),
-                                gen=gen)
+                                gen=gen, tp=self._tp)
         self.start_epoch = 1
         self.best_val_auc = -1.0
         self.no_improve = 0
@@ -426,13 +480,41 @@ class ForensicTrainer:
                     if rs is not None:
                         restore_np_random_state(rs)
 
+    def _bootstrap_cache(self, cache):
+        """`data/cache.bootstrap_cache` with this run's fields. On a mesh
+        rank 0 goes first (it alone builds, copies or writes out_dir's
+        cache); one all-reduce then hands every rank its source, and the
+        others take the same cache (out_dir's copy when rank 0 wrote one)."""
+        cfg, mesh = self.cfg, self.mesh
+
+        def boot():
+            return bootstrap_cache(
+                cfg.out_dir, cfg.model_dir, cache, cfg.cache_to_disk,
+                # a restored checkpoint was trained on the out_dir's cache
+                reuse_stale_features=bool(cfg.eval_only or cfg.resume),
+                data_root=cfg.data_root, ocr_phrase_pkl=cfg.ocr_phrase_pkl, seed=cfg.seed,
+                device=str(self.device))
+
+        if mesh is None:
+            return boot()
+        got = boot() if mesh.rank == 0 else None
+        code = torch.zeros(1, dtype=torch.int64, device=self.device)
+        if got is not None:
+            code[0] = CACHE_SOURCES.index(got[1]) + 1
+        coll.all_reduce_(code, mesh.shard(*mesh.axis_names))
+        if got is None:
+            got = (boot()[0], CACHE_SOURCES[int(code.item()) - 1])
+        return got
+
     # ------------------------------------------------------------------
     def pretrain_loss(self, gnn: SimpleGCN, head: torch.Tensor,
                       gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """Degree reconstruction over the full graph: mean squared error of
         sigmoid(gcn(x) @ head) against the normalised degree (a row's sum of
         a_norm, or of its neighbour weights under sparse_graph: the same
-        nonzeros)."""
+        nonzeros). With the graph's rows split over the data axes
+        (shard_graph) it is this rank's share: its rows' squared errors over
+        N, whose sum over the ranks is the loss."""
         c = self.corpus
         if self.cfg.sparse_graph:
             deg = c["nbr_w"].sum(dim=-1, keepdim=True)
@@ -441,7 +523,13 @@ class ForensicTrainer:
             deg = c["a_norm"].sum(dim=-1, keepdim=True)
             z = gnn.propagate(c["a_norm"], c["ax"], gen)
         target = deg / max(1.0, float(self.n_total))
-        return ((torch.sigmoid(z @ head) - target) ** 2).mean()
+        err = (torch.sigmoid(z @ head) - target) ** 2
+        if self._graph_split():
+            return err.sum() / float(self.n_total)
+        return err.mean()
+
+    def _graph_split(self) -> bool:
+        return "a_norm" in self._owned or "nbr_w" in self._owned
 
     def _pretrain_gnn(self, gnn: SimpleGCN, gen: torch.Generator, epochs: int = 2) -> None:
         """Degree-reconstruction warm start with a fixed random readout head
@@ -455,47 +543,56 @@ class ForensicTrainer:
         for _ in range(epochs):
             loss = self.pretrain_loss(gnn, head, gen)
             grads = torch.autograd.grad(loss, list(gnn.parameters()))
+            if self._graph_split():  # each rank's rows' share, summed
+                coll.all_reduce_coalesced_(grads, self._data)
             opt.apply(params, state, {"gnn": dict(zip(names, grads))})
 
     # ------------------------------------------------------------------
     def _forward(self, params: Dict[str, nn.Module], idx: torch.Tensor,
-                 gen: Optional[torch.Generator] = None):
+                 gen=None, rows: Optional[Dict[str, torch.Tensor]] = None):
         """(per-row loss (B,), p_fake (B,), forensic (3, B)) of corpus rows
         `idx`; `gen` = None is eval mode, a generator turns dropout on. The
         loss is the CE, plus moe_aux_weight times the tower's Switch aux on
         every row of a MoE tower (`trainer.py:912-916`: the masked mean
-        then gains it once a step)."""
+        then gains it once a step). On a mesh `idx` are this rank's rows,
+        `gen` a `ShardedGenerator`, and `rows` holds those rows of the
+        corpus arrays split over the data axes."""
         c, cfg = self.corpus, self.cfg
+
+        def get(key):
+            return rows[key] if rows is not None and key in rows else c[key][idx]
+
         moe_aux = None
         if "text_tower" in params:
-            text = params["text_tower"](c["text_ids"][idx], c["text_mask"][idx], gen,
+            text = params["text_tower"](get("text_ids"), get("text_mask"), gen,
                                         return_aux=cfg.moe_experts > 0)
             if cfg.moe_experts > 0:
                 text, moe_aux = text
         else:
-            text = c["text"][idx]
+            text = get("text")
         feats = {
             "text_features": text,
-            "audio_features": c["audio"][idx],
-            "visual_features": c["visual"][idx],
-            "temporal_features": c["temporal"][idx],
+            "audio_features": get("audio"),
+            "visual_features": get("visual"),
+            "temporal_features": get("temporal"),
         }
         if "evidence" in c:
-            feats["evidence"] = c["evidence"][idx]
+            feats["evidence"] = get("evidence")
         if cfg.use_gnn:
+            # the corpus hidden is not split by batch rows: the plain generator
+            g = gen.gen if isinstance(gen, ShardedGenerator) else gen
             # frozen-GNN mode: no backward through the graph channel
             with nullcontext() if cfg.train_gnn else torch.no_grad():
                 if cfg.sparse_graph:
                     feats["gnn_feat"] = params["gnn"].propagate_sparse(
-                        c["nbr_idx"][idx], c["nbr_w"][idx], c["ax"], gen)
+                        get("nbr_idx"), get("nbr_w"), c["ax"], g)
                 else:
-                    feats["gnn_feat"] = params["gnn"].propagate(
-                        c["a_norm"][idx], c["ax"], gen)
+                    feats["gnn_feat"] = params["gnn"].propagate(get("a_norm"), c["ax"], g)
         fo = params["fusion"](feats, gen)
-        co = params["clf"](fo["fused"], c["aux"][idx], gen)
+        co = params["clf"](fo["fused"], get("aux"), gen)
         # the logits are f32 under bf16_compute too (the forest and bypass
         # stay f32), as optax's CE takes them (trainer.py:909)
-        ce = F.cross_entropy(co["logits"], c["labels"][idx], reduction="none")
+        ce = F.cross_entropy(co["logits"], get("labels"), reduction="none")
         if moe_aux is not None:
             ce = ce + cfg.moe_aux_weight * moe_aux
         f = fo["forensic"]
@@ -507,8 +604,38 @@ class ForensicTrainer:
     def trainable(self) -> Dict[str, nn.Module]:
         return {k: m for k, m in self.state.params.items() if k not in self.tx.frozen}
 
-    def grads_of(self, idx: torch.Tensor, mask: torch.Tensor,
-                 gen: Optional[torch.Generator] = None):
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch (all of it without a mesh)."""
+        return t if self.mesh is None else meshlib.put_global_batch(t, self.mesh)
+
+    def _split_rows(self, idx: torch.Tensor) -> Optional[Dict[str, torch.Tensor]]:
+        """This rank's rows `idx` (global row ids of the global batch) of the
+        corpus arrays split over the data axes: every rank fills the rows it
+        holds, one all-reduce a dtype sums them. None when nothing is split."""
+        if not self._owned:
+            return None
+        keys = list(self._owned)
+        full = coll.owner_gather([self.corpus[k] for k in keys],
+                                 [self._owned[k] for k in keys], idx, self._data)
+        return {k: self._local(t) for k, t in zip(keys, full)}
+
+    def _mesh_gen(self, gen):
+        """On a mesh, `gen` drawing the global batch's masks and keeping this
+        rank's rows."""
+        if gen is None or self.mesh is None:
+            return gen
+        return ShardedGenerator(gen, rows=(self._data.rank, self._data.size))
+
+    def _reduce_grads(self, grads) -> None:
+        """Sum the gradients over the data axes in place: within 'data', then
+        across 'dcn' (one all-reduce each, the leaves packed once)."""
+        mesh = self.mesh
+        axes = [meshlib.DATA_AXIS] + ([meshlib.DCN_AXIS] if meshlib.DCN_AXIS in mesh.axis_names
+                                      else [])
+        coll.all_reduce_coalesced_([g for d in grads.values() for g in d.values()],
+                                   *(mesh.shard(a) for a in axes))
+
+    def grads_of(self, idx: torch.Tensor, mask: torch.Tensor, gen=None):
         """(loss, grads {part: {name: tensor}}, (p_fake, forensic)) of the
         masked mean CE over a step's rows. With grad_accum = k the rows are
         k microbatches whose summed-CE gradients add up before one divide by
@@ -516,7 +643,13 @@ class ForensicTrainer:
         debug_nans each backward runs under autograd's anomaly mode (it
         raises at the first backward function whose output holds a NaN) and
         the step's loss and outputs are checked for NaN with one sync; both
-        raise FloatingPointError."""
+        raise FloatingPointError.
+
+        On a mesh `idx` and `mask` are the global step's (every rank holds
+        them): each microbatch's rows are cut to this rank's, the divide is
+        by the global valid-row count, and the gradients come back summed
+        over the data axes; the loss is this rank's share of the step's
+        (the shares sum to it) and the outputs are this rank's rows."""
         params = self.state.params
         for mod in params.values():
             for p in mod.parameters():
@@ -526,9 +659,11 @@ class ForensicTrainer:
         denom = mask.sum().clamp_min(1.0)
         lsum = torch.zeros((), device=idx.device)
         p1s, fs = [], []
+        mgen = self._mesh_gen(gen)
         for i, m in zip(idx.view(accum, -1), mask.view(accum, -1)):
-            ce, p1, f = self._forward(params, i, gen)
-            ls = (ce * m).sum()
+            rows = self._split_rows(i)
+            ce, p1, f = self._forward(params, self._local(i), mgen, rows)
+            ls = (ce * self._local(m)).sum()
             try:
                 with torch.autograd.detect_anomaly(check_nan=True) if debug else nullcontext():
                     (ls / denom if accum == 1 else ls).backward()
@@ -545,12 +680,18 @@ class ForensicTrainer:
         for part, mod in self.trainable().items():
             grads[part] = {}
             for name, p in mod.named_parameters():
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                grads[part][name] = g if accum == 1 else g.div_(denom)
+                grads[part][name] = p.grad if p.grad is not None else torch.zeros_like(p)
+        if self.mesh is not None:
+            self._reduce_grads(grads)
+        if accum > 1:
+            for d in grads.values():
+                for g in d.values():
+                    g.div_(denom)
         return lsum / denom, grads, (torch.cat(p1s), torch.cat(fs, dim=1))
 
     def train_step(self, idx: np.ndarray, mask: np.ndarray):
-        """One optimizer step on corpus rows `idx`; (loss, p_fake, forensic)."""
+        """One optimizer step on corpus rows `idx`; (loss, p_fake, forensic)
+        (on a mesh: this rank's share of the loss and its rows' outputs)."""
         i = to_device(torch.as_tensor(idx), self.device, torch.int64)
         m = to_device(torch.as_tensor(mask), self.device, torch.float32)
         loss, grads, (p1, forensic) = self.grads_of(i, m, self.state.gen)
@@ -560,10 +701,12 @@ class ForensicTrainer:
 
     @torch.inference_mode()
     def eval_step(self, params: Dict[str, nn.Module], idx: np.ndarray, mask: np.ndarray):
+        """(loss, p_fake, forensic) of a batch (on a mesh: this rank's share
+        of the loss and its rows' outputs, as `train_step`)."""
         i = to_device(torch.as_tensor(idx), self.device, torch.int64)
         m = to_device(torch.as_tensor(mask), self.device, torch.float32)
-        ce, p1, forensic = self._forward(params, i)
-        loss = (ce * m).sum() / m.sum().clamp_min(1.0)
+        ce, p1, forensic = self._forward(params, self._local(i), rows=self._split_rows(i))
+        loss = (ce * self._local(m)).sum() / m.sum().clamp_min(1.0)
         if self.cfg.debug_nans:
             _raise_on_nan("eval step's loss or outputs", loss, p1, forensic)
         return loss, p1, forensic
@@ -608,6 +751,24 @@ class ForensicTrainer:
         }
         ckpt.save_checkpoint(self.cfg.out_dir, "latest", self.state, meta)
 
+    def _assemble(self, losses: torch.Tensor, p1_mat: torch.Tensor, f_mat: torch.Tensor,
+                  accum: int):
+        """The global batches' (losses (S,), p_fake (S, B), forensic
+        (S, 3, B)) from this rank's loss shares and rows: each rank fills
+        its columns of zeros, one all-reduce over the data axes sums them."""
+        d, parts = self._data.rank, self._data.size
+        steps, n_local = p1_mat.shape
+        per = n_local // accum  # this rank's rows of a microbatch
+        pos = (torch.arange(accum)[:, None] * per * parts + d * per
+               + torch.arange(per)[None]).reshape(-1).to(p1_mat.device)
+        p1 = p1_mat.new_zeros(steps, n_local * parts)
+        p1[:, pos] = p1_mat
+        f = f_mat.new_zeros(steps, 3, n_local * parts)
+        f[:, :, pos] = f_mat
+        losses = losses.clone()
+        coll.all_reduce_coalesced_([losses, p1, f], self._data)
+        return losses, p1, f
+
     def _epoch_loop(self, split_idx: np.ndarray, split: str,
                     params: Optional[Dict[str, nn.Module]] = None,
                     epoch: Optional[int] = None) -> Tuple[float, Dict[str, float]]:
@@ -638,10 +799,14 @@ class ForensicTrainer:
                     self._save_step_checkpoint(epoch, skip + bi + 1, order)
             else:
                 outs.append(self.eval_step(params, chunk, mask))
+        losses = torch.stack([o[0].detach() for o in outs])
+        p1_mat = torch.stack([o[1] for o in outs])
+        f_mat = torch.stack([o[2] for o in outs])
+        if self.mesh is not None:  # the global batches' outputs on every rank
+            accum = max(1, int(self.cfg.grad_accum)) if is_train else 1
+            losses, p1_mat, f_mat = self._assemble(losses, p1_mat, f_mat, accum)
         # one device -> host copy per epoch
-        losses = torch.stack([o[0].detach() for o in outs]).cpu().numpy()
-        p1_mat = torch.stack([o[1] for o in outs]).cpu().numpy()
-        f_mat = torch.stack([o[2] for o in outs]).cpu().numpy()
+        losses, p1_mat, f_mat = (t.cpu().numpy() for t in (losses, p1_mat, f_mat))
         y, p1, f_cat = flatten_epoch_rows(batches, self.cache["labels"], p1_mat, f_mat)
         metrics = aggregate_epoch_metrics(
             y, p1, forensic={"semantic_conflict": f_cat[0], "temporal_delay": f_cat[1],
@@ -657,7 +822,7 @@ class ForensicTrainer:
         tracker = ImprovementTracker(cfg.out_dir, TRAINER_KIND, cfg.save_best,
                                      cfg.early_stop_patience, best=self.best_val_auc,
                                      no_improve=self.no_improve)
-        with profiler_trace(cfg.profile_dir, self.device):
+        with profiler_trace(cfg.profile_dir if ckpt.is_primary() else None, self.device):
             for epoch in range(self.start_epoch, cfg.epochs + 1):
                 t0 = time.time()
                 tr_loss, tr_metrics = self._epoch_loop(self.tr_idx, "train", epoch=epoch)
@@ -694,15 +859,16 @@ class ForensicTrainer:
                                            "testing current params", self.device)
         if restored is not None:
             best = copy.deepcopy(self.state.params)
+            slot = TrainState(0, best, self.state.opt_state, self.state.gen, self._tp)
             try:
-                TrainState(0, best, self.state.opt_state, self.state.gen).check_compatible(
-                    restored[0])
+                payload = slot.local_payload(restored[0])
+                slot.check_compatible(payload)
             except ValueError as exc:
                 print(f"⚠️  best checkpoint does not fit this model ({exc}); "
                       "testing current params")
             else:
                 for part, mod in best.items():
-                    mod.load_state_dict(restored[0]["params"][part])
+                    mod.load_state_dict(payload["params"][part])
                 params = best
         ts_loss, m = self._epoch_loop(self.te_idx, "test", params=params)
         print(f"[Test] loss={ts_loss:.4f} | ", end="")

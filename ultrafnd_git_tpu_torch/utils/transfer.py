@@ -9,7 +9,8 @@ the reference PyTorch layout (`fusion_/classifier_/gcn_state_dict_from_params`,
 the port's copies of the functions of the JAX package's
 `utils/torch_transfer.py`), whose keys the port's modules are named after.
 The v1 ensemble's stacked tree (a leading member axis on every leaf) maps
-member by member (`ensemble_state_dicts_from_params`). The caller
+member by member (`ensemble_state_dicts_from_params`); the edge-list GNNs
+of `models/graph_nets.py` by their Flax names (`graph_nets_state_dict`). The caller
 converts arrays to numpy.
 
 A model directory holds `weights.pt` ({part: state_dict}, loadable with
@@ -108,6 +109,23 @@ def gnn_model_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
     """The integrated trainer's GNNModel params -> the port's `GNNModel`
     state dict: the same `torch_dense` lin1 / lin2 layout as SimpleGCN's."""
     return gcn_state_dict_from_params(params)
+
+
+def graph_nets_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """Flax `PostEncoder` / `HeteroFGHGNN` / `SAGELayer` params ->
+    `models/graph_nets.py`'s state dict: every Dense keeps its Flax name
+    (`sage0/self`, `phr1`, `out`, ...) as a `Linear`."""
+    out: StateDict = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for name, sub in tree.items():
+            if "kernel" in sub:
+                _dense(out, prefix + name, sub)
+            else:
+                walk(sub, f"{prefix}{name}.")
+
+    walk(params, "")
+    return out
 
 
 def tower_state_dict(params: Mapping[str, Any]) -> StateDict:
