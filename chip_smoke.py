@@ -10,7 +10,9 @@ serve it, encode text through the text ladder's tower rung (seeded and
 trained) and serve a training out_dir, search the hash salt over that
 root, serve frozen scoring artifacts (torch.export) and the legacy
 two-dispatch path, train with --trainer integrated, and run the v1
-raw-media ensemble pipeline (decode, the device CV stage, the ensemble).
+raw-media ensemble pipeline (decode, the device CV stage, the ensemble),
+train on a mesh (--dp, --tp, then --sp, --pp, expert-parallel MoE) and
+serve with serve_dp.
 
     python3 chip_smoke.py
 
@@ -51,7 +53,10 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      seeded text rung's chunk. K1, K2's bf16 mode (its tensor maps are encoded on the
      host every call) and their library calls are also timed with the
      host's work included (no lead). K2 and its bf16 mode are swept over S
-     and D (B * S = 16384);
+     and D (B * S = 16384); K2 at (128, 6, 64, 128) and K3/K4 in both
+     modes at (256 and 128, 6, 64, 128), the pipelined tower's
+     microbatches, checked and timed against their bound and SDPA; K1's
+     yardstick also on the v1 ensemble's leaf table (phase v1_train);
      the ptxas report (registers, spills) of every kernel is printed;
   4. train   — ForensicTrainer on a synthetic corpus of N = 5376 at full
      width (tower 768 x 2 layers x 6 heads, S = 64, vocab 32768, fusion
@@ -228,6 +233,24 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      relative of the plain run's, each moment leaf within 1e-2 relative
      L2, and the replicated parameters bit-identical across the ranks
      (sha256); (a)'s NCCL group is destroyed before (b);
+ 11h. parallel_train — the rest of the mesh layer on the same model, cfg and
+     plain run as mesh_train (b): two gloo ranks sharing the card, in one
+     pair of processes, at --sp 2 (ring attention over the tower's
+     sequence, plain torch), --pp 2 and --pp 2 --pp_microbatches 4 (GPipe
+     over the tower's blocks, K2 and K3/K4 on each stage's microbatches),
+     4 steps each, held to (b)'s bounds against the 4 plain steps (losses,
+     clip norms, gathered parameters and AdamW moments; replicated
+     parameters bit-identical); each rank's launches (K2 = K3/K4 = steps x
+     microbatches x depth / pp under pp, 0 under sp; K1 = steps + 2); then a
+     step with each all-reduce timed between two synchronisations and a
+     profiled step (device ms, idle share, top kernels, the ms of the
+     ring's forward kernels and, apart, of its copies); a MoE block
+     (width 768, 8 experts, 32 x 64 tokens) with its experts cut over an
+     ep group of the two ranks against the whole block (output, aux,
+     input and parameter gradients within 1e-5 of their largest);
+     serve_dp in this process: serve_dp=1 equal to the default Predictor,
+     serve_dp = cards + 1 refused, and with two cards or more serve_dp =
+     cards within 1e-6;
  12. a check that no module of jax or of the JAX package ultrafnd_git_tpu
      was loaded (server threads included), a JSON line of the kernels, then
      the JSON result line.
@@ -298,6 +321,8 @@ CHECK_SHAPES = (
     (4, 4, 512, 64),
     (2, 4, 2048, 64),
 )
+PP_SHAPES = ((TRAIN_BATCH // 2, 6, 64, 128),  # the pipelined tower's microbatch at --pp 2
+             (TRAIN_BATCH // 4, 6, 64, 128))  # ... at --pp 2 --pp_microbatches 4
 BWD_SHAPES = (
     TRAIN_SHAPE,
     (16, 6, 64, 128),  # the CLI's default batch
@@ -397,6 +422,177 @@ print("RESULT " + json.dumps({"rank": t.mesh.rank, "coords": t.mesh.coords,
                               "losses": losses, "norms": norms, "step_ms": step_ms,
                               "replicated_sha256": digest.hexdigest()}), flush=True)
 torch.distributed.destroy_process_group()
+"""
+PARALLEL_STEPS = 4  # parallel_train: steps of each layout held against the plain run's
+PARALLEL_LAYOUTS = (("sp2", {"sp": 2}), ("pp2", {"pp": 2}),
+                    ("pp2_mb4", {"pp": 2, "pp_microbatches": 4}))
+MOE_EP = dict(batch=32, seq=64, experts=MOE_EXPERTS)  # the ep check's MoE block, width 768
+MOE_EP_REL = 1e-5  # ep-sharded block vs whole: output, aux, each gradient, of its largest value
+PARALLEL_WORKER = """
+import copy, hashlib, json, os, statistics, sys, time
+sys.path.insert(0, os.getcwd())
+import torch
+import torch.distributed as dist
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
+from ultrafnd_git_tpu_torch.kernels.adamw import AdamW
+from ultrafnd_git_tpu_torch.models import transformer as tr
+from ultrafnd_git_tpu_torch.models.moe import EXPERT_LEAVES, MoEEncoderBlock, expert_parallel_
+from ultrafnd_git_tpu_torch.parallel import collectives as coll
+from ultrafnd_git_tpu_torch.parallel import mesh as meshlib
+from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+layouts, cfg, steps, moe = (json.loads(a) for a in sys.argv[1:5])
+if not meshlib.maybe_initialize_distributed(backend="gloo"):
+    raise SystemExit("no coordinator")
+rank = dist.get_rank()
+ring = tr.ring_attention_local
+
+def ring_marked(*a, **kw):  # the ring's forward, as one range of the profile
+    with record_function("ring_attention"):
+        return ring(*a, **kw)
+
+tr.ring_attention_local = ring_marked
+norms, scalars = [], AdamW.scalars
+
+def recorded(self, grads, count):  # the clip's global norm of each step
+    row = scalars(self, grads, count)
+    norms.append(float(row[0]))
+    return row
+
+def counts():
+    return {"fwd": fa.launches, "fwd_bf16": fa.bf16_launches, "bwd": fa.bwd_launches,
+            "bwd_bf16": fa.bwd_bf16_launches, "adamw": aw.launches}
+
+AdamW.scalars = recorded
+for name, layout in layouts:
+    before, norms[:] = counts(), []
+    out_dir = f"{cfg['out_dir']}/{name}"
+    t = ForensicTrainer(TrainConfig(**{**cfg, "out_dir": out_dir}, **layout), device="cuda")
+    batches = t.epoch_batches(t.tr_idx, True)
+    losses, step_ms, calls = [], [], []
+
+    def step(i):
+        chunk, mask, _ = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        c, s = coll.calls, time.perf_counter()
+        loss = t.train_step(chunk, mask)[0].detach().clone()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - s))
+        calls.append(coll.calls - c)
+        return loss
+
+    for i in range(steps):
+        loss = step(i)
+        coll.all_reduce_(loss, t._data)  # the step's loss from every data rank's share
+        losses.append(float(loss))
+    digest = hashlib.sha256()
+    for part, mod in sorted(t.state.params.items()):
+        for key, p in sorted(mod.state_dict().items()):
+            if meshlib.split_dim(part, key) is None:
+                digest.update(p.detach().cpu().numpy().tobytes())
+    full = t.state.state_dict()
+    torch.save({"params": full["params"], "mu": full["opt_state"]["mu"],
+                "nu": full["opt_state"]["nu"]}, f"{out_dir}/state.rank{rank}.pt")
+    step_norms = list(norms)
+    # the collectives' own time in one more step: each between two synchronisations
+    all_reduce, spent = dist.all_reduce, []
+
+    def timed_all_reduce(*a, **kw):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        r = all_reduce(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(1e3 * (time.perf_counter() - s))
+        return r
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        step(steps)
+    finally:
+        dist.all_reduce = all_reduce
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(steps + 1)
+    events = prof.key_averages()
+    # device work only: a range's GPU-side annotation (the ring's, gloo's)
+    # spans the idle time between its first and last kernel
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key != "ring_attention" and not e.key.startswith("gloo:")]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the device work launched inside the ring's CPU-side ranges: its own
+    # kernels, and apart the copies (its hops' device-host copies for gloo)
+    ring_us = {"kernels": 0.0, "copies": 0.0}
+
+    def launched(e):
+        yield from e.kernels
+        for c in e.cpu_children:
+            yield from launched(c)
+
+    for e in prof.events():
+        if e.name == "ring_attention" and e.device_type == DeviceType.CPU:
+            for k in launched(e):
+                ring_us["copies" if k.name.startswith(("Memcpy", "Memset")) else "kernels"] \
+                    += k.duration
+    median = statistics.median(step_ms[1:steps])
+    print(f"RESULT {name} " + json.dumps({
+        "rank": rank, "coords": t.mesh.coords, "backend": t.mesh.backend,
+        "device": str(t.device), "losses": losses, "norms": step_norms,
+        "step_ms": step_ms[:steps], "median_step_ms": median,
+        "collectives_a_step": calls[0], "collective_ms": spent,
+        "profiled_step_ms": step_ms[-1], "step_device_ms": device_ms,
+        "idle_share": max(0.0, 1.0 - device_ms / median),
+        "ring_forward_kernel_ms": ring_us["kernels"] / 1e3,
+        "ring_forward_copy_ms": ring_us["copies"] / 1e3,
+        "top_kernels": [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in
+                        sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]],
+        "replicated_sha256": digest.hexdigest(), "steps_run": len(step_ms),
+        "launches": {k: v - before[k] for k, v in counts().items()}}), flush=True)
+    del t, full
+    torch.cuda.empty_cache()
+AdamW.scalars = scalars
+
+# the MoE block with its experts cut over an ep group of the two ranks
+before = counts()
+mesh = meshlib.make_mesh(extra_axes=[("ep", 2)])
+gen = torch.Generator().manual_seed(0)
+whole = MoEEncoderBlock(768, 6, num_experts=moe["experts"])
+with torch.no_grad():
+    for p in whole.parameters():
+        p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+whole = whole.cuda()
+x0 = torch.randn(moe["batch"], moe["seq"], 768, generator=gen).cuda()
+probe = torch.randn(moe["batch"], moe["seq"], 768, generator=gen).cuda()
+lengths = torch.randint(1, moe["seq"] + 1, (moe["batch"],), generator=gen)
+mask = (torch.arange(moe["seq"])[None] < lengths[:, None]).float().cuda()
+sharded = expert_parallel_(copy.deepcopy(whole), mesh.shard("ep"))
+res = {}
+for tag, block in (("whole", whole), ("ep", sharded)):
+    x = x0.clone().requires_grad_()
+    torch.cuda.synchronize()
+    c, s = coll.calls, time.perf_counter()
+    y, aux = block(x, mask)
+    ((y * probe).sum() + aux).backward()
+    torch.cuda.synchronize()
+    res[tag] = (y.detach(), aux.detach(), x.grad, {k: p.grad for k, p in block.named_parameters()},
+                1e3 * (time.perf_counter() - s), coll.calls - c)
+
+def rel(a, b):
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+i, per = mesh.shard("ep").rank, moe["experts"] // 2
+grad_rel = max(rel(g, res["whole"][3][k][i * per: (i + 1) * per]
+                   if k.rsplit(".", 1)[-1] in EXPERT_LEAVES else res["whole"][3][k])
+               for k, g in res["ep"][3].items())
+print("MOE " + json.dumps({
+    "rank": rank, "y_rel": rel(res["ep"][0], res["whole"][0]),
+    "aux_rel": rel(res["ep"][1], res["whole"][1]), "dx_rel": rel(res["ep"][2], res["whole"][2]),
+    "grad_rel": grad_rel, "ms": res["ep"][4], "whole_ms": res["whole"][4],
+    "collectives": res["ep"][5],
+    "expert_shapes": [tuple(getattr(sharded.moe, k).shape) for k in EXPERT_LEAVES],
+    "launches": {k: v - before[k] for k, v in counts().items()}}), flush=True)
+dist.destroy_process_group()
 """
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd",
            "flash_attention_bwd_bf16", "adamw")
@@ -879,6 +1075,82 @@ def check_flash_bwd_bf16(dev, f32_bwd_ms):
     return res
 
 
+def _sdpa_bwd_ms(q, k, v, bias, do, bf16):
+    """(ms, note) of torch.autograd.grad of the SDPA yardstick's call for q,
+    k, v (`_sdpa_bf16` or `_sdpa`); ms None with the error's note when SDPA
+    refuses the inputs (a yardstick only: the port never calls SDPA)."""
+    import torch
+
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    try:
+        with torch.enable_grad():
+            out = (_sdpa_bf16 if bf16 else _sdpa)(qg, kg, vg, bias)
+        return _median_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                          runs=20), ""
+    except RuntimeError as exc:
+        return None, f"{type(exc).__name__}: {str(exc)[:200]}"
+
+
+def check_pipeline_shapes(dev):
+    """K2 (f32) and the fused K3/K4 in both modes at the pipelined tower's
+    microbatch shapes (PP_SHAPES): each against its plain version (K3/K4 at
+    BWD_REL / BWD_BF16_REL of max|plain|), then timed against its bound and
+    SDPA's call or backward at the same shape."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+
+    res = {"fwd": [], "bwd": [], "bwd_bf16": []}
+    for i, shape in enumerate(PP_SHAPES):
+        q, k, v, do, mask = _attention_inputs(shape, 500 + i, dev)
+        bias = fa.padding_bias(mask)
+        with torch.no_grad():
+            if shape not in CHECK_SHAPES:  # K2 f32 at this shape
+                out, lse = fa.flash_attention_fwd(q, k, v, bias)
+                ref_out, _ = fa.reference_attention(q, k, v, bias)
+                rel = _max_err(out, ref_out) / max(ref_out.abs().max().item(), 1e-30)
+                if not rel <= FWD_REL:
+                    raise RuntimeError(f"K2 out at {shape}: {rel} of max|plain|")
+                t = {"shape": list(shape), "rel_err": rel,
+                     "ms": _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias)),
+                     "plain_ms": _median_ms(lambda: fa.reference_attention(q, k, v, bias)),
+                     "library_ms": _median_ms(lambda: _sdpa(q, k, v, bias)), **_fwd_bound(shape)}
+                res["fwd"].append(t)
+                log("kernels", time="flash_attention_fwd (pipelined microbatch)", **t)
+            for bf16 in (False, True):
+                if bf16:
+                    qq, kk, vv, dd = (t.to(torch.bfloat16) for t in (q, k, v, do))
+                    bb = fa.padding_bias(mask, torch.bfloat16)
+                    fwd, bwd, ref_bwd = (fa.flash_attention_fwd_bf16, fa.flash_attention_bwd_bf16,
+                                         fa.attention_bwd_reference_bf16)
+                    bound, limit = _bwd_bf16_bound(shape), BWD_BF16_REL
+                else:
+                    qq, kk, vv, dd, bb = q, k, v, do, bias
+                    fwd, bwd, ref_bwd = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                                         fa.attention_bwd_reference)
+                    bound, limit = _bwd_bound(shape), BWD_REL
+                out, lse = fwd(qq, kk, vv, bb)
+                got = bwd(qq, kk, vv, bb, out, lse, dd, with_dbias=False)
+                ref = ref_bwd(qq, kk, vv, bb, out, lse, dd)
+                rel = max(_max_err(a.float(), r.float()) / max(r.float().abs().max().item(), 1e-30)
+                          for a, r in zip(got[:3], ref[:3]))
+                if not rel <= limit:
+                    raise RuntimeError(f"K3/K4{'-bf16' if bf16 else ''} at {shape}: {rel} of "
+                                       "max|plain|")
+                ms = _median_ms(lambda: bwd(qq, kk, vv, bb, out, lse, dd, with_dbias=False),
+                                runs=20)
+                library_ms, note = _sdpa_bwd_ms(qq, kk, vv, bb, dd, bf16)
+                t = {"shape": list(shape), "rel_err": rel, "ms": ms, "library_ms": library_ms,
+                     "library_error": note, **bound}
+                res["bwd_bf16" if bf16 else "bwd"].append(t)
+                log("kernels", time=f"flash_attention_bwd{'_bf16' if bf16 else ''} (fused "
+                    "K3+K4, pipelined microbatch, delta, no dbias)", **t,
+                    library=f"SDPA {'bf16' if bf16 else 'f32 EFFICIENT_ATTENTION'} backward")
+        del q, k, v, do, mask, bias
+        torch.cuda.empty_cache()
+    return res
+
+
 def full_width_params(dev):
     """The trainer's parameter tree at full width (about 52 M parameters)."""
     import torch
@@ -894,6 +1166,24 @@ def full_width_params(dev):
     mods = {"fusion": CrossModalTransformer(), "clf": DeepTruthClassifier(**classifier_config()),
             "gnn": SimpleGCN(416, 256, 128), "text_tower": TextTransformer(**TOWER)}
     return {k: jax_init_(k, m, gen).to(dev) for k, m in mods.items()}
+
+
+def _library_adamw(leaves, tx, grad_scale, dev):
+    """(call, restore): one `torch._fused_adamw_` over K1's (p, m, v, g)
+    `leaves` with `tx`'s hyperparameters, and the copy back of the grads it
+    overwrites (run before each timed block, untimed)."""
+    import torch
+
+    ps, ms_, vs, gs = (list(t) for t in zip(*leaves))
+    # the raw op does not count steps (torch.optim adds 1 before it): step 1,
+    # the bias correction of K1's first step; a step of 0 divides by zero
+    steps = [torch.ones((), device=dev) for _ in leaves]
+    saved = [t.clone() for t in gs]
+    call = lambda: torch._fused_adamw_(  # noqa: E731
+        ps, gs, ms_, vs, [], steps, lr=2e-4, beta1=tx.b1, beta2=tx.b2,
+        weight_decay=tx.weight_decay, eps=tx.eps, amsgrad=False, maximize=False,
+        grad_scale=grad_scale, found_inf=None)
+    return call, lambda: torch._foreach_copy_(gs, saved)
 
 
 def check_adamw(dev):
@@ -940,21 +1230,11 @@ def check_adamw(dev):
     plain_ms = _median_ms(lambda: plain._update(leaves, scal), runs=20, calls=5, lead=False)
     # the yardstick: torch's fused AdamW over the same leaves, the clip
     # coefficient min(1, clip / gnorm) passed as grad_scale = 1 / coefficient
-    ps, ms_, vs, gs = (list(t) for t in zip(*leaves))
-    # the raw op does not count steps (torch.optim adds 1 before it): step 1,
-    # the bias correction of K1's first step; a step of 0 divides by zero
-    steps = [torch.ones((), device=dev) for _ in leaves]
     grad_scale = torch.clamp(scal[0] / fused.grad_clip, min=1.0).reshape(())
-    # it writes the unscaled grads back: restore them before each block (untimed)
-    saved = [t.clone() for t in gs]
-    library = lambda: torch._fused_adamw_(  # noqa: E731
-        ps, gs, ms_, vs, [], steps, lr=2e-4, beta1=fused.b1, beta2=fused.b2,
-        weight_decay=fused.weight_decay, eps=fused.eps, amsgrad=False, maximize=False,
-        grad_scale=grad_scale, found_inf=None)
-    restore = lambda: torch._foreach_copy_(gs, saved)  # noqa: E731
+    library, restore = _library_adamw(leaves, fused, grad_scale, dev)
     library_ms = _median_ms(library, runs=20, calls=5, before_block=restore)
     library_ms_host = _median_ms(library, runs=20, calls=5, before_block=restore, lead=False)
-    del saved
+    del library, restore
     # p, g, m, v in; p, m, v out; f32 arithmetic
     bound = _bound(4 * 7 * n_params, ADAMW_FLOP * n_params, F32_FLOPS)
     log("kernels", check="adamw", params=n_params, leaves=len(leaves), steps=3,
@@ -2886,6 +3166,10 @@ def phase_v1_train(dev, root):
     k1_ms = _median_ms(lambda: aw.fused_adamw_(leaves, scal), runs=20, calls=5)
     k1_plain_ms = _median_ms(lambda: [aw.adamw_reference_(*leaf, scal) for leaf in leaves],
                              runs=10, calls=2, lead=False)
+    # the yardstick on this table: torch's fused AdamW, no clip (as K1 here)
+    library, restore = _library_adamw(leaves, trainer.tx, None, dev)
+    k1_library_ms = _median_ms(library, runs=20, calls=5, before_block=restore)
+    del library, restore
     log("v1_train", part="ensemble", members=2, batch=V1_BATCH, params=n_params,
         leaves=len(leaves), steps=trainer.step_count, launches=json.dumps(ens_launches),
         median_step_ms=statistics.median(step_ms[1:]), first_step_ms=step_ms[0],
@@ -2896,7 +3180,8 @@ def phase_v1_train(dev, root):
         gpu_vs_cpu_grad_max_rel=worst[0], worst_leaf=worst[1], grad_floor=V1_GRAD_FLOOR,
         probs_finite=bool(np.isfinite(probs).all()), k1_vs_plain_max_abs_err=k1_err,
         k1_bit_identical=True, k1_scalar_leaves=k1_scalar_leaves, k1_ms=k1_ms,
-        k1_plain_ms=k1_plain_ms,
+        k1_plain_ms=k1_plain_ms, k1_library_ms=k1_library_ms,
+        k1_library="torch._fused_adamw_ over the same 210 leaves, no grad_scale",
         **_bound(4 * 7 * n_params, ADAMW_FLOP * n_params, F32_FLOPS))
 
     # 4. the CLI on the fixture's records with video, then --debug
@@ -3017,7 +3302,7 @@ def _profile_mesh_step(step, median_ms, label):
 def phase_mesh_train(model_dir, root):
     """(a) the world-1 NCCL mesh through the CLI against the plain CLI run;
     (b) two gloo ranks on the card at --tp 2 and --dp 2. Returns (a)'s
-    launch counts."""
+    launch counts and (b)'s plain reference run (parallel_train's too)."""
     import torch
     import torch.distributed as dist
 
@@ -3183,39 +3468,168 @@ def phase_mesh_train(model_dir, root):
                 raise RuntimeError(f"mesh_train (b) {name}: a rank failed:\n{o[-3000:]}")
         res = [json.loads(o.split("RESULT ")[-1].splitlines()[0]) for o in outs]
         gap = max(abs(a - b) for r in res for a, b in zip(r["losses"], mesh["losses"]))
-        plain_gap = max(abs(a - b) for r in res for a, b in zip(r["losses"], ref["losses"]))
-        norm_rel = max(abs(a - b) / max(abs(b), 1e-30)
-                       for r in res for a, b in zip(r["norms"], ref["norms"]))
-        tree_rel, leaf_rel = {}, {}  # whole tree's relative L2; worst leaf's, and which
-        for r in range(2):
-            got = torch.load(out / f"state.rank{r}.pt", weights_only=True)
-            for tree in ("params", "mu", "nu"):
-                _, worst = _leaf_gaps(got[tree], ref[tree])
-                leaf_rel[tree] = max(leaf_rel.get(tree, (0.0, "")), worst)
-                tree_rel[tree] = max(tree_rel.get(tree, 0.0), _tree_gap(got[tree], ref[tree]))
-        same = res[0]["replicated_sha256"] == res[1]["replicated_sha256"]
-        if len(res[0]["losses"]) != MESH_GLOO_STEPS or res[0]["losses"] != res[1]["losses"] \
-                or len(res[0]["norms"]) != len(ref["norms"]) \
-                or len(ref["norms"]) < MESH_GLOO_STEPS \
-                or max(gap, plain_gap) > MESH_GLOO_TOL \
-                or norm_rel > MESH_REL or max(tree_rel.values()) > MESH_REL \
-                or max(leaf_rel["mu"][0], leaf_rel["nu"][0]) > MESH_LEAF_REL \
-                or not same or res[0]["backend"] != "gloo":
-            raise RuntimeError(
-                f"mesh_train (b) {name}: losses {[r['losses'] for r in res]} vs (a) "
-                f"{mesh['losses'][:MESH_GLOO_STEPS]} (gap {gap}) and the plain run "
-                f"{ref['losses']} (gap {plain_gap}, bound {MESH_GLOO_TOL}); clip norms "
-                f"{[r['norms'] for r in res]} vs {ref['norms']} (relative {norm_rel}); trees "
-                f"{tree_rel} (bound {MESH_REL}); worst leaves {leaf_rel} (moments' bound "
-                f"{MESH_LEAF_REL}); replicated parameters identical: {same}")
+        held = _hold_gloo_ranks(f"mesh_train (b) {name}", res, out, ref, MESH_GLOO_STEPS)
+        if gap > MESH_GLOO_TOL:
+            raise RuntimeError(f"mesh_train (b) {name}: losses {[r['losses'] for r in res]} "
+                               f"vs (a) {mesh['losses'][:MESH_GLOO_STEPS]} (gap {gap}, bound "
+                               f"{MESH_GLOO_TOL})")
         log("mesh_train", layout=f"(b) {name}, 2 gloo ranks on one card", ranks=json.dumps(
             [{"rank": r["rank"], "coords": r["coords"], "device": r["device"]} for r in res]),
-            losses=json.dumps(res[0]["losses"]), max_gap_to_a=gap, max_gap_to_plain=plain_gap,
-            clip_norms=json.dumps(res[0]["norms"]), max_norm_rel=norm_rel,
-            tree_rel=json.dumps(tree_rel), worst_leaf_rel=json.dumps(leaf_rel),
-            replicated_bit_identical=same,
+            losses=json.dumps(res[0]["losses"]), max_gap_to_a=gap, **held,
             median_step_ms=statistics.median(res[0]["step_ms"][1:]),
             first_step_ms=res[0]["step_ms"][0], wall_s=time.perf_counter() - t2)
+    return launches, ref
+
+
+def _hold_gloo_ranks(what, res, out, ref, steps):
+    """Two gloo ranks' results `res` (their losses, clip norms and replicated
+    parameters' digest; their gathered parameters and AdamW moments in
+    `out`/state.rank<r>.pt) held against the plain run `ref`: losses within
+    MESH_GLOO_TOL, the norms and whole trees within MESH_REL relative, each
+    moment leaf within MESH_LEAF_REL, both ranks alike. Raises naming
+    `what`; returns the fields to log."""
+    import torch
+
+    plain_gap = max(abs(a - b) for r in res for a, b in zip(r["losses"], ref["losses"]))
+    norm_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for r in res for a, b in zip(r["norms"], ref["norms"]))
+    tree_rel, leaf_rel = {}, {}  # whole tree's relative L2; worst leaf's, and which
+    for r in range(2):
+        got = torch.load(out / f"state.rank{r}.pt", weights_only=True)
+        for tree in ("params", "mu", "nu"):
+            _, worst = _leaf_gaps(got[tree], ref[tree])
+            leaf_rel[tree] = max(leaf_rel.get(tree, (0.0, "")), worst)
+            tree_rel[tree] = max(tree_rel.get(tree, 0.0), _tree_gap(got[tree], ref[tree]))
+    same = res[0]["replicated_sha256"] == res[1]["replicated_sha256"]
+    if len(res[0]["losses"]) != steps or res[0]["losses"] != res[1]["losses"] \
+            or len(res[0]["norms"]) != len(ref["norms"]) or len(ref["norms"]) < steps \
+            or plain_gap > MESH_GLOO_TOL \
+            or norm_rel > MESH_REL or max(tree_rel.values()) > MESH_REL \
+            or max(leaf_rel["mu"][0], leaf_rel["nu"][0]) > MESH_LEAF_REL \
+            or not same or res[0]["backend"] != "gloo":
+        raise RuntimeError(
+            f"{what}: losses {[r['losses'] for r in res]} vs the plain run "
+            f"{ref['losses']} (gap {plain_gap}, bound {MESH_GLOO_TOL}); clip norms "
+            f"{[r['norms'] for r in res]} vs {ref['norms']} (relative {norm_rel}); trees "
+            f"{tree_rel} (bound {MESH_REL}); worst leaves {leaf_rel} (moments' bound "
+            f"{MESH_LEAF_REL}); replicated parameters identical: {same}")
+    return dict(max_gap_to_plain=plain_gap, clip_norms=json.dumps(res[0]["norms"]),
+                max_norm_rel=norm_rel, tree_rel=json.dumps(tree_rel),
+                worst_leaf_rel=json.dumps(leaf_rel), replicated_bit_identical=same)
+
+
+def _spawn_ranks(script, args, world=2):
+    """`world` processes of `script` joined through the --multihost env
+    contract on a free local port; their (return codes, outputs), every
+    process stopped on the way out."""
+    port, procs = _free_port(), []
+    for r in range(world):
+        penv = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                    JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(r), PYTHONPATH=str(REPO))
+        procs.append(subprocess.Popen([sys.executable, "-c", script, *args], cwd=REPO, env=penv,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    return [p.returncode for p in procs], outs
+
+
+def phase_parallel_train(model_dir, served, root, ref, requests):
+    """--sp 2, --pp 2 and --pp 2 --pp_microbatches 4 on two gloo ranks
+    sharing the card, PARALLEL_STEPS steps each, held against the plain
+    run `ref` (mesh_train's); the MoE block with its experts cut over an
+    ep group of the two ranks against the whole block; serve_dp on this
+    process's cards. Returns the path's launch counts (the ranks', then
+    this process's serve_dp requests)."""
+    import torch
+
+    from ultrafnd_git_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    cfg = dict(model_dir=str(model_dir), batch_size=TRAIN_BATCH, epochs=1, seed=0,
+               train_text_tower=True, text_tower_depth=TOWER["depth"],
+               text_tower_heads=TOWER["heads"], tower_gelu=TOWER["gelu"], fused_adamw=True,
+               out_dir=str(root / "parallel"))
+    rcs, outs = _spawn_ranks(PARALLEL_WORKER, [json.dumps(PARALLEL_LAYOUTS), json.dumps(cfg),
+                                               str(PARALLEL_STEPS), json.dumps(MOE_EP)])
+    for rc, o in zip(rcs, outs):
+        if rc != 0:
+            raise RuntimeError(f"parallel_train: a rank failed:\n{o[-3000:]}")
+    launches = dict.fromkeys(("fwd", "fwd_bf16", "bwd", "bwd_bf16", "adamw"), 0)
+    for name, layout in PARALLEL_LAYOUTS:
+        res = [json.loads(o.split(f"RESULT {name} ")[-1].splitlines()[0]) for o in outs]
+        held = _hold_gloo_ranks(f"parallel_train {name}", res, root / "parallel" / name, ref,
+                                PARALLEL_STEPS)
+        steps = res[0]["steps_run"]
+        if "pp" in layout:  # each rank's blocks, once a microbatch
+            k2 = steps * layout.get("pp_microbatches", layout["pp"]) * TOWER["depth"] \
+                // layout["pp"]
+        else:  # the ring is plain torch
+            k2 = 0
+        expect = {"fwd": k2, "fwd_bf16": 0, "bwd": k2, "bwd_bf16": 0, "adamw": steps + 2}
+        for r in res:
+            if r["launches"] != expect:
+                raise RuntimeError(f"parallel_train {name}: rank {r['rank']} launched "
+                                   f"{r['launches']}, expected {expect}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+        log("parallel_train", layout=f"{name} {json.dumps(layout)}, 2 gloo ranks on one card",
+            ranks=json.dumps([{"rank": r["rank"], "coords": r["coords"]} for r in res]),
+            losses=json.dumps(res[0]["losses"]), plain_losses=json.dumps(ref["losses"]), **held,
+            median_step_ms=json.dumps([r["median_step_ms"] for r in res]),
+            first_step_ms=res[0]["step_ms"][0],
+            step_device_ms=json.dumps([r["step_device_ms"] for r in res]),
+            device_idle_share=json.dumps([r["idle_share"] for r in res]),
+            ring_forward_kernel_ms=json.dumps([r["ring_forward_kernel_ms"] for r in res]),
+            ring_forward_copy_ms=json.dumps([r["ring_forward_copy_ms"] for r in res]),
+            collectives_a_step=res[0]["collectives_a_step"],
+            collective_ms=json.dumps([round(x, 3) for x in res[0]["collective_ms"]]),
+            launches_a_rank=json.dumps(res[0]["launches"], separators=(",", ":")),
+            top_kernels=json.dumps(res[0]["top_kernels"]))
+    moe = [json.loads(o.split("MOE ")[-1].splitlines()[0]) for o in outs]
+    worst = max(max(m["y_rel"], m["aux_rel"], m["dx_rel"], m["grad_rel"]) for m in moe)
+    if worst > MOE_EP_REL or moe[0]["expert_shapes"][0][0] != MOE_EP["experts"] // 2:
+        raise RuntimeError(f"parallel_train ep: the sharded MoE block differs from the whole "
+                           f"one: {moe}")
+    for m in moe:
+        for k, v in m["launches"].items():
+            launches[k] += v
+    log("parallel_train", check="MoE block (width 768, 8 experts) with its experts cut over "
+        "ep = 2 vs the whole block", shape=json.dumps(MOE_EP), worst_rel=worst,
+        ranks=json.dumps(moe))
+
+    # serve_dp on this process's cards
+    _reset_counts()
+    requests = [requests[0], requests[-1]]  # 8 and 300 records
+    single = Predictor(str(served))
+    rows = {"single": [single.predict(r) for r in requests]}
+    one = Predictor(str(served), serve_dp=1)
+    rows["serve_dp=1"] = [one.predict(r) for r in requests]
+    gaps = {"serve_dp=1": _max_gap(rows["serve_dp=1"], rows["single"])}
+    cards = torch.cuda.device_count()
+    try:
+        Predictor(str(served), serve_dp=cards + 1)
+        raise RuntimeError(f"parallel_train: serve_dp={cards + 1} did not raise on {cards} card(s)")
+    except ValueError as exc:
+        refused = str(exc)
+    if cards >= 2:
+        multi = Predictor(str(served), serve_dp=cards)
+        rows[f"serve_dp={cards}"] = [multi.predict(r) for r in requests]
+        gaps[f"serve_dp={cards}"] = _max_gap(rows[f"serve_dp={cards}"], rows["single"])
+        multi.close()
+    for p in (single, one):
+        p.close()
+    if gaps["serve_dp=1"] != 0.0 or max(gaps.values()) > 1e-6:
+        raise RuntimeError(f"parallel_train serve_dp: rows differ from the single Predictor's: "
+                           f"{gaps}")
+    for k, v in _launch_counts().items():
+        launches[k] += v
+    log("parallel_train", check="serve_dp", cards=cards, max_gap=json.dumps(gaps),
+        refused=json.dumps(refused), ran_multi_card=cards >= 2,
+        launches=json.dumps(launches, separators=(",", ":")),
+        phase_wall_s=time.perf_counter() - t0, script_wall_s=time.perf_counter() - T0)
     return launches
 
 
@@ -3231,6 +3645,7 @@ def main() -> int:
     flash_bf16 = check_flash_bf16(dev)
     bwd_bf16 = check_flash_bwd_bf16(dev, flash["dq"]["ms"])
     k1 = check_adamw(dev)
+    pp_shapes = check_pipeline_shapes(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as root:
         seeded, served = Path(root) / "seeded_model", Path(root) / "trained_model"
         corpus = build_model_dir(str(seeded))
@@ -3270,7 +3685,8 @@ def main() -> int:
         legacy = phase_legacy_serve(str(served), requests)
         integrated = phase_integrated_train(raw["data_root"], Path(root))
         v1_train = phase_v1_train(dev, Path(root))
-        mesh_train = phase_mesh_train(seeded, Path(root))
+        mesh_train, plain_ref = phase_mesh_train(seeded, Path(root))
+        parallel_train = phase_parallel_train(seeded, served, Path(root), plain_ref, requests)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -3288,7 +3704,8 @@ def main() -> int:
               "moe_serve": moe_serve["launches"].get(key, 0), "auto_salt": salt[key],
               "artifact_serve": artifact.get(key, 0), "legacy_serve": legacy_n,
               "integrated_train": integrated[key], "text_tower": text_tower["launches"][key],
-              "v1_train": v1_train[key], "mesh_train": mesh_train[key]}
+              "v1_train": v1_train[key], "mesh_train": mesh_train[key],
+              "parallel_train": parallel_train[key]}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [
@@ -3297,7 +3714,7 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
          "replaces": ref + "flash_attention.py:162",
          **paths("fwd", serve["launches"], levers["fwd"], explain, http, evidence, legacy),
-         **flash["fwd"],
+         **flash["fwd"], "pipelined_shapes": pp_shapes["fwd"],
          "ptxas": ptxas["flash_attention_fwd"]},
         {"name": "flash_attention_fwd_bf16", "route": "cuda",
          "source": src + "flash_attention_fwd_bf16.cu",
@@ -3306,18 +3723,22 @@ def main() -> int:
          "ptxas": ptxas["flash_attention_fwd_bf16"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:379",
-         **paths("bwd"), **flash["dq"], "ptxas": ptxas["flash_attention_bwd"]},
+         **paths("bwd"), **flash["dq"], "pipelined_shapes": pp_shapes["bwd"],
+         "ptxas": ptxas["flash_attention_bwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:412",
-         **paths("bwd"), **flash["dkv"], "ptxas": ptxas["flash_attention_bwd"]},
+         **paths("bwd"), **flash["dkv"], "pipelined_shapes": pp_shapes["bwd"],
+         "ptxas": ptxas["flash_attention_bwd"]},
         {"name": "flash_attention_bwd_dq_bf16", "route": "cuda",
          "source": src + "flash_attention_bwd_bf16.cu",
          "replaces": ref + "flash_attention.py:379 (mm_dtype=bfloat16)",
-         **paths("bwd_bf16"), **bwd_bf16, "ptxas": ptxas["flash_attention_bwd_bf16"]},
+         **paths("bwd_bf16"), **bwd_bf16, "pipelined_shapes": pp_shapes["bwd_bf16"],
+         "ptxas": ptxas["flash_attention_bwd_bf16"]},
         {"name": "flash_attention_bwd_dkv_bf16", "route": "cuda",
          "source": src + "flash_attention_bwd_bf16.cu",
          "replaces": ref + "flash_attention.py:412 (mm_dtype=bfloat16)",
-         **paths("bwd_bf16"), **bwd_bf16, "ptxas": ptxas["flash_attention_bwd_bf16"]},
+         **paths("bwd_bf16"), **bwd_bf16, "pipelined_shapes": pp_shapes["bwd_bf16"],
+         "ptxas": ptxas["flash_attention_bwd_bf16"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

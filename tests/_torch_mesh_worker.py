@@ -74,9 +74,11 @@ def run_trainer_case(case: dict) -> dict:
     """Build a trainer from `case["cfg"]` on `mesh_cache(**case["cache"])`
     (carrying `case["params"]`'s full state dicts when given), take its val
     loss and metrics, then `case["steps"]` train steps with dropout on; the
-    result holds the global losses, the val metrics, the full parameters
-    after the steps (gathered from tp shards), this rank's own parameters
-    and the row counts of its corpus arrays."""
+    result holds the global losses, the clip's global norm of each step,
+    the val metrics, the full parameters after the steps (gathered from tp
+    shards), this rank's own parameters and the row counts of its corpus
+    arrays."""
+    from ultrafnd_git_tpu_torch.kernels.adamw import AdamW
     from ultrafnd_git_tpu_torch.parallel import collectives as coll
     from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
 
@@ -86,17 +88,25 @@ def run_trainer_case(case: dict) -> dict:
         full = torch.load(case["params"], weights_only=True)
         t.state.load_state_dict({**t.state.state_dict(), "params": full})
     val_loss, val = t._epoch_loop(t.va_idx, "val")
-    losses = []
+    losses, norms, scalars = [], [], t.tx.scalars
+
+    def recorded(grads, count):  # the clip's global norm of each step
+        row = scalars(grads, count)
+        norms.append(float(row[0]))
+        return row
+
+    t.tx.scalars = recorded
     batches = t.epoch_batches(t.tr_idx, True)[: case.get("steps", 0)]
     for chunk, mask, _ in batches:
         loss = t.train_step(chunk, mask)[0].detach().clone()
         if t.mesh is not None:  # this rank's share of the step's loss
             coll.all_reduce_(loss, t._data)
         losses.append(float(loss))
+    t.tx.scalars = scalars
     after_loss, after = t._epoch_loop(t.va_idx, "val")
     payload = t.state.state_dict()
     return {
-        "val_loss": val_loss, "val": val, "losses": losses,
+        "val_loss": val_loss, "val": val, "losses": losses, "norms": norms,
         "after_val_loss": after_loss, "after_val": after,
         "params": payload["params"],
         "local": {p: {k: v.clone() for k, v in m.state_dict().items()}
@@ -135,11 +145,13 @@ def run_resume_case(case: dict) -> dict:
 
 
 def run_error_case(case: dict) -> dict:
-    """The error text of a trainer that must refuse `case["cfg"]`."""
+    """The error text of a trainer that must refuse `case["cfg"]` (on
+    `mesh_cache(**case["cache"])`)."""
     from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
 
     try:
-        ForensicTrainer(TrainConfig(**case["cfg"]), cache=mesh_cache(), device="cpu")
+        ForensicTrainer(TrainConfig(**case["cfg"]), cache=mesh_cache(**case.get("cache", {})),
+                        device="cpu")
     except (ValueError, NotImplementedError) as exc:
         return {"error": f"{type(exc).__name__}: {exc}"}
     return {"error": None}
@@ -218,12 +230,114 @@ def run_modules_case(case: dict) -> dict:
                         for p, m in mods.items()}}
 
 
-def start(cases: list, world: int, out: Path) -> tuple:
-    """Start `cases` on `world` gloo ranks (one process each, this script);
-    `collect` waits for them."""
+def run_ring_case(case: dict) -> dict:
+    """The ring over an `sp` axis of `case["n"]` ranks (a mesh over the
+    world): this rank's output block of `inputs` q, k, v (B, H, S, D) and
+    bias (B, 1, 1, S), and the gradients of sum(out * probe) on its q, k
+    and v blocks."""
+    from ultrafnd_git_tpu_torch.kernels.ring_attention import ring_attention_local
+    from ultrafnd_git_tpu_torch.parallel import mesh as meshlib
+
+    data = torch.load(case["inputs"], weights_only=True)
+    mesh = meshlib.make_mesh(extra_axes=[("sp", case["n"])])
+    sp = mesh.shard("sp")
+    per = data["q"].shape[2] // sp.size
+    cut = slice(sp.rank * per, (sp.rank + 1) * per)
+    q, k, v = (data[n][:, :, cut].clone().requires_grad_() for n in "qkv")
+    out = ring_attention_local(q, k, v, data["bias"][..., cut], sp)
+    (out * data["probe"][:, :, cut]).sum().backward()
+    return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad,
+            "coords": mesh.coords}
+
+
+def run_tower_case(case: dict) -> dict:
+    """The tower of `inputs` ("weights", a TextTransformer state dict; "ids",
+    "mask", "probe" of the global batch) on this rank's rows, its `axis`
+    ("sp" or "pipe", `case["n"]` ranks) transformed by
+    `sequence_parallel_tower_apply` or `pipelined_tower_apply`: the pooled
+    rows, the gradients of sum(pooled * probe) summed as the trainer sums
+    them, the dropout generator's state after (`case["seed"]` seeds it;
+    None is eval mode), the collectives of the forward and of the step and
+    the calls of the blocks' bodies in the forward."""
+    from ultrafnd_git_tpu_torch.models.dropout import ShardedGenerator
+    from ultrafnd_git_tpu_torch.models.transformer import TextTransformer
+    from ultrafnd_git_tpu_torch.parallel import collectives as coll
+    from ultrafnd_git_tpu_torch.parallel import mesh as meshlib
+    from ultrafnd_git_tpu_torch.parallel.pipeline import pipelined_tower_apply
+    from ultrafnd_git_tpu_torch.parallel.sequence import sequence_parallel_tower_apply
+
+    data = torch.load(case["inputs"], weights_only=True)
+    axis = case["axis"]
+    mesh = meshlib.make_mesh(dp=case.get("dp"), extra_axes=[(axis, case["n"])])
+    tower = TextTransformer(**case["tower"],
+                            dtype=torch.bfloat16 if case.get("bf16") else None)
+    tower.load_state_dict(data["weights"])
+    block_calls = []
+    for blk in tower.blocks:
+        def counted(*a, body=blk.body, **kw):
+            block_calls.append(1)
+            return body(*a, **kw)
+        blk.body = counted
+    ids, mask, probe = (meshlib.put_global_batch(data[k], mesh) for k in ("ids", "mask", "probe"))
+    rows = mesh.shard("data")
+    gen = None
+    if case.get("seed") is not None:
+        gen = ShardedGenerator(torch.Generator().manual_seed(case["seed"]),
+                               rows=(rows.rank, rows.size))
+    calls = coll.calls
+    if axis == "sp":
+        out = sequence_parallel_tower_apply(tower, ids, mask, mesh.shard("sp"), gen)
+    else:
+        out = pipelined_tower_apply(tower, ids, mask, mesh.shard("pipe"),
+                                    case.get("microbatches"), rows, gen)
+    forward_calls, block_calls = coll.calls - calls, len(block_calls)
+    (out.float() * probe).sum().backward()
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+             for k, p in tower.named_parameters()}
+    coll.all_reduce_coalesced_([g for k, g in grads.items()
+                                if axis == "sp" or not k.startswith("ln_final.")],
+                               mesh.shard(axis))
+    coll.all_reduce_coalesced_(list(grads.values()), rows)
+    return {"out": out.detach().float(), "grads": grads, "coords": mesh.coords,
+            "gen_state": None if gen is None else gen.gen.get_state(),
+            "calls": (forward_calls, coll.calls - calls), "block_calls": block_calls}
+
+
+def run_ep_case(case: dict) -> dict:
+    """`MoEFFN` of `inputs` ("weights", the whole module's state dict; "x",
+    "probe") with its experts cut over an `ep` axis of `case["n"]` ranks:
+    the output, the aux loss, this rank's parameter gradients and the
+    input's gradient of sum(y * probe) + aux."""
+    from ultrafnd_git_tpu_torch.models.moe import MoEFFN, expert_parallel_
+    from ultrafnd_git_tpu_torch.parallel import mesh as meshlib
+
+    data = torch.load(case["inputs"], weights_only=True)
+    mesh = meshlib.make_mesh(extra_axes=[("ep", case["n"])])
+    moe = MoEFFN(**case["moe"])
+    moe.load_state_dict(data["weights"])
+    expert_parallel_(moe, mesh.shard("ep"))
+    x = data["x"].clone().requires_grad_()
+    y, aux = moe(x)
+    ((y * data["probe"]).sum() + aux).backward()
+    return {"y": y.detach(), "aux": aux.detach(), "dx": x.grad, "coords": mesh.coords,
+            "grads": {k: p.grad.clone() for k, p in moe.named_parameters()},
+            "shapes": {k: tuple(p.shape) for k, p in moe.named_parameters()}}
+
+
+def run_cli_case(case: dict) -> dict:
+    """The training CLI's main() with `case["argv"]` in this rank's process
+    (the world's group is the mesh's: no --multihost): its results."""
+    from ultrafnd_git_tpu_torch.train import main as train_main
+
+    return {"results": train_main(case["argv"])}
+
+
+def start(cases: list, world: int, out: Path, nice: int = 10) -> tuple:
+    """Start `cases` on `world` gloo ranks (one process each, this script,
+    at niceness `nice`); `collect` waits for them."""
     out.mkdir(parents=True, exist_ok=True)
     job = out / "job.json"
-    job.write_text(json.dumps({"out": str(out), "cases": cases}))
+    job.write_text(json.dumps({"out": str(out), "cases": cases, "nice": nice}))
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -262,13 +376,15 @@ def launch(cases: list, world: int, out: Path, timeout: float = 240) -> list:
 
 CASES = {"trainer": run_trainer_case, "error": run_error_case, "resume": run_resume_case,
          "placement": run_placement_case, "modules": run_modules_case,
-         "two_trainers": run_two_trainers_case}
+         "two_trainers": run_two_trainers_case, "ring": run_ring_case,
+         "tower": run_tower_case, "ep": run_ep_case, "cli": run_cli_case}
 
 
 def main(job_path: str) -> None:
-    # one thread, at a low priority: the ranks must not starve the other
-    # tests that share the machine
-    os.nice(10)
+    job = json.loads(Path(job_path).read_text())
+    # one thread, at a low priority by default: the ranks must not starve
+    # the other tests that share the machine
+    os.nice(job.get("nice", 10))
     torch.set_num_threads(1)
     from ultrafnd_git_tpu_torch.parallel.mesh import maybe_initialize_distributed
 
@@ -276,7 +392,6 @@ def main(job_path: str) -> None:
     if not maybe_initialize_distributed(backend="gloo") and os.environ["JAX_NUM_PROCESSES"] != "1":
         raise SystemExit("no coordinator configured")
     rank = int(os.environ["JAX_PROCESS_ID"])
-    job = json.loads(Path(job_path).read_text())
     out = Path(job["out"])
     for case in job["cases"]:
         result = CASES[case["kind"]](case)

@@ -895,3 +895,131 @@ def test_world_one_nccl_mesh_steps_equal_the_plain_steps(cuda, tmp_path):
     again_loss, again_backend, again_device = res["again"]["again"]
     assert again_backend == "nccl" and again_device == "cuda:0"
     assert abs(again_loss - res["mesh"][0]) <= 1e-6 * abs(res["mesh"][0])
+
+
+SP_PP_STEPS = r"""
+import json, sys
+import torch
+from ultrafnd_git_tpu_torch.kernels import adamw as aw
+from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+from ultrafnd_git_tpu_torch.parallel.mesh import maybe_initialize_distributed
+from ultrafnd_git_tpu_torch.training.trainer import ForensicTrainer, TrainConfig
+
+model, out, layout, device = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), sys.argv[4]
+if not maybe_initialize_distributed(backend="gloo"):
+    raise SystemExit("no coordinator")
+
+
+def steps(name, **mesh):
+    cfg = TrainConfig(out_dir=f"{out}/{name}", model_dir=model, batch_size=16, epochs=1,
+                      seed=0, train_text_tower=True, text_tower_depth=2, text_tower_heads=6,
+                      **mesh)
+    t = ForensicTrainer(cfg, device=device)
+    seen, apply = [], t.tx.apply
+
+    def recording(trainable, opt_state, grads):  # each step's summed gradients
+        seen.append({f"{p}.{k}": g.detach().double().cpu() for p, d in grads.items()
+                     for k, g in d.items()})
+        return apply(trainable, opt_state, grads)
+
+    t.tx.apply = recording
+    before = (fa.launches, fa.bwd_launches, aw.launches)
+    losses = [float(t.train_step(c, m)[0]) for c, m, _ in t.epoch_batches(t.tr_idx, True)[:2]]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = [a - b for a, b in zip((fa.launches, fa.bwd_launches, aw.launches), before)]
+    params = {f"{p}.{k}": v.detach().double().cpu() for p, m in t.state.params.items()
+              for k, v in m.state_dict().items()}
+    return losses, counts, params, seen
+
+
+losses, counts, params, grads = steps("mesh", **layout)
+torch.distributed.barrier()
+plain, plain_counts, plain_params, plain_grads = steps("plain")  # one rank, no mesh
+rms = [{k: float(g.pow(2).mean().sqrt()) for k, g in step.items()} for step in plain_grads]
+tree_rms = [(sum(float(g.pow(2).sum()) for g in step.values())
+             / sum(g.numel() for g in step.values())) ** 0.5 for step in plain_grads]
+
+
+def rel(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+err = sum(float((params[k] - v).pow(2).sum()) for k, v in plain_params.items())
+leaves = {k: {"rel": rel(params[k], v), "value_rms": float(v.pow(2).mean().sqrt()),
+              "grad_rms": [r[k] for r in rms],
+              "grad_err_rms": [float((a[k] - b[k]).pow(2).mean().sqrt())
+                               for a, b in zip(grads, plain_grads)]}
+          for k, v in plain_params.items() if k in plain_grads[0]}
+print("RESULT " + json.dumps({
+    "losses": losses, "plain": plain, "counts": counts, "plain_counts": plain_counts,
+    "tree_rel": (err / sum(float(v.pow(2).sum()) for v in plain_params.values())) ** 0.5,
+    "tree_grad_rms": tree_rms, "leaves": leaves}))
+torch.distributed.destroy_process_group()
+"""
+GRAD_TOL = 1e-5  # a leaf's summed gradient: its error's RMS over the larger of its and the tree's
+
+
+@pytest.mark.parametrize("layout", [{"sp": 2}, {"pp": 2, "pp_microbatches": 4}],
+                         ids=["sp2", "pp2_mb4"])
+def test_two_gloo_ranks_train_sp_and_pp_as_one_card(cuda, tmp_path, layout):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one
+    GPU) at --sp 2 and at --pp 2 --pp_microbatches 4 (depth 2, full width):
+    two dropout steps take the plain trainer's losses within 1e-6
+    relative and its parameters as a whole tree within 1e-6 relative L2
+    (chip_smoke.py's bounds). Each leaf's summed gradient of each step is
+    held to the plain one's: the RMS of the difference within GRAD_TOL of
+    the larger of the leaf's RMS and the whole tree's. A gradient summed
+    twice over sp or pipe, or short of a rank's share, is off by half its
+    RMS or more; a leaf whose reference gradient is rounding noise is held
+    at the tree's scale (the forest's leaves at init, 1e-13 to 1e-8 of the
+    tree's: Adam normalises them, so their values, under 1e-7, differ
+    leaf by leaf in the noise's sign; an attention key bias, a cancelling
+    sum). Under pp each rank launches K2 and K3/K4 for its block on each
+    microbatch, under sp none (the ring is plain torch); K1 once a step on
+    each."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    _seeded_model_dir(tmp_path / "model", tokens=True)
+    repo = Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SP_PP_STEPS, str(tmp_path / "model"), str(tmp_path / "runs"),
+         json.dumps(layout), "cuda"], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(repo), JAX_NUM_PROCESSES="2",
+                 JAX_COORDINATOR_ADDRESS=f"localhost:{port}", JAX_PROCESS_ID=str(r)))
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    for o in outs:
+        res = json.loads(o.split("RESULT ")[-1].splitlines()[0])
+        gaps = {k: max(e / max(r, t) for e, r, t in
+                       zip(v["grad_err_rms"], v["grad_rms"], res["tree_grad_rms"]))
+                for k, v in res["leaves"].items()}
+        print(json.dumps({"layout": layout, "tree_rel": res["tree_rel"],
+                          "worst_grad_gap": sorted(gaps.items(), key=lambda kv: -kv[1])[:4],
+                          "worst_param_rel": sorted(
+                              ((k, v["rel"], v["value_rms"]) for k, v in res["leaves"].items()),
+                              key=lambda kv: -kv[1])[:4]}))
+        np.testing.assert_allclose(res["losses"], res["plain"], rtol=1e-6, atol=0)
+        assert res["tree_rel"] <= 1e-6
+        for key, gap in gaps.items():
+            assert gap <= GRAD_TOL, (key, res["leaves"][key])
+        fwd, bwd, k1 = res["counts"]
+        assert k1 == 2 == res["plain_counts"][2]
+        if "pp" in layout:  # one block a stage, run on each of its 4 microbatches
+            assert fwd == bwd == 2 * layout["pp_microbatches"]
+        else:
+            assert fwd == bwd == 0

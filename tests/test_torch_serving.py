@@ -141,9 +141,13 @@ def test_cuda_without_gpu_raises(exported, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [{"serve_dp": 2}], ids=["serve_dp"])
-def test_unported_options_raise(exported, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(exported, device="cpu", **kwargs)
+def test_unported_options_raise(exported, kwargs, monkeypatch):
+    """serve_dp, once unported, serves: on the CPU its replicas are the
+    CPU (test_torch_serving_dp.py holds its rows); on CUDA it needs a GPU."""
+    assert Predictor(exported, device="cpu", **kwargs).replicas == [torch.device("cpu")] * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor(exported, **kwargs)
 
 
 @pytest.mark.parametrize("use_gnn", [False, True])

@@ -5,8 +5,9 @@ format); `debug_nans` raises FloatingPointError on a run whose training
 rows hold a NaN feature and not on a clean run (without the flag the
 poisoned run trains on, with NaN losses); a trainer with every
 single-device flag on (MoE with 8 experts, remat, mid-epoch slots, a
-profile, debug_nans) constructs and trains; `_unsupported` names only sp
-and pp, and each of them raises; the CLI's --help lists the
+profile, debug_nans) constructs and trains; every multi-device flag
+asks for its mesh (sp and pp after JAX's check that they transform the
+text tower); the CLI's --help lists the
 seven flags that train the MoE tower, remat, mid-epoch slots, the
 profile, the NaN checks and the salt search.
 """
@@ -85,8 +86,8 @@ def test_every_single_device_flag_at_once_trains(tmp_path):
     cfg = _cfg(tmp_path, train_text_tower=True, text_tower_depth=2, text_tower_heads=4,
                moe_experts=8, remat_tower=True, save_every_steps=3,
                profile_dir=str(tmp_path / "prof"), debug_nans=True, cache_to_disk=True)
-    assert port._unsupported(cfg) == []
     t = port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")
+    assert t.mesh is None
     tower = t.state.params["text_tower"]
     assert tower.remat and tower.blocks[0].moe.w_in.shape == (8, 64, 256)
     assert np.isfinite(t.fit())
@@ -98,18 +99,23 @@ def test_every_single_device_flag_at_once_trains(tmp_path):
 
 @pytest.mark.parametrize("flag", sorted(PARALLEL))
 def test_only_the_multi_device_flags_are_unsupported(tmp_path, flag):
-    """Only sp and pp raise NotImplementedError. dp, tp and dcn ask for a
+    """No flag is unsupported any more. sp and pp without a text tower
+    raise JAX's ValueError; with one, like dp, tp and dcn, they ask for a
     mesh of two ranks, which one process refuses (with the launch hint, or
-    for dcn alone with JAX's inference error: one rank does not divide over
-    dcn; the multi-rank runs are test_torch_trainer_mesh.py's); shard_corpus and
-    shard_graph without a mesh place the corpus as one device does."""
+    with JAX's inference error: one rank does not divide; the multi-rank
+    runs are test_torch_trainer_mesh.py's and test_torch_trainer_sp_pp.py's);
+    shard_corpus and shard_graph without a mesh place the corpus as one
+    device does."""
     cfg = _cfg(tmp_path, **{flag: PARALLEL[flag]})
     if flag in ("sp", "pp"):
-        assert port._unsupported(cfg) == [flag]
-        with pytest.raises(NotImplementedError, match=flag):
+        with pytest.raises(ValueError, match=f"--{flag} transforms the text tower; it "
+                                             "requires --train_text_tower"):
+            port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")
+        cfg = _cfg(tmp_path, train_text_tower=True, text_tower_depth=2, text_tower_heads=4,
+                   **{flag: PARALLEL[flag]})
+        with pytest.raises(ValueError, match="not divisible by tp\\*extra\\*dcn=2"):
             port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")
         return
-    assert port._unsupported(cfg) == []
     if flag in ("dp", "tp", "dcn"):
         with pytest.raises(ValueError, match="has 2 ranks but|not divisible by tp"):
             port.ForensicTrainer(cfg, cache=small_cache(), device="cpu")

@@ -372,22 +372,21 @@ def test_cuda_without_gpu_raises(model_dir, tmp_path, monkeypatch):
     {"debug_nans": True}, {"save_every_steps": 5}, {"profile_dir": "p"},
 ], ids=lambda f: next(iter(f)))
 def test_unported_flags_raise(model_dir, tmp_path, flag):
-    """sp and pp raise naming ROADMAP.md; dp and tp, ported since, ask for a
-    mesh of two ranks, which one process refuses (with the launch hint, or
-    for tp alone with JAX's inference error: one rank does not divide). The
-    single-device flags this test once listed as unported (MoE, remat,
+    """Every flag this test once listed as unported is ported. dp, tp, sp
+    and pp ask for a mesh of two ranks, which one process refuses (with the
+    launch hint, or for tp and sp alone with JAX's inference error: one
+    rank does not divide; pp first meets JAX's check of this depth-1
+    tower); the multi-rank runs are test_torch_trainer_mesh.py's and
+    test_torch_trainer_sp_pp.py's. The single-device flags (MoE, remat,
     mid-epoch slots, debug_nans, profile_dir) build a trainer."""
     cfg = _port_cfg(tmp_path, model_dir, **flag)
-    if next(iter(flag)) in ("sp", "pp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.ForensicTrainer(cfg, device="cpu")
-    elif next(iter(flag)) in ("dp", "tp"):
-        with pytest.raises(ValueError, match="has 2 ranks but|not divisible by tp"):
+    if next(iter(flag)) in ("dp", "tp", "sp", "pp"):
+        with pytest.raises(ValueError, match="has 2 ranks but|not divisible by tp|"
+                                             "tower depth 1 not divisible by pp=2"):
             port.ForensicTrainer(cfg, device="cpu")
     else:
         t = port.ForensicTrainer(cfg, device="cpu")
-        assert port._unsupported(t.cfg) == [] and getattr(t.cfg, next(iter(flag))) == flag[
-            next(iter(flag))]
+        assert getattr(t.cfg, next(iter(flag))) == flag[next(iter(flag))]
 
 
 def test_cache_from_raw_data_root_builds(fixture_data_root, tmp_path, capsys):

@@ -13,9 +13,21 @@ rematerialised blocks: a recompute must apply the masks of the first pass).
 On a mesh (`parallel/mesh.py`) each rank passes a `ShardedGenerator`: it
 draws the mask of the global batch (every rank's generator is in the same
 state) and keeps this rank's rows, and, between the two layers of a
-tensor-parallel MLP pair (`cols`), this rank's columns. So dp and tp runs
-apply the masks a one-device run applies. A site whose tensor is not split
-by batch rows (the GCN's corpus hidden) takes the plain generator.
+tensor-parallel MLP pair (`cols`), this rank's columns, and, in the
+sequence-parallel tower (`seq`, `parallel/sequence.py`), this rank's
+positions along dim 1. So dp, tp and sp runs apply the masks a one-device
+run applies. The pipelined tower (`parallel/pipeline.py`) draws every
+block's masks for the rank's rows before its schedule, in the order the
+plain tower draws them, and cuts each microbatch's rows from them. A site
+whose tensor is not split by batch rows (the GCN's corpus hidden) takes
+the plain generator.
+
+This is the port's own rule, and stronger than the JAX package's: JAX's
+sp and pp towers draw counter-mode masks keyed on (layer, global row,
+global position) (`coord_dropout`), which match its coord-keyed plain
+tower but not its flax-stream one; the port's sp and pp masks are the
+masks of its own plain tower, and its generator ends a step where the
+plain step leaves it.
 """
 from __future__ import annotations
 
@@ -29,28 +41,30 @@ import torch
 class ShardedGenerator:
     """A generator and this rank's part of every mask it draws: block
     `rows[0]` of `rows[1]` along dim 0, block `cols[0]` of `cols[1]` along
-    the last dim."""
+    the last dim, block `seq[0]` of `seq[1]` along dim 1."""
 
     gen: torch.Generator
     rows: Tuple[int, int] = (0, 1)
     cols: Tuple[int, int] = (0, 1)
-
-    def with_cols(self, index: int, parts: int) -> "ShardedGenerator":
-        return replace(self, cols=(index, parts))
+    seq: Tuple[int, int] = (0, 1)
 
     def draw(self, like: torch.Tensor, keep: float) -> torch.Tensor:
         """This rank's part of the mask one device draws for the global
         tensor: drawn in `like`'s memory order (the draws fill memory in
         order, and `empty_like` keeps a permuted layout, such as the
         forest's per-tree logits have), then cut."""
-        (r, nr), (c, nc) = self.rows, self.cols
+        (r, nr), (c, nc), (q, nq) = self.rows, self.cols, self.seq
         shape = list(like.shape)
         shape[0] *= nr
         shape[-1] *= nc
+        if nq > 1:
+            shape[1] *= nq
         order = sorted(range(like.dim()), key=lambda d: -like.stride(d))
         full = like.new_empty([shape[d] for d in order])
         full = full.bernoulli_(keep, generator=self.gen).bool().permute(
             [order.index(d) for d in range(like.dim())])
+        if nq > 1:
+            full = full.narrow(1, q * like.shape[1], like.shape[1])
         return (full.narrow(0, r * like.shape[0], like.shape[0])
                 .narrow(-1, c * like.shape[-1], like.shape[-1]))
 
@@ -58,14 +72,26 @@ class ShardedGenerator:
 Gen = Union[torch.Generator, ShardedGenerator, None]
 
 
-def column_shard(gen: Gen, index: int, parts: int) -> Gen:
-    """`gen` drawing this rank's block `index` of `parts` along the last
-    dim as well (None stays None: eval mode)."""
+def _part(gen: Gen, **part) -> Gen:
+    """`gen` (a ShardedGenerator, or a plain one as the whole) drawing this
+    rank's part `part` as well (None stays None: eval mode)."""
     if gen is None:
         return None
     if not isinstance(gen, ShardedGenerator):
         gen = ShardedGenerator(gen)
-    return gen.with_cols(index, parts)
+    return replace(gen, **part)
+
+
+def column_shard(gen: Gen, index: int, parts: int) -> Gen:
+    """`gen` drawing this rank's block `index` of `parts` along the last
+    dim as well."""
+    return _part(gen, cols=(index, parts))
+
+
+def seq_shard(gen: Gen, index: int, parts: int) -> Gen:
+    """`gen` drawing this rank's block `index` of `parts` along dim 1 as
+    well."""
+    return _part(gen, seq=(index, parts))
 
 
 def draw_mask(like: torch.Tensor, rate: float, gen: Gen) -> Optional[torch.Tensor]:

@@ -31,6 +31,19 @@ routes the whole: C is the global batch's, a token's slot counts the
 tokens of the lower ranks routed to its expert, and the aux loss is the
 global batch's (`parallel/collectives.sum_across`, whose backward sums
 every rank's gradient of it).
+
+Expert parallelism (JAX `moe.py:167-183`, `expert_parallel_specs`):
+`expert_parallel_(module, ep)` cuts the expert arrays (`EXPERT_LEAVES`)
+of every `MoEFFN` in `module` along E to this rank's E / ep experts over
+an `ep` `Shard`; the router and everything else stay whole. The routing
+then runs on every rank over all tokens, as one device runs it; each rank
+runs its experts on their (e, c) rows (the dispatched rows enter through
+`copy_to`, so the gradient that reaches the tokens sums every rank's
+experts), and the expert outputs are put back in E order by one
+owner-fill all-reduce (`reduce_from`) before the gate-scaled gather. The
+output and the aux loss equal the whole module's, and each rank's expert
+gradients are its slice of the whole module's. JAX has no --ep flag and
+the trainer takes none.
 """
 from __future__ import annotations
 
@@ -43,7 +56,9 @@ from torch import nn
 from ultrafnd_git_tpu_torch.models.dropout import apply_mask, draw_mask
 from ultrafnd_git_tpu_torch.models.layers import Dense, LayerNorm
 from ultrafnd_git_tpu_torch.models.transformer import LN_EPS, MultiHeadAttention, gelu
-from ultrafnd_git_tpu_torch.parallel.collectives import sum_across
+from ultrafnd_git_tpu_torch.parallel.collectives import Shard, copy_to, reduce_from, sum_across
+
+EXPERT_LEAVES = ("w_in", "b_in", "w_out", "b_out")  # MoEFFN's expert-stacked arrays
 
 
 class MoEFFN(nn.Module):
@@ -64,6 +79,7 @@ class MoEFFN(nn.Module):
         self.w_out = nn.Parameter(torch.zeros(num_experts, hidden, width))
         self.b_out = nn.Parameter(torch.zeros(num_experts, 1, width))
         self.dp = None  # the data axes' Shard on a mesh: route the global batch
+        self.ep = None  # the ep Shard when the experts are cut (expert_parallel_)
 
     def capacity(self, tokens: int) -> int:
         """Slots per expert for `tokens` tokens (the JAX expression)."""
@@ -114,8 +130,15 @@ class MoEFFN(nn.Module):
         cd = self.dtype or x.dtype
         xt = x.reshape(t, w).to(cd)
         xe = xt.new_zeros(e * cap + 1, w).index_copy(0, dest, xt)[: e * cap].view(e, cap, w)
+        ep = self.ep
+        if ep is not None:  # this rank's experts' rows
+            lo = ep.rank * self.w_in.shape[0]
+            xe = copy_to(xe, ep)[lo: lo + self.w_in.shape[0]]
         h = gelu(torch.bmm(xe, self.w_in.to(cd)) + self.b_in.to(cd), self.gelu)
         ye = torch.bmm(h, self.w_out.to(cd)) + self.b_out.to(cd)
+        if ep is not None:  # every expert's rows, in E order, on every rank
+            pad = [ye.new_zeros(lo, cap, w), ye, ye.new_zeros(e - lo - ye.shape[0], cap, w)]
+            ye = reduce_from(torch.cat(pad), ep)
         ye = torch.cat([ye.reshape(e * cap, w), ye.new_zeros(1, w)])
         yt = ye[dest] * torch.where(keep, gate, 0.0).to(cd)[:, None]
 
@@ -149,3 +172,21 @@ class MoEEncoderBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.body(x, mask, *self.draw_masks(x, gen))
+
+
+def expert_parallel_(module: nn.Module, ep: Shard) -> nn.Module:
+    """Cut the expert arrays of every `MoEFFN` in `module` (in place) to this
+    rank's block of E / ep experts along E, and hand each its `ep` Shard;
+    ValueError when ep does not divide E. Returns `module`."""
+    for mod in module.modules():
+        if not isinstance(mod, MoEFFN):
+            continue
+        if mod.num_experts % ep.size:
+            raise ValueError(f"{mod.num_experts} experts do not split over ep={ep.size}")
+        per = mod.num_experts // ep.size
+        for name in EXPERT_LEAVES:
+            full = getattr(mod, name)
+            setattr(mod, name, nn.Parameter(full.data[ep.rank * per: (ep.rank + 1) * per].clone(),
+                                            requires_grad=full.requires_grad))
+        mod.ep = ep
+    return module

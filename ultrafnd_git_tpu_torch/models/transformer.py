@@ -17,8 +17,12 @@ same bits, and the generator ends in the same state. Under remat K2 runs
 twice per block and step (the recompute). `moe_experts > 0` swaps each
 block for `models/moe.MoEEncoderBlock` (switch top-1 FFN);
 `return_aux=True` then also returns the Switch aux loss, the mean over
-blocks. Ring attention and coord dropout are not ported yet (ROADMAP.md):
-the trainer raises for `sp` and `pp`.
+blocks. `MultiHeadAttention` and `EncoderBlock.body` take `ring=` (an sp
+`Shard`): attention then runs as the ring recurrence over the sequence
+slices of the sp group (`kernels/ring_attention.py`, JAX's `"ring:<axis>"`
+backend), the mask being the local key slice's; the parameters are the
+same on every backend. `parallel/sequence.py` and `parallel/pipeline.py`
+apply the tower's own blocks on slices (the trainer's `--sp`, `--pp`).
 
 `dtype=torch.bfloat16` is the JAX tower's `dtype=jnp.bfloat16` (serving's
 bf16 lever and the trainer's `bf16_compute`; params stay f32): the
@@ -57,6 +61,7 @@ from ultrafnd_git_tpu_torch.kernels.flash_attention import (
 )
 from ultrafnd_git_tpu_torch.models.dropout import apply_mask, draw_mask
 from ultrafnd_git_tpu_torch.models.initializers import jax_init_
+from ultrafnd_git_tpu_torch.kernels.ring_attention import ring_attention_local
 from ultrafnd_git_tpu_torch.models.layers import Dense, LayerNorm
 from ultrafnd_git_tpu_torch.ops.hashing import basis_for_salt, fnv1a_64
 from ultrafnd_git_tpu_torch.training.checkpoint import find_slot, read_slot
@@ -111,7 +116,9 @@ def gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """qkv Dense -> split in three -> (B, H, S, D) -> flash kernel -> out."""
+    """qkv Dense -> split in three -> (B, H, S, D) -> flash kernel -> out;
+    with `ring` (an sp `Shard`) the ring recurrence instead of the kernel,
+    over the sequence slices of the group (`x` and `mask` are this rank's)."""
 
     def __init__(self, width: int, heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -121,7 +128,7 @@ class MultiHeadAttention(nn.Module):
         self.qkv = Dense(width, 3 * width, dtype)
         self.out = Dense(width, width, dtype)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, ring=None) -> torch.Tensor:
         b, s, _ = x.shape
         d = self.width // self.heads
         q, k, v = self.qkv(x).chunk(3, dim=-1)  # jnp.split(qkv, 3, -1)
@@ -129,9 +136,15 @@ class MultiHeadAttention(nn.Module):
         def heads_first(t):
             return t.reshape(b, s, self.heads, d).transpose(1, 2).contiguous()
 
-        o = flash_attention(
-            heads_first(q), heads_first(k), heads_first(v), padding_bias(mask, x.dtype)
-        )  # (B, H, S, D)
+        if ring is not None:
+            # the local key slice's padding bias, f32, rides the ring
+            kbias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
+            o = ring_attention_local(heads_first(q), heads_first(k), heads_first(v), kbias,
+                                     ring)
+        else:
+            o = flash_attention(
+                heads_first(q), heads_first(k), heads_first(v), padding_bias(mask, x.dtype)
+            )  # (B, H, S, D)
         return self.out(o.transpose(1, 2).reshape(b, s, self.width))
 
 
@@ -155,8 +168,9 @@ class EncoderBlock(nn.Module):
         eval mode), in the order the sites apply them."""
         return draw_mask(x, self.dropout, gen), draw_mask(x, self.dropout, gen)
 
-    def body(self, x: torch.Tensor, mask: torch.Tensor, drop_attn=None, drop_mlp=None):
-        x = x + apply_mask(self.attn(self.ln1(x), mask), drop_attn, self.dropout)
+    def body(self, x: torch.Tensor, mask: torch.Tensor, drop_attn=None, drop_mlp=None,
+             ring=None):
+        x = x + apply_mask(self.attn(self.ln1(x), mask, ring), drop_attn, self.dropout)
         h = self.mlp_out(gelu(self.mlp_in(self.ln2(x)), self.gelu))
         return x + apply_mask(h, drop_mlp, self.dropout)
 

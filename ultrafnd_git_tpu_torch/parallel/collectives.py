@@ -14,14 +14,24 @@ pair, `copy_to` (identity forward, all-reduce backward: a replicated input
 entering column shards) and `reduce_from` (all-reduce forward, identity
 backward: row-shard partial sums leaving), and `sum_across`, all-reduce
 both ways, for a statistic summed over the data ranks whose every rank's
-loss reads it (the switch-MoE balance terms). `calls` counts the
-collectives launched since import (or since a caller reset it), and
-nothing else.
+loss reads it (the switch-MoE balance terms).
+
+`ppermute` is JAX's `lax.ppermute` (the ring's K/V hop and the pipeline's
+stage hop) by the same rule: each rank writes its tensor into its
+destination's slot of a zero buffer of `size` slots, one all-reduce sums
+the buffer, and each rank reads its own slot (zeros where no rank sends to
+it). Its backward is the inverse permutation, done the same way. This
+moves `size` times the bytes of a point-to-point send, on every rank;
+gloo has no send/recv for CUDA tensors, and one route serves NCCL, gloo
+and the CPU alike.
+
+`calls` counts the collectives launched since import (or since a caller
+reset it), and nothing else.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Sequence
+from typing import Any, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -138,3 +148,31 @@ def sum_across(x: torch.Tensor, shard: Shard) -> torch.Tensor:
     """All-reduce over `shard` forward and backward: the sum of a value of
     every rank, where every rank's loss reads the sum."""
     return _SumAcross.apply(x, shard)
+
+
+def _permuted(x: torch.Tensor, shard: Shard, perm: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+    """x of the rank that `perm` sends to this one (zeros when none does)."""
+    buf = x.new_zeros((shard.size, *x.shape))
+    dest = dict(perm).get(shard.rank)
+    if dest is not None:
+        buf[dest] = x
+    return all_reduce_(buf, shard)[shard.rank]
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard, perm):
+        ctx.shard, ctx.inverse = shard, tuple((d, s) for s, d in perm)
+        return _permuted(x, shard, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permuted(g.contiguous(), ctx.shard, ctx.inverse), None, None
+
+
+def ppermute(x: torch.Tensor, shard: Shard, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """`lax.ppermute(x, axis, perm)` over the ranks of `shard`: rank `d`
+    gets the `x` of rank `s` for each pair (s, d) of `perm`, zeros when no
+    pair ends at it; the gradient goes back along the inverse pairs. Every
+    rank of `shard` must call it (one all-reduce each way)."""
+    return _Permute.apply(x, shard, tuple((int(s), int(d)) for s, d in perm))

@@ -3,10 +3,13 @@
 
 JAX drives every device of its mesh from one program; torch runs one
 process a rank. So the port's mesh of N is N processes in one
-`torch.distributed` world, laid out as the grid `([dcn,] data, model)` in
-row-major order (rank = (dcn_i * dp + data_i) * tp + model_i), with one
-process group per axis and one over the compound data axes
-`('dcn', 'data')`:
+`torch.distributed` world, laid out as the grid `([dcn,] data, model,
+*extra)` in row-major order (rank = ((dcn_i * dp + data_i) * tp +
+model_i) * extra + extra_i), with one process group per axis and one over
+the compound data axes `('dcn', 'data')`. The extra axes are JAX's
+`extra_axes`: `sp` (`parallel/sequence.py`, the trainer's `--sp`) and
+`pipe` (`parallel/pipeline.py`, `--pp`); their ranks hold the same batch
+rows:
 
   * batches split over the data axes: rank r keeps rows
     [i * B / D, (i + 1) * B / D) of a global batch, i its index over
@@ -33,7 +36,7 @@ import os
 import socket
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +47,8 @@ from ultrafnd_git_tpu_torch.parallel.collectives import Shard, all_reduce_
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DCN_AXIS = "dcn"  # the outer data-parallel axis (multi-slice in JAX, multi-node here)
+SP_AXIS = "sp"  # the sequence-parallel axis (--sp)
+PIPE_AXIS = "pipe"  # the pipeline axis (--pp)
 
 #: exception-text signatures of the known-transient communicator-startup
 #: failures (retried by maybe_initialize_distributed)
@@ -89,18 +94,21 @@ def data_index(mesh: Mesh) -> int:
 
 
 def mesh_shape(n_ranks: int, dp: Optional[int] = None, tp: int = 1,
-               dcn: int = 1) -> Dict[str, int]:
-    """The ([dcn,] data, model) sizes of a mesh over `n_ranks` ranks, with
-    the JAX package's inference of dp (`make_mesh`: the ranks over
-    tp * dcn) and its error."""
+               dcn: int = 1, extra_axes: Sequence[Tuple[str, int]] = ()) -> Dict[str, int]:
+    """The ([dcn,] data, model, *extra) sizes of a mesh over `n_ranks`
+    ranks, with the JAX package's inference of dp (`make_mesh`: the ranks
+    over tp * extra * dcn) and its error."""
     tp, dcn = int(tp), int(dcn)
+    extra = [(str(name), int(size)) for name, size in extra_axes]
+    extra_total = int(np.prod([size for _, size in extra])) if extra else 1
     if dp is None:
-        if n_ranks % (tp * dcn) != 0:
+        if n_ranks % (tp * extra_total * dcn) != 0:
             raise ValueError(
-                f"{n_ranks} devices not divisible by tp*extra*dcn={tp * dcn}"
+                f"{n_ranks} devices not divisible by "
+                f"tp*extra*dcn={tp * extra_total * dcn}"
             )
-        dp = n_ranks // (tp * dcn)
-    shape = {DATA_AXIS: int(dp), MODEL_AXIS: tp}
+        dp = n_ranks // (tp * extra_total * dcn)
+    shape = {DATA_AXIS: int(dp), MODEL_AXIS: tp, **dict(extra)}
     if dcn > 1:
         shape = {DCN_AXIS: dcn, **shape}
     return shape
@@ -242,11 +250,14 @@ def _start_local_group(backend: str) -> None:
 
 
 def make_mesh(dp: Optional[int] = None, tp: int = 1, dcn: int = 1,
-              device: Optional[torch.device] = None, backend: Optional[str] = None) -> Mesh:
-    """The ([dcn,] data, model) mesh over the default process group, this
-    rank's coordinates and its axis groups.
+              device: Optional[torch.device] = None, backend: Optional[str] = None,
+              extra_axes: Sequence[Tuple[str, int]] = ()) -> Mesh:
+    """The ([dcn,] data, model, *extra) mesh over the default process
+    group, this rank's coordinates and its axis groups (`extra_axes`:
+    (name, size) pairs, JAX's; the trainer's ("sp", n) or ("pipe", n)).
 
-    dp defaults to the world over tp * dcn (JAX's inference over devices).
+    dp defaults to the world over tp * extra * dcn (JAX's inference over
+    devices).
     With no default group, a mesh of one rank starts a one-rank local group
     (`backend`, default NCCL for a CUDA `device`, gloo for the CPU); a
     larger mesh raises, as does a world that does not equal the mesh. Every
@@ -264,7 +275,7 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, dcn: int = 1,
         dist.destroy_process_group()
     started = dist.is_initialized()
     world = dist.get_world_size() if started else None
-    shape = mesh_shape(world if world is not None else 1, dp, tp, dcn)
+    shape = mesh_shape(world if world is not None else 1, dp, tp, dcn, extra_axes)
     n = int(np.prod(list(shape.values())))
     if not started:
         if n != 1:
@@ -289,9 +300,12 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, dcn: int = 1,
     coords = {a: int(i) for a, i in coords.items()}
     grid = np.arange(n).reshape(sizes)
     shards: Dict[Tuple[str, ...], Shard] = {}
-    axis_sets = [(a,) for a in names] + [names]  # names: the whole world
+    extra = [str(name) for name, _ in extra_axes]
+    # names: the whole world; the extra axes' groups come after the others
+    axis_sets = [(a,) for a in names if a not in extra] + [names]
     if DCN_AXIS in names:
         axis_sets.append((DCN_AXIS, DATA_AXIS))
+    axis_sets += [(a,) for a in extra]
     for axes in axis_sets:
         moved = np.moveaxis(grid, [names.index(a) for a in axes],
                             list(range(len(names) - len(axes), len(names))))

@@ -2,7 +2,8 @@
 
     python -m ultrafnd_git_tpu_torch.predict --model_dir D --input records.json \
         [--output preds.jsonl] [--batch_size 64] [--device cuda|cpu | --cpu] \
-        [--bf16] [--quantize] [--explain [--explain_method grad|shap] [--top_k 8]]
+        [--bf16] [--quantize] [--explain [--explain_method grad|shap] [--top_k 8]] \
+        [--serve_dp N]
     python -m ultrafnd_git_tpu_torch.predict --out_dir O [--checkpoint best|latest] ...
     python -m ultrafnd_git_tpu_torch.predict --artifact A --input records.json ...
 
@@ -14,7 +15,8 @@ JAX out_dir) or `--artifact` (a directory from
 `export_serving.ExportedPredictor`). `--checkpoint` other than best needs
 `--out_dir`. An artifact's precision levers are fixed at export, so
 `--bf16` and `--quantize` are refused with it, and so is `--explain`,
-which needs the full-precision modules.
+which needs the full-precision modules. `--serve_dp N` splits each
+scoring dispatch's rows over N devices (`serving.Predictor`'s serve_dp).
 
 `--input` is a JSON array or JSONL of records with title / ocr / comments.
 Output is one JSON object per record: {id, prob_fake, label,
@@ -80,8 +82,8 @@ def check_source_args(ap: argparse.ArgumentParser, args, artifact: bool = True) 
 
 
 def make_predictor(args, artifact: bool = True):
-    """The Predictor of --model_dir or --out_dir, or (with `artifact`) the
-    ExportedPredictor of --artifact."""
+    """The Predictor of --model_dir or --out_dir (with --serve_dp where the
+    CLI has it), or (with `artifact`) the ExportedPredictor of --artifact."""
     if artifact and args.artifact:
         from ultrafnd_git_tpu_torch.export_serving import ExportedPredictor
 
@@ -91,7 +93,17 @@ def make_predictor(args, artifact: bool = True):
 
     return Predictor(args.model_dir, out_dir=args.out_dir, checkpoint_name=args.checkpoint,
                      batch_size=args.batch_size, device=args.device,
-                     bf16=args.bf16, quantize=args.quantize)
+                     bf16=args.bf16, quantize=args.quantize,
+                     serve_dp=getattr(args, "serve_dp", None))
+
+
+def add_serve_dp_arg(ap: argparse.ArgumentParser) -> None:
+    """--serve_dp (scripts/predict.py's and scripts/serve.py's)."""
+    ap.add_argument("--serve_dp", type=int, default=None,
+                    help="split each scoring dispatch's rows over this many devices "
+                         "(cuda:0 ... cuda:N-1, weights and corpus replicated; on the "
+                         "CPU the blocks run in turn); rows agree with one device's "
+                         "to f32 rounding. Ignored with --artifact, as in JAX")
 
 
 def main(argv=None) -> None:
@@ -115,6 +127,7 @@ def main(argv=None) -> None:
                          "corpus background")
     ap.add_argument("--top_k", type=int, default=8,
                     help="fused dimensions listed per record with --explain")
+    add_serve_dp_arg(ap)
     args = resolve_cpu_flag(ap.parse_args(argv))
     check_source_args(ap, args)
     if args.artifact and args.explain:

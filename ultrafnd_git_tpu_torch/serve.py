@@ -2,7 +2,7 @@
 (counterpart of scripts/serve.py).
 
     python -m ultrafnd_git_tpu_torch.serve --model_dir D [--port 8080] \
-        [--bf16] [--quantize] [--device cuda|cpu | --cpu]
+        [--bf16] [--quantize] [--serve_dp N] [--device cuda|cpu | --cpu]
     python -m ultrafnd_git_tpu_torch.serve --out_dir O [--checkpoint best|latest] ...
     python -m ultrafnd_git_tpu_torch.serve --artifact A [--port 8080] [--device cuda|cpu]
     curl -s localhost:8080/healthz
@@ -15,17 +15,22 @@
 run of that trainer, served from its `--checkpoint` slot; `--artifact` a
 frozen artifact from `python -m ultrafnd_git_tpu_torch.export_serving`
 (pass exactly one; an artifact's `--bf16` and `--quantize` were fixed at
-export, and /explain answers 500 for it). The flags are scripts/serve.py's
-but for `--serve_dp` (multi-device dispatch is not ported); `--device`
-stands beside `--cpu`. The device defaults to cuda and raises when there
-is no GPU.
+export, and /explain answers 500 for it). The flags are scripts/serve.py's,
+`--serve_dp N` included (each dispatch's rows split over N devices,
+`serving.Predictor`'s serve_dp); `--device` stands beside `--cpu`. The
+device defaults to cuda and raises when there is no GPU.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from ultrafnd_git_tpu_torch.predict import add_source_args, check_source_args, make_predictor
+from ultrafnd_git_tpu_torch.predict import (
+    add_serve_dp_arg,
+    add_source_args,
+    check_source_args,
+    make_predictor,
+)
 from ultrafnd_git_tpu_torch.utils.device import add_device_args, resolve_cpu_flag
 
 
@@ -53,6 +58,7 @@ def parse_args(argv=None):
     ap.add_argument("--gap_ms", type=float, default=3.0,
                     help="close the batching window early once arrivals go quiet "
                          "for this long (the window is the longest wait)")
+    add_serve_dp_arg(ap)
     ap.add_argument("--warmup", type=int, default=64, metavar="N",
                     help="run the bucket ladder up to N records before opening the "
                          "socket (builds the kernels; 0 disables)")

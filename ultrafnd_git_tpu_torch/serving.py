@@ -67,8 +67,21 @@ evidence. Whatever the default, a cache that carries "temporal" (a
 persisted trainer cache, a legacy featurize) takes the legacy program and
 a host-only one the fused program, as in JAX (`serving.py:566-576`).
 
-Not ported yet (raises NotImplementedError; see ROADMAP.md): multi-device
-dispatch (`serve_dp`).
+`serve_dp=N` is the JAX Predictor's multi-device dispatch
+(`serving.py:299-340`, `:830-850`): the scoring weights, `XG` and
+`H_CORPUS` are replicated on N devices, `cuda:0` ... `cuda:N-1`
+(ValueError with JAX's text when fewer are visible), and a padded bucket
+that N divides is cut into N row blocks, each scored on its replica (the
+launches queue on every card before the first result is read), and the
+blocks joined in order; a bucket that N does not divide is scored whole
+on replica 0, JAX's replicated fallback. Scoring is row-independent, so
+the rows equal a single Predictor's up to the rounding of the smaller
+products. explain() takes the same split. On `device="cpu"` the N replicas
+are the CPU, and the blocks run in turn (the counterpart of the JAX
+tests' virtual CPU devices); the CPU has no oversubscription error. A
+switch-MoE tower is refused under serve_dp > 1: its capacity couples the
+rows of a call, so a row block would route otherwise than the bucket.
+`ExportedPredictor` keeps no serve_dp, as in JAX.
 """
 from __future__ import annotations
 
@@ -106,13 +119,6 @@ from ultrafnd_git_tpu_torch.utils.device import resolve_device
 
 MAX_CHUNK_ROWS = 4096  # largest dispatch chunk on an accelerator
 FORENSIC_KEYS = ("semantic_conflict", "temporal_delay", "emotion_intensity")
-
-
-def _todo(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ultrafnd_git_tpu_torch yet (see the "
-        "port's module list in ROADMAP.md); serve it with ultrafnd_git_tpu"
-    )
 
 
 def contract_keys(fused: bool, use_evidence: bool) -> List[str]:
@@ -342,11 +348,18 @@ class Predictor:
         out_dir: Optional[str] = None,
         checkpoint_name: str = "best",
     ):
-        if serve_dp not in (None, 1):
-            raise _todo("multi-device dispatch (serve_dp)")
         if (model_dir is None) == (out_dir is None):
             raise ValueError("pass exactly one of model_dir / out_dir")
         self.device = resolve_device(device)
+        n_dp = max(1, int(serve_dp or 1))
+        if self.device.type == "cpu":
+            self.replicas = [self.device] * n_dp
+        else:
+            visible = torch.cuda.device_count()
+            if visible < n_dp:
+                raise ValueError(f"serve_dp={serve_dp} but only {visible} device(s) visible")
+            self.replicas = ([self.device] if n_dp == 1 else
+                             [resolve_device(f"cuda:{i}") for i in range(n_dp)])
         self.batch_size = max(1, int(batch_size))
         self.bf16, self.quantize = bool(bf16), bool(quantize)
         self.fused_align = bool(fused_align)
@@ -361,6 +374,10 @@ class Predictor:
                 self.meta = json.load(fh)
             weights = None
         check_trainer_kind(self.meta.get("trainer", "v2"))
+        if n_dp > 1 and int((self.meta.get("text_tower") or {}).get("moe_experts", 0)) > 0:
+            raise ValueError(f"serve_dp={serve_dp}: a switch-MoE tower's capacity couples the "
+                             "rows of a call, so its rows cannot be split over replicas; "
+                             "serve it with serve_dp=1")
         cfg = self.meta["cfg"]
         self.use_evidence = bool(cfg.get("use_evidence", False))
         self.use_gnn = bool(self.meta["fusion"]["use_gnn"])
@@ -451,6 +468,7 @@ class Predictor:
         self._pool: Optional[ThreadPoolExecutor] = None
         self._explain_bg: Optional[np.ndarray] = None
         self._programs: Dict[bool, ScoringProgram] = {}
+        self._replicated: Dict[bool, List[ScoringProgram]] = {}
 
     def scoring_program(self, fused: bool, sparse: Optional[bool] = None) -> ScoringProgram:
         """A `ScoringProgram` over this Predictor's scoring modules and corpus
@@ -467,6 +485,15 @@ class Predictor:
         if fused not in self._programs:
             self._programs[fused] = self.scoring_program(fused)
         return self._programs[fused]
+
+    def _replica_programs(self, fused: bool) -> List[ScoringProgram]:
+        """The program of `fused` on each replica (copies of `_program`'s on
+        devices other than the Predictor's, built at first use)."""
+        if fused not in self._replicated:
+            base = self._program(fused)
+            self._replicated[fused] = [base if d == self.device else copy.deepcopy(base).to(d)
+                                       for d in self.replicas]
+        return self._replicated[fused]
 
     # ------------------------------------------------------------------
     def _new_node_links(self, ocr_sets: Sequence[set]) -> List[np.ndarray]:
@@ -614,27 +641,37 @@ class Predictor:
             self._pool = None
 
     # ------------------------------------------------------------------
-    def _bucket_take(self, count: int):
-        """take(arr, dtype): the first `count` rows of a host array on the
-        device, padded by repeating the last row to the bucket
-        batch_size * 2^k >= count."""
+    def _bucket(self, count: int) -> int:
+        """The padded rows of a chunk of `count`: batch_size * 2^k >= count."""
         bucket = self.batch_size
         while bucket < count:
             bucket *= 2
-        pad = bucket - count
+        return bucket
 
-        def take(arr, dtype=torch.float32) -> torch.Tensor:
+    def _bucket_take(self, count: int):
+        """take(arr, dtype): (the first `count` rows of a host array padded
+        by repeating the last row to the bucket, `dtype`), for `_upload`."""
+        pad = self._bucket(count) - count
+
+        def take(arr, dtype=torch.float32):
             arr = np.asarray(arr[:count])
             if pad:
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
-            return torch.from_numpy(arr).to(self.device, dtype)
+            return arr, dtype
 
         return take
 
+    @staticmethod
+    def _upload(inputs, device: torch.device, rows: slice = slice(None)):
+        """`take`'s (array, dtype) pairs as tensors on `device`, their `rows`."""
+        return {k: torch.from_numpy(np.ascontiguousarray(a[rows])).to(device, dt)
+                for k, (a, dt) in inputs.items()}
+
     def _feature_inputs(self, feats: Dict[str, Any], count: int, fused: bool,
-                        take) -> Dict[str, torch.Tensor]:
-        """The program's inputs but the new nodes' links (the legacy
-        contract's compact node features are built here, on the host)."""
+                        take) -> Dict[str, tuple]:
+        """The program's inputs but the new nodes' links, as `take`'s pairs
+        (the legacy contract's compact node features are built here, on the
+        host)."""
         x = {k: take(feats[k]) for k in contract_keys(fused, self.use_evidence)}
         if self.text_tower is not None:
             x["text_ids"] = take(feats["text_ids"], torch.int64)
@@ -647,9 +684,10 @@ class Predictor:
         return x
 
     def _graph_inputs(self, feats: Dict[str, Any], count: int, sparse: bool,
-                      take) -> Dict[str, torch.Tensor]:
-        """The new nodes' links to the corpus: (B, N) rows, or (B, K) lists
-        with `sparse`, and their self weights; {} without a GCN."""
+                      take) -> Dict[str, tuple]:
+        """The new nodes' links to the corpus, as `take`'s pairs: (B, N)
+        rows, or (B, K) lists with `sparse`, and their self weights; {}
+        without a GCN."""
         if not self.use_gnn:
             return {}
         ocr_sets = feats["ocr_sets"][:count]
@@ -664,20 +702,37 @@ class Predictor:
         """Every input of the scoring program for the first `count` rows of
         a featurize() output, on the device and padded to the bucket."""
         take = self._bucket_take(count)
-        return {**self._feature_inputs(feats, count, fused, take),
-                **self._graph_inputs(feats, count, sparse, take)}
+        return self._upload({**self._feature_inputs(feats, count, fused, take),
+                             **self._graph_inputs(feats, count, sparse, take)}, self.device)
 
     def _run_program(self, feats: Dict[str, Any], count: int, fused: bool):
         """The program's outputs for one chunk. Its two stages are queued
         apart: the host builds the new-node rows while the card runs the
         first, whose inputs are all uploaded before (a pageable copy queued
-        behind the tower would wait for it)."""
-        program = self._program(fused)
+        behind the tower would wait for it). Under serve_dp a bucket that
+        the replicas divide is cut into one row block each (stage one
+        queued on every replica first), else scored whole on replica 0;
+        the outputs come back on the Predictor's device."""
+        n = len(self.replicas)
+        programs = self._replica_programs(fused)
+        bucket = self._bucket(count)
+        blocks = n if bucket % n == 0 else 1
+        per = bucket // blocks
         take = self._bucket_take(count)
-        x = self._feature_inputs(feats, count, fused, take)
-        stage = program.features(x)
-        x.update(self._graph_inputs(feats, count, self.sparse_graph, take))
-        return program.score(*stage, x)
+        cuts = [slice(i * per, (i + 1) * per) for i in range(blocks)]
+        feats_in = self._feature_inputs(feats, count, fused, take)
+        xs = [self._upload(feats_in, self.replicas[i], cut) for i, cut in enumerate(cuts)]
+        stages = [programs[i].features(x) for i, x in enumerate(xs)]
+        graph = self._graph_inputs(feats, count, self.sparse_graph, take)
+        outs = []
+        for i, (x, stage) in enumerate(zip(xs, stages)):
+            x.update(self._upload(graph, self.replicas[i], cuts[i]))
+            outs.append([t.to(self.device) for t in programs[i].score(*stage, x)])
+        if blocks == 1:
+            return tuple(outs[0])
+        probs, forensic, fused_rows, aux = zip(*outs)
+        return (torch.cat(probs), torch.cat(forensic, dim=1), torch.cat(fused_rows),
+                torch.cat(aux))
 
     def _score_chunk(self, feats: Dict[str, Any], count: int, collect_fused: bool = False):
         """Score the first `count` rows of one featurized chunk in one pass;

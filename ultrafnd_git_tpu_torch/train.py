@@ -5,7 +5,8 @@
         [--train_text_tower [--moe_experts E] [--remat_tower]] [--fused_adamw] \
         [--sparse_graph] [--bf16] [--hash_salt S | --auto_salt a,b] [--resume] \
         [--save_every_steps K] [--profile_dir P] [--debug_nans] [--model_dir D] \
-        [--dp N] [--tp N] [--dcn N] [--shard_corpus] [--shard_graph] [--multihost] \
+        [--dp N] [--tp N] [--dcn N] [--sp N | --pp N [--pp_microbatches M]] \
+        [--shard_corpus] [--shard_graph] [--multihost] \
         [--trainer v2|integrated] [--device cuda|cpu | --cpu] [--export_model_dir M]
 
 The run's feature cache is out_dir's own when it has a usable one, else
@@ -30,8 +31,11 @@ of this CLI, one a rank: `--multihost` joins them through
 JAX_NUM_PROCESSES and JAX_PROCESS_ID, the JAX package's env contract
 (NCCL on the GPU, rank r on cuda:<local rank>; gloo with --device cpu).
 Rank 0 writes the out_dir's files; every rank prints the same results. A
-mesh of one rank needs no launcher (`--dp 1`). `--sp` and `--pp` raise
-NotImplementedError: they train only with `ultrafnd_git_tpu`.
+mesh of one rank needs no launcher (`--dp 1`). `--sp N` (ring attention
+over the tower's sequence) and `--pp N` (GPipe over its blocks,
+`--pp_microbatches M` of them a step, default N) need
+`--train_text_tower` and compose with `--dp` and `--tp`: the world is
+dp * tp * N ranks.
 
 `--trainer integrated` trains the integrated variant instead
 (`training/trainer_integrated.py`: per-batch annealed OCR-Jaccard graphs,
@@ -162,9 +166,13 @@ def parse_args(argv=None):
                         "gradient sum crosses it once a step (composes with "
                         "--dp/--tp)")
     p.add_argument("--sp", type=int, default=1,
-                   help="Sequence-parallel mesh size: not ported (raises)")
+                   help="Sequence-parallel mesh size: ring attention over the "
+                        "--train_text_tower sequence axis (composes with --dp/--tp)")
     p.add_argument("--pp", type=int, default=1,
-                   help="Pipeline-parallel mesh size: not ported (raises)")
+                   help="Pipeline-parallel mesh size: GPipe schedule over the "
+                        "--train_text_tower block stack (composes with --dp/--tp)")
+    p.add_argument("--pp_microbatches", type=int, default=None,
+                   help="GPipe microbatches per step (default: --pp)")
     p.add_argument("--shard_corpus", action="store_true",
                    help="Split the device-resident feature corpus rows over the "
                         "data mesh axes")
@@ -315,6 +323,7 @@ def main(argv=None) -> dict:
         dcn=args.dcn,
         sp=args.sp,
         pp=args.pp,
+        pp_microbatches=args.pp_microbatches,
         shard_corpus=args.shard_corpus,
         shard_graph=args.shard_graph,
     )

@@ -89,7 +89,23 @@ rank by "owner fills, all-reduce sums". Val and test outputs are assembled
 on every rank before the metrics, so they are the global batch's. Rank 0
 alone writes checkpoints (the tp shards gathered, in the one-device
 format), metrics.jsonl, the feature cache and the profile; `--resume`
-re-shards. `sp` and `pp` raise NotImplementedError naming ROADMAP.md.
+re-shards.
+
+`sp` and `pp` transform the text tower on a further mesh axis, as the JAX
+trainer's (`trainer.py:383-427`, `:810-860`), its batch on 'data':
+`sp` runs it as `parallel/sequence.sequence_parallel_tower_apply` (its
+sequence split over the `sp` ranks, attention as a ring), `pp` as
+`parallel/pipeline.pipelined_tower_apply` (GPipe over the `pipe` ranks,
+`pp_microbatches` microbatches, default pp). Both need
+`train_text_tower`, exclude `moe_experts`, each other and `dcn`, and `pp`
+divides the depth (JAX's errors and their text). A leaf whose gradient
+each rank holds only in part is summed over `sp` or `pipe` as well as
+the data axes: every tower leaf under sp; the blocks and the embedding
+under pp. The fusion, classifier and GCN, and ln_final under pp, are
+computed whole on every rank and are not. The dropout masks are the plain
+tower's (`models/dropout.py`), so an sp or pp step trains what one device
+trains and K1's clip takes the plain global norm on every rank.
+`remat_tower` has no effect under sp and pp, as in JAX.
 """
 from __future__ import annotations
 
@@ -120,6 +136,8 @@ from ultrafnd_git_tpu_torch.ops.graphctx import build_graph_context, build_spars
 from ultrafnd_git_tpu_torch.ops.hashing import set_hash_salt
 from ultrafnd_git_tpu_torch.parallel import collectives as coll
 from ultrafnd_git_tpu_torch.parallel import mesh as meshlib
+from ultrafnd_git_tpu_torch.parallel.pipeline import pipelined_tower_apply
+from ultrafnd_git_tpu_torch.parallel.sequence import sequence_parallel_tower_apply
 from ultrafnd_git_tpu_torch.training import checkpoint as ckpt
 from ultrafnd_git_tpu_torch.training.loop import (
     ImprovementTracker,
@@ -204,14 +222,32 @@ class TrainConfig:
     model_dir: Optional[str] = None
 
 
-def _unsupported(cfg: TrainConfig) -> list:
-    """The set flags of the layouts the port has not ported (ROADMAP.md):
-    `sp` and `pp`. Every other field trains."""
-    return [flag for flag, on in (("sp", cfg.sp > 1), ("pp", cfg.pp > 1)) if on]
+def _check_tower_transforms(cfg: TrainConfig) -> None:
+    """The JAX trainer's checks of --sp and --pp (`trainer.py:383-410`),
+    in its order and with its text."""
+    for flag, val in (("--sp", cfg.sp), ("--pp", cfg.pp)):
+        if val > 1:
+            if not cfg.train_text_tower:
+                raise ValueError(f"{flag} transforms the text tower; it requires "
+                                 "--train_text_tower")
+            if cfg.moe_experts > 0:
+                raise ValueError(f"{flag} and --moe_experts are mutually exclusive "
+                                 "(the transformed tower has a dense MLP body)")
+    if cfg.sp > 1 and cfg.pp > 1:
+        raise ValueError("--sp and --pp are mutually exclusive (one tower "
+                         "transform at a time; they compose with --dp/--tp)")
+    if cfg.pp > 1 and cfg.text_tower_depth % cfg.pp:
+        raise ValueError(f"tower depth {cfg.text_tower_depth} not divisible by pp={cfg.pp}")
+    if cfg.dcn > 1 and (cfg.sp > 1 or cfg.pp > 1):
+        raise ValueError(
+            "--dcn composes with --dp/--tp only: the sp/pp shard_map "
+            "bodies address the batch by the single 'data' axis (ring "
+            "and pipeline stay within a slice by design)"
+        )
 
 
 def _uses_mesh(cfg: TrainConfig) -> bool:
-    return cfg.dp is not None or cfg.tp > 1 or cfg.dcn > 1
+    return cfg.dp is not None or cfg.tp > 1 or cfg.dcn > 1 or cfg.sp > 1 or cfg.pp > 1
 
 
 def module_configs(cfg, text_width: int, widths: Dict[str, int]):
@@ -310,26 +346,17 @@ class ForensicTrainer:
         self.cfg = cfg
         os.makedirs(cfg.out_dir, exist_ok=True)
         _adopt_checkpoint_fields(cfg)
-        if cfg.dcn > 1 and (cfg.sp > 1 or cfg.pp > 1):
-            raise ValueError(
-                "--dcn composes with --dp/--tp only: the sp/pp shard_map "
-                "bodies address the batch by the single 'data' axis (ring "
-                "and pipeline stay within a slice by design)"
-            )
-        bad = _unsupported(cfg)
-        if bad:
-            raise NotImplementedError(
-                f"{', '.join(bad)} not ported to ultrafnd_git_tpu_torch yet (see "
-                "the port's module list in ROADMAP.md); train it with "
-                "ultrafnd_git_tpu"
-            )
+        _check_tower_transforms(cfg)
         if cfg.tower_gelu not in ("tanh", "exact"):
             raise ValueError(f"tower_gelu must be 'tanh' or 'exact', got {cfg.tower_gelu!r}")
         self.device = dev = resolve_device("cpu" if cfg.mesh_backend == "cpu" else device)
         # ---- mesh (optional): this rank's place in ([dcn,] data, model) -----
         self.mesh: Optional[meshlib.Mesh] = None
         if _uses_mesh(cfg):
-            self.mesh = meshlib.make_mesh(cfg.dp, cfg.tp, cfg.dcn, device=dev)
+            extra = [(meshlib.SP_AXIS, cfg.sp)] if cfg.sp > 1 else []
+            extra += [(meshlib.PIPE_AXIS, cfg.pp)] if cfg.pp > 1 else []
+            self.mesh = meshlib.make_mesh(cfg.dp, cfg.tp, cfg.dcn, device=dev,
+                                          extra_axes=extra)
             self.device = dev = resolve_device(str(self.mesh.device))
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
@@ -342,6 +369,9 @@ class ForensicTrainer:
         self._data = mesh.shard(*meshlib.data_axes(mesh)) if mesh is not None else None
         self._tp = (mesh.shard(meshlib.MODEL_AXIS)
                     if mesh is not None and mesh.shape[meshlib.MODEL_AXIS] > 1 else None)
+        # the tower's transform axis under --sp / --pp
+        self._sp = mesh.shard(meshlib.SP_AXIS) if cfg.sp > 1 else None
+        self._pipe = mesh.shard(meshlib.PIPE_AXIS) if cfg.pp > 1 else None
         np.random.seed(cfg.seed)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -379,6 +409,9 @@ class ForensicTrainer:
         if cfg.train_text_tower:
             if float(np.asarray(self.cache["text_mask"]).sum()) == 0.0:
                 raise ValueError("--train_text_tower needs token ids, but this cache has none")
+            length = int(self.cache["text_ids"].shape[1])
+            if cfg.sp > 1 and length % cfg.sp:
+                raise ValueError(f"tower token length {length} not divisible by sp={cfg.sp}")
             self.corpus["text_ids"] = put("text_ids", self.cache["text_ids"], torch.int64, split)
             self.corpus["text_mask"] = put("text_mask", self.cache["text_mask"], split=split)
         else:
@@ -563,7 +596,13 @@ class ForensicTrainer:
             return rows[key] if rows is not None and key in rows else c[key][idx]
 
         moe_aux = None
-        if "text_tower" in params:
+        if "text_tower" in params and self._sp is not None:
+            text = sequence_parallel_tower_apply(params["text_tower"], get("text_ids"),
+                                                 get("text_mask"), self._sp, gen)
+        elif "text_tower" in params and self._pipe is not None:
+            text = pipelined_tower_apply(params["text_tower"], get("text_ids"), get("text_mask"),
+                                         self._pipe, cfg.pp_microbatches, self._data, gen)
+        elif "text_tower" in params:
             text = params["text_tower"](get("text_ids"), get("text_mask"), gen,
                                         return_aux=cfg.moe_experts > 0)
             if cfg.moe_experts > 0:
@@ -628,8 +667,15 @@ class ForensicTrainer:
 
     def _reduce_grads(self, grads) -> None:
         """Sum the gradients over the data axes in place: within 'data', then
-        across 'dcn' (one all-reduce each, the leaves packed once)."""
+        across 'dcn' (one all-reduce each, the leaves packed once); first,
+        the tower leaves each rank holds in part over `sp` or `pipe` (all
+        of them under sp, all but ln_final under pp)."""
         mesh = self.mesh
+        axis = self._sp or self._pipe
+        if axis is not None and "text_tower" in grads:
+            coll.all_reduce_coalesced_(
+                [g for name, g in grads["text_tower"].items()
+                 if self._sp is not None or not name.startswith("ln_final.")], axis)
         axes = [meshlib.DATA_AXIS] + ([meshlib.DCN_AXIS] if meshlib.DCN_AXIS in mesh.axis_names
                                       else [])
         coll.all_reduce_coalesced_([g for d in grads.values() for g in d.values()],
