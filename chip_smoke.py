@@ -12,7 +12,9 @@ root, serve frozen scoring artifacts (torch.export) and the legacy
 two-dispatch path, train with --trainer integrated, and run the v1
 raw-media ensemble pipeline (decode, the device CV stage, the ensemble),
 train on a mesh (--dp, --tp, then --sp, --pp, expert-parallel MoE) and
-serve with serve_dp.
+serve with serve_dp; the text, audio and evidence ladders' HF twins (BERT,
+the DistilRoBERTa emotion classifier, wav2vec2, CLIP's text tower) run at
+their published widths with seeded weights.
 
     python3 chip_smoke.py
 
@@ -58,6 +60,22 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      microbatches, checked and timed against their bound and SDPA; K1's
      yardstick also on the v1 ensemble's leaf table (phase v1_train);
      the ptxas report (registers, spills) of every kernel is printed;
+ 3b. hf_twins — the HF rungs' twins at the published widths of the
+     checkpoints the ladders name, from constants (no config file, no
+     transformers; weights drawn from a seed), whether or not transformers
+     is importable (printed): K2 at (256, 12, 256, 64) with the padding
+     bias and at (16, 12, 249, 64) with the zero bias against its plain
+     version (atol = rtol 2e-5, out within 1e-5 of max|plain|, two calls
+     bit for bit), timed against its bound and SDPA f32; then each twin's
+     chunk through its entry point (`encode_ids` of bert-base-uncased and
+     of CLIP ViT-B/32's text tower, 256 rows at S = 256 and 64;
+     `predict_ids` of the DistilRoBERTa emotion classifier, 256 x 256;
+     `encode_batch` of wav2vec2-base-960h, 16 waveforms of 80,000 samples)
+     with the launches counted (K2 = layers a chunk, CLIP 0), finite
+     output of its shape (unit rows, probabilities summing to 1), within
+     1e-4 of its largest value of the same module with the plain
+     attention; the chunk's median wall ms over 5, its device ms by
+     torch.profiler, K2's and the GEMMs' shares, the idle share;
   4. train   — ForensicTrainer on a synthetic corpus of N = 5376 at full
      width (tower 768 x 2 layers x 6 heads, S = 64, vocab 32768, fusion
      512, GCN 416-256-128, classifier 512 with a 6 x 4 NODE forest),
@@ -311,6 +329,32 @@ TRAIN_BATCH = 512
 SERVING_SHAPE = (256, 6, 64, 128)
 TRAIN_SHAPE = (TRAIN_BATCH, 6, 64, 128)
 TEXT_TOWER_SHAPE = (512, 12, 256, 64)  # the seeded text rung's K2 call: a chunk of 512 strings
+# hf_twins: the HF rungs' published configurations (HF config field names), weights
+# from a seed: bert-base-uncased; the DistilRoBERTa emotion classifier
+# (j-hartmann/emotion-english-distilroberta-base, 7 labels); wav2vec2-base-960h;
+# the text tower of openai/clip-vit-base-patch32 (eos_token_id 2: argmax pooling)
+HF_BERT = dict(model_type="bert", vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+               num_attention_heads=12, intermediate_size=3072, max_position_embeddings=512,
+               type_vocab_size=2, layer_norm_eps=1e-12)
+HF_EMOTION = dict(model_type="roberta", vocab_size=50265, hidden_size=768, num_hidden_layers=6,
+                  num_attention_heads=12, intermediate_size=3072, max_position_embeddings=514,
+                  type_vocab_size=1, pad_token_id=1, layer_norm_eps=1e-5,
+                  id2label={0: "anger", 1: "disgust", 2: "fear", 3: "joy", 4: "neutral",
+                            5: "sadness", 6: "surprise"})
+HF_W2V2 = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+               intermediate_size=3072, conv_dim=(512,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+               conv_stride=(5, 2, 2, 2, 2, 2, 2), conv_bias=False, num_conv_pos_embeddings=128,
+               num_conv_pos_embedding_groups=16, layer_norm_eps=1e-5, do_stable_layer_norm=False,
+               hidden_act="gelu", feat_extract_activation="gelu")
+HF_CLIP = dict(vocab_size=49408, hidden_size=512, num_hidden_layers=12, num_attention_heads=8,
+               intermediate_size=2048, max_position_embeddings=77, projection_dim=512,
+               hidden_act="quick_gelu", layer_norm_eps=1e-5, eos_token_id=2)
+HF_CHUNK, HF_SEQ = 256, 256  # BERT and RoBERTa: a chunk of 256 strings at S = 256
+HF_WAVES, HF_SAMPLES = 16, 80000  # wav2vec2: 16 waveforms of 5 s at 16 kHz -> S = 249
+HF_CLIP_SEQ = 64  # the semantic analyzer's max_length
+HF_K2_SHAPES = ((HF_CHUNK, 12, HF_SEQ, 64), (HF_WAVES, 12, 249, 64))
+HF_TWIN_REL = 1e-4  # a twin's output, K2 against the plain attention on the card (of its largest)
+HF_TIMED = 5  # timed chunks a twin (after the main-path one)
 CHECK_SHAPES = (
     SERVING_SHAPE,
     TEXT_TOWER_SHAPE,
@@ -1149,6 +1193,176 @@ def check_pipeline_shapes(dev):
         del q, k, v, do, mask, bias
         torch.cuda.empty_cache()
     return res
+
+
+def _hf_twin_inputs(kind, rng):
+    """The main path's inputs of a twin: token ids and mask (ragged
+    lengths, the longest at the bucket), or waveforms."""
+    if kind == "w2v2":
+        return (list(rng.standard_normal((HF_WAVES, HF_SAMPLES)).astype(np.float32)),)
+    rows, seq = (HF_CHUNK, HF_CLIP_SEQ) if kind == "clip" else (HF_CHUNK, HF_SEQ)
+    cfg = {"bert": HF_BERT, "roberta": HF_EMOTION, "clip": HF_CLIP}[kind]
+    lengths = rng.integers(2, seq + 1, rows)
+    lengths[0] = seq
+    mask = (np.arange(seq)[None] < lengths[:, None]).astype(np.float32)
+    ids = rng.integers(3, cfg["vocab_size"] - 1, (rows, seq))
+    if kind == "clip":  # <|endoftext|> (the largest id) closes each row and pads it
+        ids[np.arange(seq)[None] >= (lengths - 1)[:, None]] = cfg["vocab_size"] - 1
+    else:
+        ids[mask == 0] = HF_EMOTION["pad_token_id"] if kind == "roberta" else 0
+    return ids, mask
+
+
+def phase_hf_twins(dev):
+    """The ladders' HF twins at their published widths, weights from a seed
+    (the card's machine has no transformers): K2 at the twins' shapes
+    against its plain version, timed against its bound and SDPA f32; each
+    twin's chunk through its entry point with the launches counted, against
+    the same module with the plain attention, timed and profiled."""
+    import importlib.metadata
+    import importlib.util
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.models import bert, clip, roberta, w2v2
+
+    from ultrafnd_git_tpu_torch.models.affective import emotion_rung
+    from ultrafnd_git_tpu_torch.models.audio import SpectralForensics
+    from ultrafnd_git_tpu_torch.models.encoders import text_rung
+    from ultrafnd_git_tpu_torch.models.semantic import clip_rung
+
+    t0 = time.perf_counter()
+    present = importlib.util.find_spec("transformers") is not None
+    log("hf_twins", transformers_importable=present,
+        transformers_version=importlib.metadata.version("transformers") if present else None,
+        note="the twins are built from constants either way")
+    # what the ladders select on this machine (local weights or not)
+    log("hf_twins", ladder_rungs=json.dumps({
+        "text": text_rung() or "hash", "semantic": clip_rung() or "hash",
+        "affective": emotion_rung() or "lexicon",
+        "audio": "hf" if SpectralForensics().use_w2v2 else "spectral"}))
+    k2 = []
+    with torch.no_grad():
+        for i, shape in enumerate(HF_K2_SHAPES):
+            q, k, v, _, mask = _attention_inputs(shape, 600 + i, dev)
+            # BERT / RoBERTa: the padding bias; wav2vec2: no mask (K2's zero bias)
+            bias = fa.padding_bias(mask) if i == 0 else None
+            out, lse = fa.flash_attention_fwd(q, k, v, bias)
+            out2, lse2 = fa.flash_attention_fwd(q, k, v, bias)
+            ref_out, ref_lse = fa.reference_attention(q, k, v, bias)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref_out, **TOL)
+            torch.testing.assert_close(lse, ref_lse, **TOL)
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise RuntimeError(f"K2 differs between two calls at {shape}")
+            rel = _max_err(out, ref_out) / max(ref_out.abs().max().item(), 1e-30)
+            if not rel <= FWD_REL:
+                raise RuntimeError(f"K2 out at {shape}: {rel} of max|plain|")
+            t = {"shape": list(shape), "bias": "padding" if bias is not None else "zeros",
+                 "max_abs_err": max(_max_err(out, ref_out), _max_err(lse, ref_lse)),
+                 "rel_err": rel,
+                 "ms": _median_ms(lambda: fa.flash_attention_fwd(q, k, v, bias)),
+                 "plain_ms": _median_ms(lambda: fa.reference_attention(q, k, v, bias)),
+                 "library_ms": _median_ms(lambda: _sdpa(q, k, v, bias)), **_fwd_bound(shape)}
+            k2.append(t)
+            log("hf_twins", time="flash_attention_fwd", **t, bit_identical_repeat=True,
+                library="SDPA EFFICIENT_ATTENTION f32 (no mask for the zero bias)")
+            del q, k, v, mask, bias, out, out2, ref_out
+            torch.cuda.empty_cache()
+
+    builds = {  # module, config, wrapper over a state dict, its entry point
+        "bert": (bert.BertEncoder, HF_BERT,
+                 lambda sd: bert.DeviceBertEncoder(sd, None, max_length=HF_SEQ,
+                                                   batch_size=HF_CHUNK, config=HF_BERT),
+                 "encode_ids"),
+        "roberta": (roberta.RobertaClassifier, HF_EMOTION,
+                    lambda sd: roberta.DeviceEmotionClassifier(sd, None, max_length=HF_SEQ,
+                                                               batch_size=HF_CHUNK,
+                                                               config=HF_EMOTION),
+                    "predict_ids"),
+        "w2v2": (w2v2.Wav2Vec2Encoder, HF_W2V2,
+                 lambda sd: w2v2.DeviceW2V2Encoder(sd, dim=128, batch_size=HF_WAVES,
+                                                   config=HF_W2V2),
+                 "encode_batch"),
+        "clip": (clip.ClipTextEncoder, HF_CLIP,
+                 lambda sd: clip.DeviceClipTextEncoder(sd, None, max_length=HF_CLIP_SEQ,
+                                                       batch_size=HF_CHUNK, config=HF_CLIP),
+                 "encode_ids"),
+    }
+    twins, launches = {}, 0
+    for j, (kind, (module_cls, cfg, build, entry)) in enumerate(builds.items()):
+        s = time.perf_counter()
+        sd = bert.draw_weights_(module_cls.from_config(cfg), seed=700 + j).state_dict()
+        twin = build(sd)
+        del sd
+        build_s = time.perf_counter() - s
+        if twin.device.type != "cuda":
+            raise RuntimeError(f"hf_twins: the {kind} twin is on {twin.device}")
+        params = sum(p.numel() for p in twin.module.parameters())
+        inputs = _hf_twin_inputs(kind, np.random.default_rng(800 + j))
+
+        def chunk():
+            return getattr(twin, entry)(*inputs)
+
+        _reset_counts()  # this twin's main-path chunk only
+        got = chunk()
+        counted = _launch_counts()
+        depth = cfg["num_hidden_layers"]
+        expect = {"fwd": 0 if kind == "clip" else depth, "fwd_bf16": 0, "bwd": 0,
+                  "bwd_bf16": 0, "adamw": 0}
+        if counted != expect:
+            raise RuntimeError(f"hf_twins {kind}: launches {counted}, expected {expect}")
+        launches += counted["fwd"]
+        rows = len(inputs[0])
+        width = {"bert": 768, "roberta": 7, "w2v2": 128, "clip": 512}[kind]
+        if got.shape != (rows, width) or not np.isfinite(got).all():
+            raise RuntimeError(f"hf_twins {kind}: output {got.shape}, finite "
+                               f"{np.isfinite(got).all()}")
+        if kind in ("bert", "clip") and np.abs(np.linalg.norm(got, axis=1) - 1).max() > 1e-4:
+            raise RuntimeError(f"hf_twins {kind}: rows not L2-normalised")
+        if kind == "roberta" and np.abs(got.sum(axis=1) - 1).max() > 1e-5:
+            raise RuntimeError("hf_twins roberta: probabilities do not sum to 1")
+        walls = []
+        for _ in range(HF_TIMED):
+            s = time.perf_counter()
+            chunk()  # returns host numpy: synchronised
+            walls.append(1e3 * (time.perf_counter() - s))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chunk()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        k2_ms = sum(e.self_device_time_total for e in kernels if "flash" in e.key.lower()) / 1e3
+        gemm_ms = sum(e.self_device_time_total for e in kernels if "gemm" in e.key.lower()) / 1e3
+        plain_rel = None
+        if kind != "clip":  # CLIP's attention is the plain one already
+            bert.set_attention(twin.module, bert.plain_attention)
+            plain = chunk()
+            bert.set_attention(twin.module, fa.flash_attention)
+            plain_rel = float(np.abs(got - plain).max() / max(np.abs(plain).max(), 1e-30))
+            if not plain_rel <= HF_TWIN_REL:
+                raise RuntimeError(f"hf_twins {kind}: K2 vs the plain attention {plain_rel} "
+                                   f"of the largest value (bound {HF_TWIN_REL})")
+        chunk_ms = statistics.median(walls)
+        twins[kind] = {"params": params, "rows": rows, "launches_a_chunk": counted["fwd"],
+                       "chunk_ms": chunk_ms, "chunk_ms_range": [min(walls), max(walls)],
+                       "chunk_device_ms": device_ms, "chunk_k2_ms": k2_ms,
+                       "k2_share": k2_ms / device_ms if device_ms else None,
+                       "chunk_gemm_ms": gemm_ms,
+                       "idle_share": max(0.0, 1.0 - device_ms / chunk_ms),
+                       "kernel_vs_plain_attention_rel": plain_rel}
+        log("hf_twins", twin=kind, config=json.dumps(cfg, separators=(",", ":")),
+            build_s=build_s, **twins[kind])
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+            log("hf_twins", twin=kind, kernel=json.dumps(e.key[:90]), calls=e.count,
+                device_ms=e.self_device_time_total / 1e3)
+        del twin, got
+        torch.cuda.empty_cache()
+    log("hf_twins", k2_launches=launches, phase_wall_s=time.perf_counter() - t0)
+    return {"k2_shapes": k2, "twins": twins, "launches": {"fwd": launches}}
 
 
 def full_width_params(dev):
@@ -3646,6 +3860,7 @@ def main() -> int:
     bwd_bf16 = check_flash_bwd_bf16(dev, flash["dq"]["ms"])
     k1 = check_adamw(dev)
     pp_shapes = check_pipeline_shapes(dev)
+    hf_twins = phase_hf_twins(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as root:
         seeded, served = Path(root) / "seeded_model", Path(root) / "trained_model"
         corpus = build_model_dir(str(seeded))
@@ -3705,7 +3920,8 @@ def main() -> int:
               "artifact_serve": artifact.get(key, 0), "legacy_serve": legacy_n,
               "integrated_train": integrated[key], "text_tower": text_tower["launches"][key],
               "v1_train": v1_train[key], "mesh_train": mesh_train[key],
-              "parallel_train": parallel_train[key]}
+              "parallel_train": parallel_train[key],
+              "hf_twins": hf_twins["launches"].get(key, 0)}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     print(json.dumps({"kernels": [
@@ -3715,7 +3931,7 @@ def main() -> int:
          "replaces": ref + "flash_attention.py:162",
          **paths("fwd", serve["launches"], levers["fwd"], explain, http, evidence, legacy),
          **flash["fwd"], "pipelined_shapes": pp_shapes["fwd"],
-         "ptxas": ptxas["flash_attention_fwd"]},
+         "hf_twin_shapes": hf_twins["k2_shapes"], "ptxas": ptxas["flash_attention_fwd"]},
         {"name": "flash_attention_fwd_bf16", "route": "cuda",
          "source": src + "flash_attention_fwd_bf16.cu",
          "replaces": ref + "flash_attention.py:162 (mm_dtype=bfloat16)",

@@ -1023,3 +1023,91 @@ def test_two_gloo_ranks_train_sp_and_pp_as_one_card(cuda, tmp_path, layout):
             assert fwd == bwd == 2 * layout["pp_microbatches"]
         else:
             assert fwd == bwd == 0
+
+
+# ---- the HF twins (models/bert.py, roberta.py, w2v2.py, clip.py) ------------
+
+HF_TWIN_REL = 1e-4  # a twin's pooled output, K2 against the plain attention on the card
+TWIN_BERT = dict(model_type="bert", vocab_size=200, hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, intermediate_size=256, max_position_embeddings=300,
+                 type_vocab_size=2, layer_norm_eps=1e-12)
+TWIN_ROBERTA = dict(TWIN_BERT, model_type="roberta", type_vocab_size=1, pad_token_id=1,
+                    layer_norm_eps=1e-5, id2label={0: "anger", 1: "fear", 2: "joy"})
+# the BASE conv stack on 80,000 samples gives S = 249 frames (odd, ragged tiles)
+TWIN_W2V2 = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=256, conv_dim=(32,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
+                 conv_stride=(5, 2, 2, 2, 2, 2, 2), conv_bias=False, num_conv_pos_embeddings=128,
+                 num_conv_pos_embedding_groups=16, layer_norm_eps=1e-5)
+
+
+def _twin(kind, device):
+    from ultrafnd_git_tpu_torch.models import bert, roberta, w2v2
+
+    cls, cfg = {"bert": (bert.DeviceBertEncoder, TWIN_BERT),
+                "roberta": (roberta.DeviceEmotionClassifier, TWIN_ROBERTA),
+                "w2v2": (w2v2.DeviceW2V2Encoder, TWIN_W2V2)}[kind]
+    module = {"bert": bert.BertEncoder, "roberta": roberta.RobertaClassifier,
+              "w2v2": w2v2.Wav2Vec2Encoder}[kind].from_config(cfg)
+    sd = bert.draw_weights_(module, seed=7).state_dict()
+    if kind == "w2v2":
+        return cls(sd, dim=64, device=device, config=cfg)
+    return cls(sd, None, max_length=256, device=device, config=cfg)
+
+
+def _twin_run(kind, twin):
+    rng = np.random.default_rng(3)
+    if kind == "w2v2":
+        return twin.encode_batch(list(rng.standard_normal((3, 80000)).astype(np.float32)))
+    ids = rng.integers(3, 200, (5, 256))
+    lengths = np.array([256, 200, 77, 1, 130])
+    mask = (np.arange(256)[None] < lengths[:, None]).astype(np.float32)
+    ids[mask == 0] = 1 if kind == "roberta" else 0
+    return (twin.predict_ids if kind == "roberta" else twin.encode_ids)(ids, mask)
+
+
+@pytest.mark.parametrize("kind", ["bert", "roberta", "w2v2"])
+def test_hf_twin_launches_k2_and_matches_plain_attention(cuda, kind):
+    """Each K2 twin at D = 64 on the card: K2 once a layer a chunk (S = 256,
+    and S = 249 for wav2vec2), its output within 1e-4 of the same module
+    with the plain attention, and of its CPU run."""
+    from ultrafnd_git_tpu_torch.models.bert import plain_attention, set_attention
+
+    twin = _twin(kind, "cuda")
+    before = fa.launches
+    got = _twin_run(kind, twin)
+    assert fa.launches - before == TWIN_BERT["num_hidden_layers"]
+    set_attention(twin.module, plain_attention)
+    plain = _twin_run(kind, twin)
+    assert fa.launches - before == TWIN_BERT["num_hidden_layers"]
+    cpu = _twin_run(kind, _twin(kind, "cpu"))
+    scale = np.abs(plain).max()
+    assert np.abs(got - plain).max() <= HF_TWIN_REL * scale
+    assert np.abs(got - cpu).max() <= HF_TWIN_REL * scale
+
+
+def test_hf_twin_head_width_outside_the_kernel_raises(cuda):
+    """D = 16 is not a width K2 was built for: the twin raises on the card
+    (it does not take the plain path)."""
+    twin_cfg = dict(TWIN_BERT, hidden_size=64, num_attention_heads=4)
+    from ultrafnd_git_tpu_torch.models import bert
+
+    sd = bert.draw_weights_(bert.BertEncoder.from_config(twin_cfg), seed=1).state_dict()
+    twin = bert.DeviceBertEncoder(sd, None, dim=64, device="cuda", config=twin_cfg)
+    with pytest.raises(ValueError, match="head dim 16"):
+        twin.encode_ids(np.ones((2, 8), np.int64), np.ones((2, 8), np.float32))
+
+
+def test_clip_twin_on_gpu_matches_cpu(cuda):
+    from ultrafnd_git_tpu_torch.models import bert, clip
+
+    cfg = dict(vocab_size=300, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+               intermediate_size=256, max_position_embeddings=77, projection_dim=64,
+               eos_token_id=2)
+    sd = bert.draw_weights_(clip.ClipTextEncoder.from_config(cfg), seed=2).state_dict()
+    rng = np.random.default_rng(4)
+    ids = rng.integers(3, 299, (4, 64))
+    mask = np.ones((4, 64), np.float32)
+    ids[:, 20], mask[:, 21:] = 299, 0.0  # legacy pooling: argmax(ids)
+    got, cpu = (clip.DeviceClipTextEncoder(sd, None, device=d, config=cfg).encode_ids(ids, mask)
+                for d in ("cuda", "cpu"))
+    np.testing.assert_allclose(got, cpu, atol=1e-4)

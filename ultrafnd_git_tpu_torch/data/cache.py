@@ -8,8 +8,8 @@
     ocr_sets list[set] | split (tr, va, te)
 
   * text = mean of the title / OCR / <= 10 comment encodings, L2-normed
-    (the hash rung, or the text tower on the encoders' device under
-    `ULTRAFND_TEXT_DEVICE=1`, `models/encoders.py`);
+    (the text ladder of `models/encoders.py`: the hash rung, HF BERT, or
+    the text tower, the twins on the encoders' text device);
   * audio = encoding of the proxy `title + " " + first comment`;
   * visual = flow proxy ++ ELA proxy of the OCR (else the title), fit to
     512 and L2-normed;
@@ -47,13 +47,13 @@ import torch
 from ultrafnd_git_tpu_torch.data.dataset import FakeSVRawDataset
 from ultrafnd_git_tpu_torch.data.ocr import ocr_sets_for_records
 from ultrafnd_git_tpu_torch.data.splits import make_split
-from ultrafnd_git_tpu_torch.models.affective import AffectiveForensics
+from ultrafnd_git_tpu_torch.models.affective import AffectiveForensics, emotion_rung
 from ultrafnd_git_tpu_torch.models.encoders import (
     ProxyTextEncoder,
     TextFieldEncoder,
-    tower_rung,
+    text_rung,
 )
-from ultrafnd_git_tpu_torch.models.semantic import SemanticForgeryAnalyzer
+from ultrafnd_git_tpu_torch.models.semantic import SemanticForgeryAnalyzer, clip_rung
 from ultrafnd_git_tpu_torch.models.temporal import TemporalSyncNet
 from ultrafnd_git_tpu_torch.models.transformer import hash_tokenize_batch
 from ultrafnd_git_tpu_torch.ops.hashing import get_hash_salt
@@ -107,22 +107,22 @@ def make_encoders(
     """The encoder set of the cache contract, built once and reusable:
     "text", "audio", "flow", "ela", "tsync" and, `with_evidence`,
     "affective" and "semantic". The align MLP ("tsync") is the seeded draw
-    on `device` (cuda by default; raises without a GPU). The text ladder
-    (`models/encoders.TextFieldEncoder`) runs its tower rung, when
-    `ULTRAFND_TEXT_DEVICE=1` selects it, on `text_device` (default
-    `device`)."""
+    on `device` (cuda by default; raises without a GPU). The ladders' device
+    rungs (the text tower, the HF twins of BERT, the emotion classifier and
+    CLIP's text tower) run on `text_device` (default `device`)."""
     dev = resolve_device(device)
+    twins = text_device or str(dev)
     proxy = ProxyTextEncoder(visual_dim // 2)  # flow and ELA: one hash rung
     enc: Dict[str, Any] = {
-        "text": TextFieldEncoder(text_dim, device=text_device or str(dev)),
+        "text": TextFieldEncoder(text_dim, device=twins),
         "audio": ProxyTextEncoder(audio_dim),
         "flow": proxy,
         "ela": proxy,
         "tsync": TemporalSyncNet(text_dim, temporal_dim, seed=seed, device=str(dev)),
     }
     if with_evidence:
-        enc["affective"] = AffectiveForensics.from_config()
-        enc["semantic"] = SemanticForgeryAnalyzer.from_config()
+        enc["affective"] = AffectiveForensics.from_config(device=twins)
+        enc["semantic"] = SemanticForgeryAnalyzer.from_config(device=twins)
     return enc
 
 
@@ -241,13 +241,15 @@ def build_feature_cache(
 def cache_fingerprint(data_root: str, seed: int, ocr_phrase_pkl: Optional[str]) -> str:
     """Config identity of a cache built here: the JAX fingerprint's fields
     (data root, seed, OCR pickle, and the hash salt when one is set) plus
-    the port's align draw, and the text rung when it is not the hash rung
-    (`models/encoders.tower_rung`: "text_rung": "tower-seeded" with
-    "text_init": "torch", the port's seeded draw, or "tower:<path>/<slot>"),
-    so a hash-rung fingerprint is the same as before the tower rung existed
-    and neither rung takes the other's cache. The JAX fingerprint does not
-    name the rung (ROADMAP.md, faults of the reference). The feature-code
-    version is stored beside it."""
+    the port's align draw, the text rung when it is not the hash rung
+    (`models/encoders.text_rung`: "text_rung": "tower-seeded" with
+    "text_init": "torch", the port's seeded draw, "tower:<path>/<slot>", or
+    "hf:<model>:device" / "hf:<model>:host"), and the evidence scorers' HF
+    rungs when they load ("evidence_rungs": {"semantic": ..., "affective":
+    ...}, `clip_rung`, `emotion_rung`), so a hash-rung fingerprint is the
+    same as before the other rungs existed and no rung takes another's
+    cache. The JAX fingerprint names no rung (ROADMAP.md, faults of the
+    reference). The feature-code version is stored beside it."""
     cfg: Dict[str, Any] = {
         "data_root": str(Path(data_root).resolve()),
         "seed": int(seed),
@@ -257,11 +259,14 @@ def cache_fingerprint(data_root: str, seed: int, ocr_phrase_pkl: Optional[str]) 
     salt = get_hash_salt()
     if salt:
         cfg["hash_salt"] = salt
-    rung = tower_rung()
+    rung = text_rung()
     if rung is not None:
         cfg["text_rung"] = rung
         if rung == "tower-seeded":
             cfg["text_init"] = TEXT_INIT
+    evidence = {k: v for k, v in (("semantic", clip_rung()), ("affective", emotion_rung())) if v}
+    if evidence:
+        cfg["evidence_rungs"] = evidence
     return json.dumps(cfg, sort_keys=True)
 
 
@@ -500,7 +505,7 @@ def bootstrap_cache(
     tsync = enc["tsync"]
     print(f"feature cache: built from {data_root} ({len(raw)} records): host featurize "
           f"{seconds['host_s']} s, align pass {seconds['align_s']} s on {tsync.device}, "
-          f"text rung {tower_rung() or 'hash'}")
+          f"text rung {text_rung() or 'hash'}")
     if cache_to_disk:
         save_cache(built, str(own), fingerprint=fp)
         save_align(out_dir, tsync.module.state_dict(), tsync.in_dim, tsync.out_dim)

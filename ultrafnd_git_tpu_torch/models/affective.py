@@ -6,16 +6,29 @@ Host numpy, the same recipe as the JAX analyzer:
     intensity      = clip(0.6 * text_intensity + 0.4 * arousal)
     valence        = clip(0.5 + 0.5 * (joy - 0.5*(fear + anger)))
 
-with [fear, anger, joy] from the Chinese sensational-term lexicon, the rung
-the JAX ladder falls to without HuggingFace weights (its HF emotion
-classifier rungs are not ported; see ROADMAP.md), and audio arousal from an
-FFT energy and spectral-centroid proxy.
+with [fear, anger, joy] from the JAX ladder (`affective.py:88-178`):
+
+  1. the HF emotion classifier (`j-hartmann/emotion-english-distilroberta-
+     base`, local files only, through `utils/hf.load_once`): for a RoBERTa
+     checkpoint its device twin (`models/roberta.DeviceEmotionClassifier`,
+     K2) on the analyzer's device, else the host `transformers` forward;
+     its label probabilities summed into the three heads by name buckets;
+  2. only when that model does not load, the Chinese sensational-term
+     lexicon.
+
+Where the JAX ladder catches a failing twin or host forward and drops
+lower, this one raises. Audio arousal comes from an FFT energy and
+spectral-centroid proxy.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
+
+from ultrafnd_git_tpu_torch.utils.hf import import_transformers, load_once
+
+EMOTION_MODEL = "j-hartmann/emotion-english-distilroberta-base"
 
 # Chinese sensational-term lexicon
 EMO_LEXICON: Dict[str, frozenset] = {
@@ -24,6 +37,12 @@ EMO_LEXICON: Dict[str, frozenset] = {
     "joy": frozenset({"真相", "辟谣", "科学", "证据", "研究", "发现", "开心", "高兴"}),
 }
 _HEADS = ("fear", "anger", "joy")
+# HF label-name buckets -> the three heads
+_LABEL_BUCKETS = {
+    "fear": ("fear", "anx", "worr", "scare"),
+    "anger": ("anger", "annoy", "mad", "rage"),
+    "joy": ("joy", "happi", "delight", "amuse"),
+}
 
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:
@@ -42,18 +61,76 @@ def lexicon_probs_batch(texts: Sequence[str]) -> np.ndarray:
     return counts / totals
 
 
+def load_emotion_model(name: str = EMOTION_MODEL):
+    """(tokenizer, model) of a local HF sequence classifier, memoised; None
+    without `transformers` or local files."""
+    def loader():
+        transformers = import_transformers()
+        tok = transformers.AutoTokenizer.from_pretrained(name, local_files_only=True)
+        model = transformers.AutoModelForSequenceClassification.from_pretrained(
+            name, local_files_only=True)
+        return tok, model.eval()
+
+    return load_once(f"affective:{name}", loader)
+
+
+def emotion_rung(name: str = EMOTION_MODEL) -> Optional[str]:
+    """"hf:<model>:device" (a RoBERTa checkpoint: the twin) or
+    "hf:<model>:host" when the emotion model loads, else None (the
+    lexicon), for the cache fingerprint."""
+    loaded = load_emotion_model(name)
+    if loaded is None:
+        return None
+    roberta = getattr(loaded[1].config, "model_type", "") == "roberta"
+    return f"hf:{name}:" + ("device" if roberta else "host")
+
+
+def bucket_probs(p: np.ndarray, names: Sequence[str]) -> np.ndarray:
+    """(N, C) label probabilities and their names -> (N, 3) fear / anger /
+    joy, normalised (the reference's label buckets)."""
+    out = np.zeros((p.shape[0], 3), dtype=np.float32)
+    for j, head in enumerate(_HEADS):
+        cols = [i for i, n in enumerate(names) if any(k in n for k in _LABEL_BUCKETS[head])]
+        if cols:
+            out[:, j] = p[:, cols].sum(axis=1)
+    return out / (out.sum(axis=1, keepdims=True) + 1e-9)
+
+
 class AffectiveForensics:
     """Batched emotion intensity, arousal and valence."""
 
+    def __init__(self, text_model: str = EMOTION_MODEL, device: str = "cuda"):
+        self.text_model_name = text_model
+        self.device = device
+        self._twin = None
+
     @classmethod
-    def from_config(cls) -> "AffectiveForensics":
-        """The analyzer of the shipped `configs/model_configs/affective.yaml`,
-        whose one field names the HF rung's model (not ported)."""
-        return cls()
+    def from_config(cls, device: str = "cuda") -> "AffectiveForensics":
+        """The analyzer of the shipped `configs/model_configs/affective.yaml`
+        (the port reads no YAML; its one field, the HF model, is the default
+        here), its twin on `device`."""
+        return cls(device=device)
 
     def text_probs_batch(self, texts: Sequence[str]) -> np.ndarray:
-        """(N,) strings -> (N, 3) fear / anger / joy (the lexicon rung)."""
-        return lexicon_probs_batch(texts)
+        """(N,) strings -> (N, 3) fear / anger / joy."""
+        loaded = load_emotion_model(self.text_model_name)
+        if loaded is None:
+            return lexicon_probs_batch(texts)
+        tok, model = loaded
+        if getattr(model.config, "model_type", "") == "roberta":
+            if self._twin is None:
+                from ultrafnd_git_tpu_torch.models.roberta import DeviceEmotionClassifier
+
+                self._twin = DeviceEmotionClassifier(model, tok, device=self.device)
+            return bucket_probs(self._twin.predict_probs(list(texts)), self._twin.label_names)
+        import torch
+
+        with torch.inference_mode():
+            inp = tok(list(texts), return_tensors="pt", truncation=True, padding=True,
+                      max_length=256)
+            p = torch.softmax(model(**inp).logits, dim=-1).numpy()
+        id2label = getattr(model.config, "id2label", {}) or {}
+        return bucket_probs(p, [str(id2label.get(i, i)).lower() for i in range(p.shape[1])])
 
     @staticmethod
     def audio_arousal(audio: Optional[np.ndarray], sr: int = 16000) -> float:

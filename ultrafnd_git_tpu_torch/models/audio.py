@@ -6,16 +6,25 @@ resample), `stft_magnitude` (Hann-windowed frames, rfft), `mel_filterbank`
 (HTK scale), the spectral descriptors, `MelSpectrogramGenerator` (dB
 relative to the maximum), `SpectralForensics` and `VoiceCloneDetector`.
 
-`SpectralForensics` is the ladder the JAX encoder runs without HuggingFace
-weights (`ULTRAFND_DISABLE_HF=1`): a string -> its stable-hash embedding;
-a waveform -> the spectral statistics (`_spectral_stats`: magnitude,
+`SpectralForensics` is the JAX encoder's ladder: a string -> its
+stable-hash embedding; an empty waveform -> zeros; a waveform -> wav2vec2
+(`facebook/wav2vec2-base-960h`, local files only, through
+`utils/hf.load_once` under the key `w2v2:<name>:<dim>`) when it loads, the
+last hidden state mean-pooled over time and projected to `dim` by a seeded
+head; without it, the spectral statistics (`_spectral_stats`: magnitude,
 contrast, flatness, centroid, roll-off, zero crossings, tiled to `dim`
-and L2-normed), or the four STFT statistics should those raise; an empty
-waveform -> zeros. Its wav2vec2 rung needs outside weights and is not
-ported (ROADMAP.md).
+and L2-normed), or the four STFT statistics should those raise.
+`extract_waveform_batch` sends equal-length waveforms through the device
+twin (`models/w2v2.DeviceW2V2Encoder`, K2) on the encoder's device, unless
+`ULTRAFND_W2V2_DEVICE=0` (read when the encoder is built) or
+`models/w2v2.unsupported` names the checkpoint: those take the host
+`transformers` forward a waveform at a time, as `extract` does. Where the
+JAX ladder catches a failing wav2vec2 rung and drops lower
+(`audio.py:279-282`, `:308-315`), this one raises.
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -25,6 +34,10 @@ from ultrafnd_git_tpu_torch.ops.hashing import (
     hash_embed_batch,
     stable_unit_score,
 )
+from ultrafnd_git_tpu_torch.utils.hf import import_transformers, load_once
+
+W2V2_DEVICE = "ULTRAFND_W2V2_DEVICE"
+W2V2_MODEL = "facebook/wav2vec2-base-960h"
 
 ArrayLike = Union[np.ndarray, "object"]
 
@@ -147,8 +160,55 @@ class MelSpectrogramGenerator:
 class SpectralForensics:
     """Fixed-size audio tamper-cue vector (default 128-D)."""
 
-    def __init__(self, dim: int = 128):
+    def __init__(self, dim: int = 128, w2v2_name: str = W2V2_MODEL, device: str = "cuda"):
         self.dim = int(dim)
+        self.device = device
+
+        def loader():
+            import torch
+
+            from ultrafnd_git_tpu_torch.models.w2v2 import projection_weight
+
+            transformers = import_transformers()
+            processor = transformers.Wav2Vec2Processor.from_pretrained(
+                w2v2_name, local_files_only=True)
+            backbone = transformers.Wav2Vec2Model.from_pretrained(
+                w2v2_name, local_files_only=True).eval()
+            hidden = int(backbone.config.hidden_size)
+            proj = torch.nn.Identity()
+            if hidden != self.dim:
+                proj = torch.nn.Linear(hidden, self.dim)
+                with torch.no_grad():
+                    proj.weight.copy_(projection_weight(self.dim, hidden))
+                    proj.bias.zero_()
+            return processor, backbone, proj
+
+        loaded = load_once(f"w2v2:{w2v2_name}:{self.dim}", loader)
+        self.use_w2v2 = loaded is not None
+        self.processor, self.backbone, self._proj = loaded if loaded else (None, None, None)
+        self._w2v2_on_device = False
+        if self.use_w2v2 and os.environ.get(W2V2_DEVICE, "1") == "1":
+            from ultrafnd_git_tpu_torch.models.w2v2 import unsupported
+
+            self._w2v2_on_device = unsupported(self.backbone.config, self.processor) is None
+        self._device_w2v2 = None
+
+    def _w2v2_features(self, wav: np.ndarray) -> np.ndarray:
+        """The host forward of one waveform: (dim,)."""
+        import torch
+
+        with torch.inference_mode():
+            inputs = self.processor(wav, sampling_rate=16000, return_tensors="pt", padding=True)
+            hidden = self.backbone(**inputs).last_hidden_state  # (1, T', H)
+            return self._proj(hidden.mean(dim=1)).float().numpy()[0]
+
+    def _device_rung(self):
+        if self._device_w2v2 is None:
+            from ultrafnd_git_tpu_torch.models.w2v2 import DeviceW2V2Encoder
+
+            self._device_w2v2 = DeviceW2V2Encoder(self.backbone, dim=self.dim,
+                                                  processor=self.processor, device=self.device)
+        return self._device_w2v2
 
     def _spectral_stats(self, wav: np.ndarray) -> np.ndarray:
         """Rich descriptor set (the librosa-ladder equivalent, numpy-only)."""
@@ -189,13 +249,16 @@ class SpectralForensics:
         return _fit_and_norm(feats, self.dim)
 
     def extract(self, audio_or_text, sr: int = 16000) -> np.ndarray:
-        """Text proxy -> stable hash; waveform -> spectral statistics."""
+        """Text proxy -> stable hash; waveform -> wav2vec2 (the host forward)
+        or, without it, spectral statistics."""
         if isinstance(audio_or_text, str):
             return hash_embed(audio_or_text, self.dim, max_tokens=self.dim)
 
         wav, sr = ensure_mono_16k(audio_or_text, sr)
         if wav.size == 0:
             return np.zeros(self.dim, dtype=np.float32)
+        if self.use_w2v2:
+            return self._w2v2_features(wav)
         try:
             return self._spectral_stats(wav)
         except Exception:
@@ -208,8 +271,13 @@ class SpectralForensics:
     def extract_waveform_batch(
         self, waves: Sequence[ArrayLike], sr: int = 16000
     ) -> np.ndarray:
-        """(B, dim): `extract` of each waveform, after `ensure_mono_16k`."""
+        """(B, dim): one device pass when the wav2vec2 twin is selected and
+        every (mono 16 kHz) waveform has the same nonzero length (the v1
+        collate's 80,000 samples), else `extract` of each."""
         normed = [ensure_mono_16k(w, sr)[0] for w in waves]
+        if (self._w2v2_on_device and normed
+                and all(w.size == normed[0].size > 0 for w in normed)):
+            return self._device_rung().encode_batch(normed)
         return np.stack([self.extract(w, 16000) for w in normed])
 
 

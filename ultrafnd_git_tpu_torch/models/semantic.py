@@ -2,10 +2,15 @@
 
 `SemanticForgeryAnalyzer.gap_magnitude(titles, ocrs)` is what the feature
 cache reads: half the L2 distance between the L2-normalised encoder
-features of title and OCR, in [0, 1]. The encoder is the stable-hash
-embedding at width 512, the rung the JAX ladder falls to without CLIP
-weights (`zeros_fallback=True` gives the reference's all-zero features
-instead); the CLIP rungs are not ported (ROADMAP.md).
+features of title and OCR, in [0, 1]. The encoder is the JAX ladder
+(`semantic.py:135-205`): CLIP's text tower (`openai/clip-vit-base-patch32`,
+local files only, through `utils/hf.load_once`) when it loads, as its
+device twin (`models/clip.DeviceClipTextEncoder`) on the analyzer's device,
+or the host `transformers` forward (`get_text_features`, L2-normalised)
+under `ULTRAFND_CLIP_DEVICE=0` (read at the first encode); without it, the
+stable-hash embedding at width 512 (`zeros_fallback=True` gives the
+reference's all-zero features instead). Where the JAX ladder catches a
+failing CLIP rung and drops to the hash rung, this one raises.
 
 `SemanticProjector` is the JAX module's two projection branches (Linear ->
 exact GELU -> dropout, 512 -> proj_dim each) and its three normalised
@@ -17,6 +22,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -24,8 +31,10 @@ from torch import nn
 
 from ultrafnd_git_tpu_torch.models.dropout import dropout as drop
 from ultrafnd_git_tpu_torch.ops.hashing import hash_embed_batch
+from ultrafnd_git_tpu_torch.utils.hf import import_transformers, load_once
 
 ENCODER_DIM = 512  # CLIP ViT-B/32 text features, and the hash rung's width
+CLIP_DEVICE = "ULTRAFND_CLIP_DEVICE"
 
 
 def l2n(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
@@ -64,21 +73,63 @@ class SemanticProjector(nn.Module):
         }
 
 
-class SemanticForgeryAnalyzer:
-    """Title-vs-OCR semantic consistency on the hash encoder."""
+def load_clip(name: str):
+    """(tokenizer, CLIPModel) of a local HF checkpoint, memoised; None
+    without `transformers` or local files."""
+    def loader():
+        transformers = import_transformers()
+        tok = transformers.AutoTokenizer.from_pretrained(name, local_files_only=True)
+        model = transformers.CLIPModel.from_pretrained(name, local_files_only=True)
+        return tok, model.eval()
 
-    def __init__(self, cfg: Optional[SemanticConfig] = None):
+    return load_once(f"clip:{name}", loader)
+
+
+def clip_rung(name: str = SemanticConfig.model_name) -> Optional[str]:
+    """"hf:<model>:device" or "hf:<model>:host" when the CLIP rung loads,
+    else None (the hash rung), for the cache fingerprint."""
+    if load_clip(name) is None:
+        return None
+    return f"hf:{name}:" + ("device" if os.environ.get(CLIP_DEVICE, "1") == "1" else "host")
+
+
+class SemanticForgeryAnalyzer:
+    """Title-vs-OCR semantic consistency on the CLIP text tower or the hash
+    encoder."""
+
+    def __init__(self, cfg: Optional[SemanticConfig] = None, device: str = "cuda"):
         self.cfg = cfg or SemanticConfig()
+        self.device = device
+        self._twin = None
+        self._on_device: Optional[bool] = None  # ULTRAFND_CLIP_DEVICE, read at first use
 
     @classmethod
-    def from_config(cls) -> "SemanticForgeryAnalyzer":
+    def from_config(cls, device: str = "cuda") -> "SemanticForgeryAnalyzer":
         """The shipped `configs/model_configs/semantic.yaml` (the port reads
-        no YAML; its fields equal the defaults here)."""
-        return cls(SemanticConfig())
+        no YAML; its fields equal the defaults here), its twin on `device`."""
+        return cls(SemanticConfig(), device=device)
 
     def encode_text(self, texts: Sequence[str]) -> np.ndarray:
         """Strings -> (B, 512) L2-normalised features."""
         texts = [t or "" for t in texts]
+        clip = load_clip(self.cfg.model_name)
+        if clip is not None:
+            tok, model = clip
+            if self._on_device is None:
+                self._on_device = os.environ.get(CLIP_DEVICE, "1") == "1"
+            if self._on_device:
+                if self._twin is None:
+                    from ultrafnd_git_tpu_torch.models.clip import DeviceClipTextEncoder
+
+                    self._twin = DeviceClipTextEncoder(model, tok, max_length=self.cfg.max_length,
+                                                       device=self.device)
+                return self._twin.encode_batch(texts)
+            with torch.inference_mode():
+                toks = tok(texts, padding=True, truncation=True,
+                           max_length=self.cfg.max_length, return_tensors="pt")
+                feats = model.get_text_features(**toks).numpy()
+            return (feats / (np.linalg.norm(feats, axis=-1, keepdims=True) + 1e-9)).astype(
+                np.float32)
         if self.cfg.zeros_fallback:
             return np.zeros((len(texts), ENCODER_DIM), dtype=np.float32)
         return hash_embed_batch(texts, ENCODER_DIM, max_tokens=ENCODER_DIM)

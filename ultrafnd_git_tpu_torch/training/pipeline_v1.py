@@ -9,7 +9,9 @@ train and evaluate (counterpart of `training/pipeline_v1.py`).
   trains on seeded random features instead, as JAX's does.
 * `BatchFeatureExtractor` turns a collated batch into the trainer's
   columns: text (the text ladder, `models/encoders.TextFieldEncoder`),
-  audio (`SpectralForensics` on the waveform), visual (flow features ++
+  audio (`SpectralForensics` on the waveform: the wav2vec2 twin on the
+  extractor's device when local weights load, else spectral statistics;
+  the evidence scorers' HF twins likewise), visual (flow features ++
   ELA / LBP of the middle frame, L2-normed), temporal (the align MLP on
   the extractor's device), aux [delay, emotion intensity] and evidence
   [semantic gap, emotion intensity, tamper]. Flow and the chronos cues
@@ -146,7 +148,7 @@ class BatchFeatureExtractor:
         self.text_enc = enc["text"]
         # the cache's audio / flow / ELA entries are text proxies: v1 takes
         # the encoders that read waveforms and frames, at the same widths
-        self.audio_enc = SpectralForensics(dim=128)
+        self.audio_enc = SpectralForensics(dim=128, device=str(self.device))
         self.flow = OpticalFlow3DCNN(dim=256)
         # cv2 algorithm objects are stateful: each pool thread gets its own
         self._tls = threading.local()

@@ -10,8 +10,12 @@ the port's copies of the functions of the JAX package's
 `utils/torch_transfer.py`), whose keys the port's modules are named after.
 The v1 ensemble's stacked tree (a leading member axis on every leaf) maps
 member by member (`ensemble_state_dicts_from_params`); the edge-list GNNs
-of `models/graph_nets.py` by their Flax names (`graph_nets_state_dict`). The caller
-converts arrays to numpy.
+of `models/graph_nets.py` by their Flax names (`graph_nets_state_dict`). The
+four HF twins of the JAX package (`models/{bert,roberta,w2v2,clip}_flax.py`)
+map to the port's twins, whose modules carry HF's key names
+(`bert_state_dict`, `roberta_classifier_state_dict`, `w2v2_state_dict`,
+`clip_text_state_dict`; an HF `state_dict()` loads into them directly). The
+caller converts arrays to numpy.
 
 A model directory holds `weights.pt` ({part: state_dict}, loadable with
 `torch.load(..., weights_only=True)`), `meta.json` (the checkpoint cfg
@@ -171,6 +175,104 @@ def semantic_projector_state_dict(variables: Mapping[str, Any]) -> StateDict:
     out: StateDict = {}
     _dense(out, "text_dense", params["text_dense"])
     _dense(out, "vision_dense", params["vision_dense"])
+    return out
+
+
+def _embed(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = _f32(p["embedding"])
+
+
+def _conv1d(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    """Flax Conv kernel (k, in / groups, out) -> torch Conv1d (out, in / groups, k)."""
+    out[f"{name}.weight"] = _f32(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+    if "bias" in p:
+        out[f"{name}.bias"] = _f32(p["bias"])
+
+
+def _bert_layers(out: StateDict, params: Mapping[str, Any]) -> None:
+    """`layer{i}` of a Flax `BertLayer` stack -> `encoder.layer.{i}.*`."""
+    depth = sum(1 for k in params if k.startswith("layer"))
+    for i in range(depth):
+        p, pre = params[f"layer{i}"], f"encoder.layer.{i}"
+        for flax_name, name in (("query", "attention.self.query"),
+                                ("key", "attention.self.key"),
+                                ("value", "attention.self.value"),
+                                ("attn_out", "attention.output.dense"),
+                                ("ffn_in", "intermediate.dense"),
+                                ("ffn_out", "output.dense")):
+            _dense(out, f"{pre}.{name}", p[flax_name])
+        _layer_norm(out, f"{pre}.attention.output.LayerNorm", p["attn_ln"])
+        _layer_norm(out, f"{pre}.output.LayerNorm", p["ffn_ln"])
+
+
+def _bert_embeddings(out: StateDict, params: Mapping[str, Any]) -> None:
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        _embed(out, f"embeddings.{name}", params[name])
+    _layer_norm(out, "embeddings.LayerNorm", params["embed_ln"])
+
+
+def bert_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """Flax `BertEncoderFlax` params -> `models/bert.BertEncoder` state dict
+    (HF `BertModel` keys): the inverse of `torch_bert_to_flax_params`."""
+    out: StateDict = {}
+    _bert_embeddings(out, params)
+    _bert_layers(out, params)
+    return out
+
+
+def roberta_classifier_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """Flax `RobertaClassifierFlax` params -> `models/roberta.RobertaClassifier`
+    state dict: the inverse of `torch_roberta_clf_to_flax_params`."""
+    out = bert_state_dict(params)
+    _dense(out, "classifier.dense", params["cls_dense"])
+    _dense(out, "classifier.out_proj", params["cls_out"])
+    return out
+
+
+def w2v2_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """Flax `Wav2Vec2EncoderFlax` params -> `models/w2v2.Wav2Vec2Encoder`
+    state dict (the positional conv's weight as the materialised
+    `encoder.pos_conv_embed.conv.weight`): the inverse of
+    `torch_w2v2_to_flax_params`."""
+    fe = params["feature_extractor"]
+    out: StateDict = {}
+    for i in range(sum(1 for k in fe if k.startswith("conv") and k[4:].isdigit())):
+        _conv1d(out, f"feature_extractor.conv_layers.{i}.conv", fe[f"conv{i}"])
+    _layer_norm(out, "feature_extractor.conv_layers.0.layer_norm", fe["conv0_gn"])
+    _layer_norm(out, "feature_projection.layer_norm", params["proj_ln"])
+    _dense(out, "feature_projection.projection", params["proj"])
+    _conv1d(out, "encoder.pos_conv_embed.conv", params["pos_conv"])
+    _layer_norm(out, "encoder.layer_norm", params["encoder_ln"])
+    depth = sum(1 for k in params if k.startswith("layer"))
+    for i in range(depth):
+        p, pre = params[f"layer{i}"], f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(out, f"{pre}.attention.{name}", p[name])
+        _layer_norm(out, f"{pre}.layer_norm", p["attn_ln"])
+        _dense(out, f"{pre}.feed_forward.intermediate_dense", p["ffn_in"])
+        _dense(out, f"{pre}.feed_forward.output_dense", p["ffn_out"])
+        _layer_norm(out, f"{pre}.final_layer_norm", p["ffn_ln"])
+    return out
+
+
+def clip_text_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """Flax `ClipTextEncoderFlax` params -> `models/clip.ClipTextEncoder`
+    state dict (HF keys without `text_model.`): the inverse of
+    `torch_clip_text_to_flax_params`."""
+    out: StateDict = {}
+    _embed(out, "embeddings.token_embedding", params["token_embedding"])
+    _embed(out, "embeddings.position_embedding", params["position_embedding"])
+    depth = sum(1 for k in params if k.startswith("layer"))
+    for i in range(depth):
+        p, pre = params[f"layer{i}"], f"encoder.layers.{i}"
+        _layer_norm(out, f"{pre}.layer_norm1", p["ln1"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(out, f"{pre}.self_attn.{name}", p[name])
+        _layer_norm(out, f"{pre}.layer_norm2", p["ln2"])
+        _dense(out, f"{pre}.mlp.fc1", p["fc1"])
+        _dense(out, f"{pre}.mlp.fc2", p["fc2"])
+    _layer_norm(out, "final_layer_norm", params["final_ln"])
+    out["text_projection.weight"] = _f32(np.asarray(params["text_projection"]["kernel"]).T)
     return out
 
 
