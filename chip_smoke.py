@@ -130,6 +130,20 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      test metrics printed. A second main(--eval_only) on the same out_dir
      reuses the cache (printed, file untouched) and launches K2 = depth x
      test chunks and nothing else;
+ 10a. reference_migration — phase 4's run/best (a tower slot: its heads
+     only, with the warning) exported to a reference best.pt through
+     `export_reference`'s main(), imported through `import_reference`'s
+     main() over phase 10's data root on its cache (copied in: the
+     fingerprint matches, so it is reused, not rebuilt), served on the card
+     at 8, 64 and 300 records within 1e-4 of the same slot on the CPU,
+     fine-tuned one epoch by train --resume (from epoch 1; K1 = the
+     import's and the resume's GCN warm starts, 2 each, + steps, nothing
+     else launched; each of those K1 updates, on this model's leaf set of
+     the heads alone, bit for bit against the plain update on a copy of
+     its inputs, and the latest slot equal to the plain update's output of
+     the last step), and its latest slot exported again: the file's
+     tensors equal the slot's (the zero-filled semantic.* entries beside
+     them);
  10b. text_tower — the text ladder's tower rung. Seeded
      (ULTRAFND_TEXT_DEVICE=1): the feature cache of phase 10's data root
      built on the card with its text column from the seeded tower (768
@@ -268,7 +282,9 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      input and parameter gradients within 1e-5 of their largest);
      serve_dp in this process: serve_dp=1 equal to the default Predictor,
      serve_dp = cards + 1 refused, and with two cards or more serve_dp =
-     cards within 1e-6;
+     cards within 1e-6; the MoE export of phase 9c at serve_dp = cards
+     (every bucket scored whole on replica 0) equal to its single
+     Predictor's rows;
  12. a check that no module of jax or of the JAX package ultrafnd_git_tpu
      was loaded (server threads included), a JSON line of the kernels, then
      the JSON result line.
@@ -2097,17 +2113,21 @@ def _launch_counts():
             "bwd_bf16": fa.bwd_bf16_launches, "adamw": aw.launches}
 
 
-def _train_cli(argv):
-    """The training CLI's main() in this process (the kernel counts see it):
-    (its results, what it printed)."""
+def _run_cli(main, argv):
+    """A CLI's main() in this process (the kernel counts see it): (what it
+    returned, what it printed)."""
     from contextlib import redirect_stdout
-
-    from ultrafnd_git_tpu_torch.train import main as train_main
 
     tee = _Tee(sys.stdout)
     with redirect_stdout(tee):
-        results = train_main(argv)
+        results = main(argv)
     return results, "".join(tee.text)
+
+
+def _train_cli(argv):
+    from ultrafnd_git_tpu_torch.train import main as train_main
+
+    return _run_cli(train_main, argv)
 
 
 def phase_raw_train(root):
@@ -2227,7 +2247,133 @@ def phase_raw_train(root):
                            f"(expected {eval_expect})")
     log("raw_train", eval_only="reused the cache", launches=json.dumps(eval_launches))
     return {"launches": launches, "median_step_ms": median_step, "data_root": data_root,
-            "exported": exported, "out_dir": out}
+            "exported": exported, "out_dir": out, "train_rows": cache["split"][0]}
+
+
+def phase_reference_migration(root, raw, requests):
+    """A reference best.pt through the port: run/best exported (heads only),
+    imported over the raw data root on the raw run's cache, served on the
+    card against the CPU, fine-tuned one epoch by train --resume with every
+    K1 update held to the plain one, exported again and held to its slot.
+    Returns the path's launch counts."""
+    import torch
+
+    from ultrafnd_git_tpu_torch import export_reference, import_reference
+    from ultrafnd_git_tpu_torch.kernels import adamw as aw
+    from ultrafnd_git_tpu_torch.serving import Predictor
+    from ultrafnd_git_tpu_torch.training.checkpoint import read_slot
+
+    t0 = time.perf_counter()
+    mig = root / "migration"
+    best_pt, imported = mig / "reference" / "best.pt", mig / "imported"
+    rc, said = _run_cli(export_reference.main, ["--out_dir", str(root / "run"),
+                                                "--dest", str(best_pt)])
+    if rc != 0 or "warning: checkpoint carries a trained text tower" not in said:
+        raise RuntimeError(f"reference_migration: export of run/best returned {rc}")
+    payload = torch.load(best_pt, weights_only=True)
+    export_s = time.perf_counter() - t0
+    # the raw run's cache and align weights: the import's fingerprint is theirs
+    imported.mkdir(parents=True)
+    for name in ("feature_cache.npz", "align.pt"):
+        shutil.copyfile(raw["out_dir"] / name, imported / name)
+
+    # every K1 update of the import and the resume (this model's leaf set:
+    # the heads, no tower) bit for bit against the plain update on a copy of
+    # its own inputs; the copies' updates run the plain version, no launch
+    apply, update = aw.FusedAdamW.apply, aw.FusedAdamW._update
+    held = {"updates": 0, "max_abs_err": 0.0, "leaves": 0, "params": 0}
+
+    def named_apply(self, params, state, grads):
+        held["names"] = [f"{part}.{n}" for part, mod in params.items()
+                         if part not in self.frozen for n, _ in mod.named_parameters()]
+        return apply(self, params, state, grads)
+
+    def held_update(self, leaves, scal):
+        plain = [tuple(t.clone() for t in leaf) for leaf in leaves]
+        for leaf in plain:
+            aw.adamw_reference_(*leaf, scal)
+        update(self, leaves, scal)
+        for name, got, want in zip(held["names"], leaves, plain, strict=True):
+            for t, x, y in zip("pmv", got, want):
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"reference_migration: K1 differs from the plain update "
+                                       f"at {name} ({t}) in update {held['updates']}")
+                held["max_abs_err"] = max(held["max_abs_err"], _max_err(x, y))
+        held["updates"] += 1
+        held["leaves"], held["params"] = len(leaves), sum(leaf[0].numel() for leaf in leaves)
+        held["last"] = {name: want[0] for name, want in zip(held["names"], plain)}
+
+    aw.FusedAdamW.apply, aw.FusedAdamW._update = named_apply, held_update
+    try:
+        _reset_counts()  # this path's run only
+        t1 = time.perf_counter()
+        rc, said = _run_cli(import_reference.main, [str(best_pt), "--data_root",
+                                                    str(raw["data_root"]), "--out_dir",
+                                                    str(imported)])
+        import_s = time.perf_counter() - t1
+        if rc != 0 or "feature cache: reusing" not in said or "(fusion+clf+gnn)" not in said:
+            raise RuntimeError(f"reference_migration: the import returned {rc} or rebuilt the "
+                               "cache")
+
+        t2 = time.perf_counter()
+        served = {}
+        for dev in ("cuda", "cpu"):
+            pred = Predictor(out_dir=str(imported), device=dev)
+            served[dev] = [pred.predict(r) for r in requests]
+            pred.close()
+        serve_s = time.perf_counter() - t2
+        gap = _max_gap(served["cuda"], served["cpu"])
+        probs = _values(served["cuda"])
+        if gap > PROB_ATOL or len(probs) != sum(REQUEST_SIZES) or not np.isfinite(probs).all():
+            raise RuntimeError(f"reference_migration: the imported slot on the card differs "
+                               f"from the CPU by {gap} (bound {PROB_ATOL}) or is not finite")
+
+        t3 = time.perf_counter()
+        results, said = _train_cli(["--data_root", str(raw["data_root"]), "--out_dir",
+                                    str(imported), "--resume", "--epochs", "1", "--batch_size",
+                                    str(TRAIN_BATCH), "--seed", "0"])
+        resume_s = time.perf_counter() - t3
+        launches = _launch_counts()
+    finally:
+        aw.FusedAdamW.apply, aw.FusedAdamW._update = apply, update
+    meta = read_slot(str(imported), "latest")[1]
+    steps = -(-len(raw["train_rows"]) // TRAIN_BATCH)
+    expect = {"fwd": 0, "fwd_bf16": 0, "bwd": 0, "bwd_bf16": 0, "adamw": 2 + 2 + steps}
+    if "[Epoch 01]" not in said or "feature cache: reusing" not in said or meta["epoch"] != 1 \
+            or launches != expect or not all(np.isfinite(v) for v in results.values()):
+        raise RuntimeError(f"reference_migration: --resume did not fine-tune from epoch 1 on "
+                           f"the cache, or launched {launches} (expected {expect})")
+    # the resumed latest slot is the plain update's output at the last step
+    slot = read_slot(str(imported), "latest")[0]["params"]
+    last = {tuple(k.split(".", 1)): p.cpu() for k, p in held["last"].items()}
+    moved = [k for k, p in last.items() if not torch.equal(slot[k[0]][k[1]], p)]
+    if held["updates"] != expect["adamw"] or moved \
+            or not {"fusion", "clf"} <= {k[0] for k in last}:
+        raise RuntimeError(f"reference_migration: {held['updates']} updates held of "
+                           f"{expect['adamw']}, or the latest slot differs from the plain "
+                           f"update at {moved[:5]}")
+
+    back = mig / "back.pt"
+    rc, _ = _run_cli(export_reference.main, ["--out_dir", str(imported), "--slot", "latest",
+                                             "--dest", str(back)])
+    file = torch.load(back, weights_only=True)
+    semantic = {k for k in file["fusion"] if k.startswith("semantic.")}
+    differ = [f"{part}.{k}" for part in ("fusion", "clf", "gnn") for k, v in slot[part].items()
+              if not torch.equal(file[part][k], v)]
+    if rc != 0 or differ or set(file["fusion"]) != set(slot["fusion"]) | semantic \
+            or len(semantic) != 4 or set(file["clf"]) != set(slot["clf"]):
+        raise RuntimeError(f"reference_migration: the export differs from its slot: {differ[:5]}")
+    log("reference_migration", reference_tensors=json.dumps(
+            {k: len(payload[k]) for k in ("fusion", "clf", "gnn")}),
+        records=N_CORPUS, steps=steps, launches=json.dumps(launches, separators=(",", ":")),
+        k1_updates_held=held["updates"], k1_leaves=held["leaves"], k1_params=held["params"],
+        k1_vs_plain_max_abs_err=held["max_abs_err"], k1_bit_identical=True,
+        latest_slot_is_plain_output=True, gpu_vs_cpu_max_gap=gap,
+        prob_mean=float(np.mean(probs)), export_s=export_s, import_s=import_s,
+        serve_s=serve_s, resume_s=resume_s,
+        test=json.dumps({k: round(v, 6) for k, v in results.items()}),
+        phase_wall_s=time.perf_counter() - t0, script_wall_s=time.perf_counter() - T0)
+    return launches
 
 
 def _fields(rec):
@@ -3750,7 +3896,7 @@ def _spawn_ranks(script, args, world=2):
     return [p.returncode for p in procs], outs
 
 
-def phase_parallel_train(model_dir, served, root, ref, requests):
+def phase_parallel_train(model_dir, served, moe_served, root, ref, requests):
     """--sp 2, --pp 2 and --pp 2 --pp_microbatches 4 on two gloo ranks
     sharing the card, PARALLEL_STEPS steps each, held against the plain
     run `ref` (mesh_train's); the MoE block with its experts cut over an
@@ -3838,9 +3984,20 @@ def phase_parallel_train(model_dir, served, root, ref, requests):
     if gaps["serve_dp=1"] != 0.0 or max(gaps.values()) > 1e-6:
         raise RuntimeError(f"parallel_train serve_dp: rows differ from the single Predictor's: "
                            f"{gaps}")
+    # a switch-MoE tower: every bucket whole on replica 0, the single Predictor's rows
+    moe_rows = {}
+    for label, dp in (("single", None), (f"serve_dp={cards}", cards)):
+        pred = Predictor(str(moe_served), serve_dp=dp)
+        moe_rows[label] = [pred.predict(r) for r in requests]
+        pred.close()
+    moe_gap = _max_gap(moe_rows[f"serve_dp={cards}"], moe_rows["single"])
+    if moe_gap != 0.0:
+        raise RuntimeError(f"parallel_train serve_dp: the MoE export at serve_dp={cards} "
+                           f"differs from the single Predictor by {moe_gap}")
     for k, v in _launch_counts().items():
         launches[k] += v
     log("parallel_train", check="serve_dp", cards=cards, max_gap=json.dumps(gaps),
+        moe_serve_dp=cards, moe_max_gap=moe_gap,
         refused=json.dumps(refused), ran_multi_card=cards >= 2,
         launches=json.dumps(launches, separators=(",", ":")),
         phase_wall_s=time.perf_counter() - t0, script_wall_s=time.perf_counter() - T0)
@@ -3889,6 +4046,9 @@ def main() -> int:
         moe_serve = phase_moe_serve(str(moe_served), requests)
         moe_resume = phase_moe_resume(seeded, Path(root))
         raw = phase_raw_train(Path(root))
+        rng = np.random.default_rng(5)
+        migration = phase_reference_migration(
+            Path(root), raw, [raw_records(n, rng, f"r{n}") for n in REQUEST_SIZES])
         rng = np.random.default_rng(4)
         text_tower = phase_text_tower(raw["data_root"], raw["out_dir"], raw["exported"],
                                       [raw_records(n, rng, f"t{n}") for n in REQUEST_SIZES])
@@ -3901,7 +4061,8 @@ def main() -> int:
         integrated = phase_integrated_train(raw["data_root"], Path(root))
         v1_train = phase_v1_train(dev, Path(root))
         mesh_train, plain_ref = phase_mesh_train(seeded, Path(root))
-        parallel_train = phase_parallel_train(seeded, served, Path(root), plain_ref, requests)
+        parallel_train = phase_parallel_train(seeded, served, moe_served, Path(root), plain_ref,
+                                              requests)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("ultrafnd_git_tpu", "jax", "jaxlib", "flax"))
@@ -3920,7 +4081,7 @@ def main() -> int:
               "artifact_serve": artifact.get(key, 0), "legacy_serve": legacy_n,
               "integrated_train": integrated[key], "text_tower": text_tower["launches"][key],
               "v1_train": v1_train[key], "mesh_train": mesh_train[key],
-              "parallel_train": parallel_train[key],
+              "parallel_train": parallel_train[key], "reference_migration": migration[key],
               "hf_twins": hf_twins["launches"].get(key, 0)}
         return {"launches": sum(by.values()), "launches_by_path": by}
 

@@ -11,7 +11,10 @@ asserts both). Tolerances: prob_fake and the forensic keys within 1e-4 of
 the JAX `Predictor`'s; explain(grad) runs through the MoE tower. int8 quantizes the
 same leaves as JAX's `quantize_tree` on a MoE tree: at E = 8 and width 768
 the router's 2-D kernel (6144 >= min_size 4096) is quantized, with values
-and scales equal to JAX's, and the 3-D expert arrays stay f32.
+and scales equal to JAX's, and the 3-D expert arrays stay f32. At serve_dp=2 (CPU replicas) every
+bucket is scored whole, as JAX's sharded program routes it: the rows equal
+the single Predictor's, the routes are the JAX tower's, and the rows agree
+with JAX's serve_dp=2 Predictor within 1e-4; explain() takes the same route.
 """
 import importlib.util
 import json
@@ -38,6 +41,7 @@ REPO = Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "fakesv_tiny"
 KEYS = ("prob_fake", "semantic_conflict", "temporal_delay", "emotion_intensity")
 ATOL = 1e-4
+SERVE_DP = 2
 
 
 @pytest.fixture(autouse=True)
@@ -87,12 +91,10 @@ def test_export_records_the_moe_tower(moe_dirs):
     assert not any("mlp_in" in k for k in tower)
 
 
-def test_moe_checkpoint_served_by_the_port_matches_jax(moe_dirs):
-    from ultrafnd_git_tpu.serving import Predictor as JaxPredictor
-
-    records = load_records(str(FIXTURE / "data_complete.json"))[:20]
-    jp = JaxPredictor(moe_dirs[0], batch_size=16)
-    pp = Predictor(moe_dirs[1], batch_size=16, device="cpu")
+def _predict_holding_routes(pp, jp, records):
+    """pp.predict(records), with the expert and slot of every token of
+    each bucket the port's tower routes held to the JAX tower's on the same
+    ids (and its smallest top-1 / top-2 margin above MARGIN)."""
     tower = pp.text_tower
     assert isinstance(tower, TextTransformer) and tower.moe_experts == 2
     inputs = []
@@ -117,6 +119,16 @@ def test_moe_checkpoint_served_by_the_port_matches_jax(moe_dirs):
         assert margin > MARGIN, margin
         np.testing.assert_array_equal(expert, j_expert)
         np.testing.assert_array_equal(slot, j_slot)
+    return rows
+
+
+def test_moe_checkpoint_served_by_the_port_matches_jax(moe_dirs):
+    from ultrafnd_git_tpu.serving import Predictor as JaxPredictor
+
+    records = load_records(str(FIXTURE / "data_complete.json"))[:20]
+    jp = JaxPredictor(moe_dirs[0], batch_size=16)
+    pp = Predictor(moe_dirs[1], batch_size=16, device="cpu")
+    rows = _predict_holding_routes(pp, jp, records)
 
     ref = jp.predict(records)
     assert [r["id"] for r in rows] == [r["id"] for r in ref]
@@ -125,6 +137,62 @@ def test_moe_checkpoint_served_by_the_port_matches_jax(moe_dirs):
                                    atol=ATOL, rtol=0, err_msg=key)
     explained = pp.explain(records[:4], method="grad")
     assert all(np.isfinite(r["explain"]["fused_attr_l1"]) for r in explained)
+
+
+@pytest.fixture(scope="module")
+def serve_dp_predictors(moe_dirs):
+    """The MoE export served by the port at serve_dp 1 and 2 (CPU replicas)."""
+    made = {dp: Predictor(moe_dirs[1], batch_size=16, device="cpu", serve_dp=dp)
+            for dp in (None, SERVE_DP)}
+    yield made
+    for p in made.values():
+        p.close()
+
+
+def test_serve_dp_scores_a_moe_tower_whole_as_the_single_predictor(serve_dp_predictors,
+                                                                  monkeypatch):
+    """serve_dp=2 scores every bucket whole on replica 0 (16 rows, which
+    2 divides, in one program call a chunk): the capacity and the slot order
+    are the whole bucket's, so the rows equal the single Predictor's."""
+    from ultrafnd_git_tpu_torch import serving
+
+    records = load_records(str(FIXTURE / "data_complete.json"))[:20]
+    multi = serve_dp_predictors[SERVE_DP]
+    assert multi.replicas == [torch.device("cpu")] * SERVE_DP
+    want = serve_dp_predictors[None].predict(records)
+    calls = []
+    features = serving.ScoringProgram.features
+
+    def counted(self, x):
+        calls.append(int(x["text_ids"].shape[0]))
+        return features(self, x)
+
+    monkeypatch.setattr(serving.ScoringProgram, "features", counted)
+    assert multi.predict(records) == want
+    assert calls == [16, 16]
+
+
+def test_serve_dp_moe_rows_match_jax_serve_dp(serve_dp_predictors, moe_dirs):
+    """The JAX Predictor at serve_dp=2 on the conftest's virtual CPU devices
+    routes the whole bucket as one device does; the port's serve_dp=2 rows,
+    its routes held to the JAX tower's, agree with it within 1e-4."""
+    from ultrafnd_git_tpu.serving import Predictor as JaxPredictor
+
+    assert len(jax.devices()) >= SERVE_DP
+    records = load_records(str(FIXTURE / "data_complete.json"))[:20]
+    jp = JaxPredictor(moe_dirs[0], batch_size=16, serve_dp=SERVE_DP)
+    ref = jp.predict(records)
+    rows = _predict_holding_routes(serve_dp_predictors[SERVE_DP], jp, records)
+    assert [r["id"] for r in rows] == [r["id"] for r in ref]
+    for key in KEYS:
+        np.testing.assert_allclose([r[key] for r in rows], [r[key] for r in ref],
+                                   atol=ATOL, rtol=0, err_msg=key)
+
+
+def test_serve_dp_moe_explain_takes_the_same_route(serve_dp_predictors):
+    records = load_records(str(FIXTURE / "data_complete.json"))[:4]
+    want = serve_dp_predictors[None].explain(records, method="grad")
+    assert serve_dp_predictors[SERVE_DP].explain(records, method="grad") == want
 
 
 def test_int8_quantizes_the_jax_leaves_of_a_moe_ffn_router_included():

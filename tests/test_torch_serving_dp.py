@@ -10,8 +10,9 @@ single Predictor's within 1e-6
 does not divide) are scored whole, equal to the single Predictor's. The
 JAX Predictor with serve_dp=8 on the conftest's 8 virtual CPU devices
 agrees within 1e-4 in prob_fake. explain() takes the same split. On CUDA,
-fewer cards than serve_dp raise JAX's ValueError; a switch-MoE tower is
-refused; the --serve_dp flags of predict and serve.
+fewer cards than serve_dp raise JAX's ValueError; the --serve_dp flags of
+predict and serve. A switch-MoE tower at serve_dp is held to the single
+and the JAX Predictor in tests/test_torch_moe_serving.py.
 """
 import importlib.util
 import json
@@ -135,13 +136,6 @@ def test_serve_dp_rejects_oversubscription(exported, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="serve_dp=2 but only 1 device\\(s\\) visible"):
         Predictor(exported, batch_size=8, serve_dp=2)
-
-
-def test_serve_dp_refuses_a_moe_tower(tmp_path):
-    (tmp_path / "meta.json").write_text(json.dumps(
-        {"trainer": "v2", "cfg": {}, "text_tower": {"moe_experts": 4}}))
-    with pytest.raises(ValueError, match="switch-MoE tower"):
-        Predictor(str(tmp_path), device="cpu", serve_dp=2)
 
 
 def test_serve_dp_cli_flags(exported, predictors, tmp_path, monkeypatch):

@@ -1,15 +1,19 @@
-"""OCR token sets of records (the nodes' keys in the Jaccard graph).
+"""OCR token sets of records (the nodes' keys in the Jaccard graph) and the
+OCR phrase pickle.
 
-The port's copy of `ultrafnd_git_tpu/data/ocr.py`, reduced to
-`ocr_sets_for_records` and its helpers: the regex tokenizer of the OCR
-phrase pickle (`[\\w一-龥]+`, tokens of length >= 2), the trainer's
-whitespace tokenizer, and the pickle reader
-({"phrase_sets": {vid: set}, "freqs": {vid: {tok: n}}}).
+The port's copy of `ultrafnd_git_tpu/data/ocr.py`: the regex tokenizer of
+the phrase pickle (`[\\w一-龥]+`, tokens of length >= 2), the trainer's
+whitespace tokenizer, the pickle's builder, writer and reader
+({"phrase_sets": {vid: set}, "freqs": {vid: {tok: n}}};
+`generate_ocr_phrase_features.py` is its CLI), and `ocr_sets_for_records`,
+which prefers the pickle's sets where it has the record.
 """
 from __future__ import annotations
 
 import pickle
 import re
+from collections import Counter
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Set
 
 _TOKEN_RE = re.compile(r"[\w一-龥]+")
@@ -28,6 +32,25 @@ def whitespace_tokens(text: str) -> Set[str]:
         if len(tok) >= 2:
             out.add(tok)
     return out
+
+
+def build_phrase_features(records: Sequence[Dict]) -> Dict[str, Dict]:
+    """The phrase-feature structure keyed by video id: each record's regex
+    token set and token counts."""
+    phrase_sets: Dict[str, Set[str]] = {}
+    freqs: Dict[str, Dict[str, int]] = {}
+    for i, rec in enumerate(records):
+        vid = rec.get("video_id") or rec.get("id") or f"rec_{i}"
+        toks = clean_tokens(rec.get("ocr") or "")
+        phrase_sets[vid] = set(toks)
+        freqs[vid] = dict(Counter(toks))
+    return {"phrase_sets": phrase_sets, "freqs": freqs}
+
+
+def save_phrase_features(features: Dict, path: str) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as fh:
+        pickle.dump(features, fh)
 
 
 def load_phrase_features(path: str) -> Optional[Dict]:

@@ -79,9 +79,12 @@ the rows equal a single Predictor's up to the rounding of the smaller
 products. explain() takes the same split. On `device="cpu"` the N replicas
 are the CPU, and the blocks run in turn (the counterpart of the JAX
 tests' virtual CPU devices); the CPU has no oversubscription error. A
-switch-MoE tower is refused under serve_dp > 1: its capacity couples the
-rows of a call, so a row block would route otherwise than the bucket.
-`ExportedPredictor` keeps no serve_dp, as in JAX.
+switch-MoE tower gets no row split: every bucket is scored whole on
+replica 0. Its capacity (`ceil(T * cf / E)`, T the call's tokens) and its
+slot order couple the rows of a call, and JAX's sharded program computes
+both over the whole bucket, so a row block would route otherwise than
+JAX and the single Predictor do; whole, the rows are the single
+Predictor's. `ExportedPredictor` keeps no serve_dp, as in JAX.
 """
 from __future__ import annotations
 
@@ -374,10 +377,8 @@ class Predictor:
                 self.meta = json.load(fh)
             weights = None
         check_trainer_kind(self.meta.get("trainer", "v2"))
-        if n_dp > 1 and int((self.meta.get("text_tower") or {}).get("moe_experts", 0)) > 0:
-            raise ValueError(f"serve_dp={serve_dp}: a switch-MoE tower's capacity couples the "
-                             "rows of a call, so its rows cannot be split over replicas; "
-                             "serve it with serve_dp=1")
+        # a switch-MoE tower routes over the whole call: no row split
+        self._row_split = int((self.meta.get("text_tower") or {}).get("moe_experts", 0)) == 0
         cfg = self.meta["cfg"]
         self.use_evidence = bool(cfg.get("use_evidence", False))
         self.use_gnn = bool(self.meta["fusion"]["use_gnn"])
@@ -711,22 +712,26 @@ class Predictor:
         first, whose inputs are all uploaded before (a pageable copy queued
         behind the tower would wait for it). Under serve_dp a bucket that
         the replicas divide is cut into one row block each (stage one
-        queued on every replica first), else scored whole on replica 0;
-        the outputs come back on the Predictor's device."""
+        queued on every replica first), else, or on a switch-MoE tower,
+        scored whole by the Predictor's own program (replica 0); the
+        outputs come back on the Predictor's device."""
         n = len(self.replicas)
-        programs = self._replica_programs(fused)
         bucket = self._bucket(count)
-        blocks = n if bucket % n == 0 else 1
+        blocks = n if self._row_split and bucket % n == 0 else 1
+        if blocks > 1:
+            programs, devices = self._replica_programs(fused), self.replicas
+        else:
+            programs, devices = [self._program(fused)], [self.device]
         per = bucket // blocks
         take = self._bucket_take(count)
         cuts = [slice(i * per, (i + 1) * per) for i in range(blocks)]
         feats_in = self._feature_inputs(feats, count, fused, take)
-        xs = [self._upload(feats_in, self.replicas[i], cut) for i, cut in enumerate(cuts)]
+        xs = [self._upload(feats_in, devices[i], cut) for i, cut in enumerate(cuts)]
         stages = [programs[i].features(x) for i, x in enumerate(xs)]
         graph = self._graph_inputs(feats, count, self.sparse_graph, take)
         outs = []
         for i, (x, stage) in enumerate(zip(xs, stages)):
-            x.update(self._upload(graph, self.replicas[i], cuts[i]))
+            x.update(self._upload(graph, devices[i], cuts[i]))
             outs.append([t.to(self.device) for t in programs[i].score(*stage, x)])
         if blocks == 1:
             return tuple(outs[0])

@@ -17,6 +17,13 @@ map to the port's twins, whose modules carry HF's key names
 `clip_text_state_dict`; an HF `state_dict()` loads into them directly). The
 caller converts arrays to numpy.
 
+A reference `best.pt` (`torch.save({"fusion", "clf", "gnn" | None, "cfg"})`,
+the layout of the reference's v2 trainer) maps to and from the state dicts
+of the port's own trainer, whose fusion, classifier and GCN modules carry
+the reference keys: `port_state_dicts_from_best_pt` and
+`best_pt_from_port_state_dicts`, which the `import_reference` and
+`export_reference` CLIs run.
+
 A model directory holds `weights.pt` ({part: state_dict}, loadable with
 `torch.load(..., weights_only=True)`), `meta.json` (the checkpoint cfg
 plus resolved module dims; a tower's record `moe_experts` and
@@ -39,6 +46,9 @@ import torch
 from ultrafnd_git_tpu_torch.data.cache import load_align
 
 StateDict = Dict[str, np.ndarray]
+# the reference fusion's semantic analyzer projections: CLIP-width constants
+# (512 x 512 whatever the fusion's width), which no fusion forward reads
+SEMANTIC_PROJ = ("semantic.text_proj.0", "semantic.vision_proj.0")
 
 
 def _f32(x: Any) -> np.ndarray:
@@ -70,15 +80,19 @@ def fusion_state_dict_from_params(params: Mapping[str, Any]) -> StateDict:
         _dense(out, name, params[name])
     if "gnn_proj" in params:
         _dense(out, "gnn_proj", params["gnn_proj"])
-    for name in ("semantic.text_proj.0", "semantic.vision_proj.0"):
-        out[f"{name}.weight"] = np.zeros((512, 512), dtype=np.float32)
-        out[f"{name}.bias"] = np.zeros((512,), dtype=np.float32)
+    _semantic_zeros(out)
     for name in ("attn_tv", "attn_ta", "attn_vu"):
         _coattn(out, name, params[name])
     _dense(out, "fuse_mlp.0", params["fuse0"])
     _dense(out, "fuse_mlp.3", params["fuse1"])
     _dense(out, "classifier", params["head"])
     return out
+
+
+def _semantic_zeros(out: StateDict) -> None:
+    for name in SEMANTIC_PROJ:
+        out[f"{name}.weight"] = np.zeros((512, 512), dtype=np.float32)
+        out[f"{name}.bias"] = np.zeros((512,), dtype=np.float32)
 
 
 def classifier_state_dict_from_params(params: Mapping[str, Any], tau: float = 10.0) -> StateDict:
@@ -274,6 +288,50 @@ def clip_text_state_dict(params: Mapping[str, Any]) -> StateDict:
     _layer_norm(out, "final_layer_norm", params["final_ln"])
     out["text_projection.weight"] = _f32(np.asarray(params["text_projection"]["kernel"]).T)
     return out
+
+
+def port_state_dicts_from_best_pt(payload: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """A reference `best.pt` payload -> the port's {"fusion", "clf",
+    ["gnn"]} state dicts, tensors as they are. The fusion loses its
+    zero-filled `semantic.{text,vision}_proj.0.*` entries and nothing else,
+    so a strict load into the port's modules checks every other key and
+    shape. No "gnn" when the payload's is None (use_gnn=False) or absent.
+    The classifier keeps the file's `node.trees.{t}.tau`; the forest
+    computes with its config's node_tau, as the JAX package's
+    (`v2_params_from_best_pt` reads no tau)."""
+    semantic = tuple(f"{name}." for name in SEMANTIC_PROJ)
+    out = {
+        "fusion": {k: torch.as_tensor(v) for k, v in payload["fusion"].items()
+                   if not k.startswith(semantic)},
+        "clf": {k: torch.as_tensor(v) for k, v in payload["clf"].items()},
+    }
+    if payload.get("gnn") is not None:
+        out["gnn"] = {k: torch.as_tensor(v) for k, v in payload["gnn"].items()}
+    return out
+
+
+def best_pt_from_port_state_dicts(
+    state_dicts: Mapping[str, Mapping[str, Any]], node_tau: float
+) -> Dict[str, Optional[Dict[str, torch.Tensor]]]:
+    """The port's {"fusion", "clf", ["gnn"]} state dicts -> the reference
+    `best.pt` trio {"fusion", "clf", "gnn" | None}: the fusion with the
+    zero-filled `semantic.*` 512 x 512 entries the reference's strict
+    loader needs; every `node.trees.{t}.tau` set to `node_tau`, 0-d;
+    "gnn" None without a GCN, as the reference writes under use_gnn=False.
+    The caller adds "cfg"."""
+    def tensors(sd):
+        return {k: torch.as_tensor(v).detach().cpu().contiguous() for k, v in sd.items()}
+
+    semantic: StateDict = {}
+    _semantic_zeros(semantic)
+    fusion = {**tensors(state_dicts["fusion"]),
+              **{k: torch.from_numpy(v) for k, v in semantic.items()}}
+    clf = tensors(state_dicts["clf"])
+    for k in clf:
+        if k.startswith("node.trees.") and k.endswith(".tau"):
+            clf[k] = torch.tensor(float(node_tau), dtype=torch.float32)
+    gnn = state_dicts.get("gnn")
+    return {"fusion": fusion, "clf": clf, "gnn": None if gnn is None else tensors(gnn)}
 
 
 def fusion_state_dict(params: Mapping[str, Any]) -> StateDict:
