@@ -1,0 +1,7 @@
+"""mfu.train: model FLOPs (flops/<config>.py) of the window's steps over
+its wall time, against the configuration's peak (peaks.py), in %."""
+from portbench.readers import mfu
+
+
+def read(rec):
+    return mfu(rec)
