@@ -286,9 +286,9 @@ def test_fused_adamw_kernel_is_bit_identical_to_plain(cuda):
 
 def test_fused_adamw_odd_unaligned_and_fresh_leaves(cuda):
     """Leaves of 1, 3, 4 and 4097 elements (scalar tails), one whose p, m and
-    v are offset views (not 16-byte aligned: the kernel's scalar path, which
-    the wrapper counts), and grads that are fresh tensors each step (the
-    pointer table is sent again): bit-identical to the plain update."""
+    v are offset views (not 16-byte aligned: the kernel's scalar path), and
+    grads that are fresh tensors each step (the pointer table is built and
+    sent again each step): bit-identical to the plain update."""
     g = torch.Generator().manual_seed(1)
     sizes = [1, 3, 4, 4097, 70001]
     whole = [torch.randn(70002, generator=g).to(cuda), torch.zeros(70002, device=cuda),
@@ -300,7 +300,7 @@ def test_fused_adamw_odd_unaligned_and_fresh_leaves(cuda):
     ]
     plain = [[t.clone() for t in col] for col in fused]
     opt = aw.AdamW(lambda count: 2e-4 * 0.5 ** count, 1e-4, 5.0)
-    before, unaligned = aw.launches, aw.scalar_leaves
+    before, builds = aw.launches, aw.table_builds
     for step in range(3):
         grads = [torch.randn(p.shape, generator=g).to(cuda) * (1e-3 + step) for p in plain[0]]
         scal = opt.scalars({"a": dict(enumerate(grads))}, step)
@@ -309,11 +309,33 @@ def test_fused_adamw_odd_unaligned_and_fresh_leaves(cuda):
             aw.adamw_reference_(p, m, v, gr, scal)
     torch.cuda.synchronize()
     assert aw.launches == before + 3
-    assert aw.scalar_leaves == unaligned + 3  # the offset leaf, once a step
+    assert aw.table_builds == builds + 3  # each step's grads are new tensors
     for col_f, col_p in zip(fused, plain):
         for i, (a, b) in enumerate(zip(col_f, col_p)):
             assert torch.equal(a, b), i
     assert torch.equal(whole[0][1:], plain[0][-1])  # updated in place through the view
+
+
+def test_fused_adamw_builds_its_table_only_when_a_pointer_moves(cuda):
+    """Two K1 updates of the same leaves build and send the pointer table
+    once; new gradient tensors build it once more (leaf sizes no other
+    test uses, so the first call cannot find its table already built)."""
+    g = torch.Generator().manual_seed(2)
+    sizes = [12345, 777]
+    p, m, v = ([torch.randn(n, generator=g).to(cuda) for n in sizes],
+               [torch.zeros(n, device=cuda) for n in sizes],
+               [torch.zeros(n, device=cuda) for n in sizes])
+    grads = [torch.randn(n, generator=g).to(cuda) for n in sizes]
+    opt = aw.AdamW(lambda count: 1e-3, 1e-4, 1.0)
+    scal = opt.scalars({"a": dict(enumerate(grads))}, 0)
+    builds, before = aw.table_builds, aw.launches
+    aw.fused_adamw_(list(zip(p, m, v, grads)), scal)
+    aw.fused_adamw_(list(zip(p, m, v, grads)), scal)
+    assert aw.table_builds == builds + 1
+    fresh = [t.clone() for t in grads]  # new tensors while the old are alive
+    aw.fused_adamw_(list(zip(p, m, v, fresh)), scal)
+    torch.cuda.synchronize()
+    assert aw.table_builds == builds + 2 and aw.launches == before + 3
 
 
 def test_tower_backward_on_gpu_matches_cpu(cuda):

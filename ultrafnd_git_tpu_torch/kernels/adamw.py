@@ -14,13 +14,12 @@ tensors runs as ONE multi-tensor launch of `csrc/adamw.cu` per step over
 every trainable leaf (a device table of p, m, v, g pointers), p, m and v
 updated in place, bit-identical to `AdamW` on the same grads. On CPU
 tensors it runs `adamw_reference_` per leaf. `launches` counts K1 launches
-and nothing else; `scalar_leaves` counts the leaves that a launch sent down
-the kernel's scalar path (some pointer of the leaf not 16-byte aligned).
-The device table (a row per leaf, then an entry per 4096-element block
-naming its leaf and chunk) is kept on the device and sent again only when a
-pointer moves; it and the host scalars reach the device through pinned
-buffers and asynchronous copies, so a step enqueues K1 without waiting for
-its backward to finish.
+and nothing else. The device table (a row per leaf, then an entry per
+4096-element block naming its leaf and chunk) is kept on the device and
+sent again only when a pointer moves; `table_builds` counts those sends.
+It and the host scalars reach the device through pinned buffers and
+asynchronous copies, so a step enqueues K1 without waiting for its backward
+to finish.
 
 Both keep their state as {"count": int, "mu": {part: {name: tensor}},
 "nu": ...} over the trainer's parameter dict {part: nn.Module}; parts named
@@ -47,9 +46,10 @@ from torch import nn
 from ultrafnd_git_tpu_torch.kernels import _build
 from ultrafnd_git_tpu_torch.parallel.collectives import Shard, all_reduce_
 from ultrafnd_git_tpu_torch.utils.device import to_device
+from ultrafnd_git_tpu_torch.utils.spans import span
 
 launches = 0  # K1 launches since import (or since a caller reset it)
-scalar_leaves = 0  # leaves a launch sent down the scalar (unaligned) path
+table_builds = 0  # device tables built and sent (a leaf's pointer moved)
 _lib = None
 _table = (None, None)  # ((device, rows), (device table, blocks)) of the last launch
 
@@ -180,8 +180,10 @@ class AdamW:
     @torch.no_grad()
     def apply(self, params: Dict[str, nn.Module], state, grads: Tensors):
         """One optimizer step in place on params and state; returns state."""
-        scal = self.scalars(grads, state["count"])
-        self._update(self._leaves(params, state, grads), scal)
+        with span("optimizer.norm"):
+            scal = self.scalars(grads, state["count"])
+        with span("optimizer.k1"):
+            self._update(self._leaves(params, state, grads), scal)
         state["count"] += 1
         return state
 
@@ -235,11 +237,12 @@ def fused_adamw_(leaves: List[Tuple[torch.Tensor, ...]], scal: torch.Tensor) -> 
                 )
         ptrs = [t.data_ptr() for t in leaf]
         rows += (*ptrs, n, int(all(x % 16 == 0 for x in ptrs)))
-    global _table, launches, scalar_leaves
+    global _table, launches, table_builds
     if _table[0] != (dev, rows):  # p, m, v never move; grads mostly come back in place
         blocks = block_entries(rows[4::6], chunk)
         host = torch.from_numpy(np.concatenate([np.array(rows, dtype=np.int64), blocks]))
         _table = ((dev, rows), (to_device(host, dev), len(blocks)))
+        table_builds += 1
     table, n_blocks = _table[1]
     with torch.cuda.device(dev):
         err = fn(table.data_ptr(), len(leaves), n_blocks, scal.data_ptr(),
@@ -247,7 +250,6 @@ def fused_adamw_(leaves: List[Tuple[torch.Tensor, ...]], scal: torch.Tensor) -> 
     if err != 0:
         raise RuntimeError(f"AdamW kernel launch failed: cudaError {err}")
     launches += 1
-    scalar_leaves += len(leaves) - sum(rows[5::6])
 
 
 class FusedAdamW(AdamW):

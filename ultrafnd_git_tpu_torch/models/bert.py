@@ -18,7 +18,9 @@ device, to hold the kernel against it.
 (`bert_flax.py:181-271`): the host tokenizer, then the encoder in chunks
 padded to power-of-two (batch, sequence) buckets, the last hidden state
 mean-pooled under the mask, fit to `dim` (truncated or zero-padded) and
-L2-normalised (+1e-9).
+L2-normalised (+1e-9). `encode_ids` is one `encode.request` span, each
+chunk its pad, upload, forward, pool and download spans, then
+`encode.finish` (`utils/spans.py`).
 
 The JAX twin runs K2 on the TPU in its default `mm_dtype=bfloat16`; this
 one runs it in f32, as the JAX twin's CPU path and the HF forward do
@@ -40,6 +42,7 @@ from ultrafnd_git_tpu_torch.kernels.flash_attention import (
     reference_attention,
 )
 from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
+from ultrafnd_git_tpu_torch.utils.spans import span
 
 Attend = Callable[..., torch.Tensor]
 
@@ -294,25 +297,34 @@ class DeviceBertEncoder:
         """One chunk, padded to its (batch, sequence) bucket: (n, width)
         rows of the mean of the last hidden state under the mask."""
         n = ids.shape[0]
-        sb = seq_bucket(ids.shape[1], self.max_length)
-        bb = seq_bucket(n, self.batch_size)
-        ids_t = to_device(torch.from_numpy(pad_to(ids, bb, sb)), self.device)
-        mask_t = to_device(torch.from_numpy(pad_to(mask, bb, sb)), self.device)
-        hidden = self.module(ids_t, mask_t)
-        m = mask_t[..., None]
-        rep = (hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6)
-        return rep[:n].cpu().numpy()
+        with span("encode.pad"):
+            sb = seq_bucket(ids.shape[1], self.max_length)
+            bb = seq_bucket(n, self.batch_size)
+            ids_p, mask_p = pad_to(ids, bb, sb), pad_to(mask, bb, sb)
+        with span("encode.upload"):
+            ids_t = to_device(torch.from_numpy(ids_p), self.device)
+            mask_t = to_device(torch.from_numpy(mask_p), self.device)
+        with span("encode.forward"):
+            hidden = self.module(ids_t, mask_t)
+        with span("encode.pool"):
+            m = mask_t[..., None]
+            rep = (hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6)
+        with span("encode.download"):
+            return rep[:n].cpu().numpy()
 
     def _finish(self, outs: List[np.ndarray]) -> np.ndarray:
-        if not outs:
-            return np.zeros((0, self.dim), np.float32)
-        return l2_rows(fit_dim(np.concatenate(outs, axis=0), self.dim))
+        with span("encode.finish"):
+            if not outs:
+                return np.zeros((0, self.dim), np.float32)
+            return l2_rows(fit_dim(np.concatenate(outs, axis=0), self.dim))
 
     def encode_ids(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """Token ids (N, L) and their 1/0 mask -> (N, dim), in chunks of
         `batch_size` (L at most `max_length`)."""
-        return self._finish([self._pooled(ids[s:s + self.batch_size], mask[s:s + self.batch_size])
-                             for s in range(0, len(ids), self.batch_size)])
+        with span("encode.request"):
+            return self._finish([
+                self._pooled(ids[s:s + self.batch_size], mask[s:s + self.batch_size])
+                for s in range(0, len(ids), self.batch_size)])
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
         """Strings -> (N, dim): tokenized a chunk at a time."""

@@ -139,7 +139,8 @@ def parse_args(argv=None):
                         "and shuffle stream). 0 = per-epoch only")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="Write a torch.profiler trace of fit() here "
-                        "(fit.trace.json, Chrome trace format)")
+                        "(fit.trace.json, Chrome trace format), with the "
+                        "program's spans on a track of their own")
     p.add_argument("--debug_nans", action="store_true",
                    help="Raise FloatingPointError at the first step whose "
                         "loss, outputs or gradients hold a NaN (autograd "

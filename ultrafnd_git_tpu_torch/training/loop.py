@@ -19,6 +19,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from ultrafnd_git_tpu_torch.training import checkpoint as ckpt
+from ultrafnd_git_tpu_torch.utils import spans
 
 
 def np_random_state_payload() -> list:
@@ -148,9 +149,11 @@ def log_jsonl(out_dir: str, enabled: bool, record: Dict[str, Any]) -> None:
 def profiler_trace(profile_dir: Optional[str], device):
     """Bracket a fit loop with torch.profiler when `profile_dir` is set
     (JAX `training/loop.py:215-225`): host activity, and the device's
-    kernels when `device` is a CUDA device. On exit (a failed fit's too)
-    the trace goes to `<profile_dir>/fit.trace.json`, in Chrome's trace
-    format (chrome://tracing, Perfetto)."""
+    kernels when `device` is a CUDA device, with the program's spans
+    (`utils/spans.py`) recorded over the same block. On exit (a failed
+    fit's too) the trace goes to `<profile_dir>/fit.trace.json`, in
+    Chrome's trace format (chrome://tracing, Perfetto), the spans on a
+    track of their own (`program spans`, on the profiler's clock)."""
     if not profile_dir:
         yield
         return
@@ -162,11 +165,33 @@ def profiler_trace(profile_dir: Optional[str], device):
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
     prof = profile(activities=activities)
-    prof.start()
-    try:
-        yield
-    finally:  # a failed fit keeps its trace, as jax.profiler's stop_trace
-        prof.stop()
-        path = out / "fit.trace.json"
-        prof.export_chrome_trace(str(path))
-        print(f"profiler trace: {path}")
+    with spans.recording() as rec:
+        prof.start()
+        try:
+            yield
+        finally:  # a failed fit keeps its trace, as jax.profiler's stop_trace
+            prof.stop()
+            path = out / "fit.trace.json"
+            prof.export_chrome_trace(str(path))
+            _add_span_track(path, rec)
+            print(f"profiler trace: {path}")
+
+
+def _add_span_track(path: Path, rec: "spans.Recording") -> None:
+    """Append `rec`'s spans to the Chrome trace at `path`, as complete
+    events on a thread of their own (tid 0) of this process, on the
+    trace's clock (kineto's Unix-epoch microseconds less the trace's
+    `baseTimeNanoseconds`)."""
+    with open(path, "r", encoding="utf-8") as fh:
+        trace = json.load(fh)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    events = trace.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": 0,
+                   "args": {"name": "program spans"}})
+    for name, sid, parent, root, start, end in rec.on_epoch_clock():
+        events.append({"ph": "X", "cat": "program_span", "name": name, "pid": pid, "tid": 0,
+                       "ts": (start - base) / 1e3, "dur": (end - start) / 1e3,
+                       "args": {"id": sid, "parent": parent, "root": root}})
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(trace, fh)

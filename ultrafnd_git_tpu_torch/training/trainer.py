@@ -68,7 +68,9 @@ the dropout masks drawn before it, so the bits do not move);
 of an epoch but its last, with the JAX meta (`in_epoch`, `step_cursor`,
 `epoch_order`, `np_random_state`), and `--resume` re-enters that epoch at
 the cursor in the saved order, bit for bit the uninterrupted run;
-`profile_dir` writes a torch.profiler trace of `fit()`; `debug_nans`
+`profile_dir` writes a torch.profiler trace of `fit()` with the program's
+spans (`utils/spans.py`: the step's upload, forward by stage, backward and
+optimizer) as a track of their own; `debug_nans`
 raises FloatingPointError at the first step whose loss, outputs or
 gradients hold a NaN.
 
@@ -153,6 +155,7 @@ from ultrafnd_git_tpu_torch.training.metrics import aggregate_epoch_metrics, pre
 from ultrafnd_git_tpu_torch.training.state import TrainState, make_optimizer
 from ultrafnd_git_tpu_torch.utils.config import classifier_config, fusion_config
 from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
+from ultrafnd_git_tpu_torch.utils.spans import span
 
 GNN_DROPOUT = 0.2
 CACHE_SOURCES = ("injected", "out_dir", "model_dir", "data_root")
@@ -596,48 +599,56 @@ class ForensicTrainer:
             return rows[key] if rows is not None and key in rows else c[key][idx]
 
         moe_aux = None
-        if "text_tower" in params and self._sp is not None:
-            text = sequence_parallel_tower_apply(params["text_tower"], get("text_ids"),
-                                                 get("text_mask"), self._sp, gen)
-        elif "text_tower" in params and self._pipe is not None:
-            text = pipelined_tower_apply(params["text_tower"], get("text_ids"), get("text_mask"),
-                                         self._pipe, cfg.pp_microbatches, self._data, gen)
-        elif "text_tower" in params:
-            text = params["text_tower"](get("text_ids"), get("text_mask"), gen,
-                                        return_aux=cfg.moe_experts > 0)
-            if cfg.moe_experts > 0:
-                text, moe_aux = text
-        else:
-            text = get("text")
-        feats = {
-            "text_features": text,
-            "audio_features": get("audio"),
-            "visual_features": get("visual"),
-            "temporal_features": get("temporal"),
-        }
-        if "evidence" in c:
-            feats["evidence"] = get("evidence")
+        with span("forward.text_tower"):
+            if "text_tower" in params and self._sp is not None:
+                text = sequence_parallel_tower_apply(params["text_tower"], get("text_ids"),
+                                                     get("text_mask"), self._sp, gen)
+            elif "text_tower" in params and self._pipe is not None:
+                text = pipelined_tower_apply(params["text_tower"], get("text_ids"),
+                                             get("text_mask"), self._pipe, cfg.pp_microbatches,
+                                             self._data, gen)
+            elif "text_tower" in params:
+                text = params["text_tower"](get("text_ids"), get("text_mask"), gen,
+                                            return_aux=cfg.moe_experts > 0)
+                if cfg.moe_experts > 0:
+                    text, moe_aux = text
+            else:
+                text = get("text")
+        gnn_feat = None
         if cfg.use_gnn:
             # the corpus hidden is not split by batch rows: the plain generator
             g = gen.gen if isinstance(gen, ShardedGenerator) else gen
             # frozen-GNN mode: no backward through the graph channel
-            with nullcontext() if cfg.train_gnn else torch.no_grad():
+            with span("forward.gnn"), nullcontext() if cfg.train_gnn else torch.no_grad():
                 if cfg.sparse_graph:
-                    feats["gnn_feat"] = params["gnn"].propagate_sparse(
+                    gnn_feat = params["gnn"].propagate_sparse(
                         get("nbr_idx"), get("nbr_w"), c["ax"], g)
                 else:
-                    feats["gnn_feat"] = params["gnn"].propagate(get("a_norm"), c["ax"], g)
-        fo = params["fusion"](feats, gen)
-        co = params["clf"](fo["fused"], get("aux"), gen)
-        # the logits are f32 under bf16_compute too (the forest and bypass
-        # stay f32), as optax's CE takes them (trainer.py:909)
-        ce = F.cross_entropy(co["logits"], get("labels"), reduction="none")
-        if moe_aux is not None:
-            ce = ce + cfg.moe_aux_weight * moe_aux
-        f = fo["forensic"]
-        forensic = torch.stack(
-            [f["semantic_conflict"], f["temporal_delay"], f["emotion_intensity"]]
-        )
+                    gnn_feat = params["gnn"].propagate(get("a_norm"), c["ax"], g)
+        with span("forward.fusion"):
+            feats = {
+                "text_features": text,
+                "audio_features": get("audio"),
+                "visual_features": get("visual"),
+                "temporal_features": get("temporal"),
+            }
+            if "evidence" in c:
+                feats["evidence"] = get("evidence")
+            if gnn_feat is not None:
+                feats["gnn_feat"] = gnn_feat
+            fo = params["fusion"](feats, gen)
+        with span("forward.classifier"):
+            co = params["clf"](fo["fused"], get("aux"), gen)
+        with span("forward.loss"):
+            # the logits are f32 under bf16_compute too (the forest and bypass
+            # stay f32), as optax's CE takes them (trainer.py:909)
+            ce = F.cross_entropy(co["logits"], get("labels"), reduction="none")
+            if moe_aux is not None:
+                ce = ce + cfg.moe_aux_weight * moe_aux
+            f = fo["forensic"]
+            forensic = torch.stack(
+                [f["semantic_conflict"], f["temporal_delay"], f["emotion_intensity"]]
+            )
         return ce, co["probs"][:, 1], forensic
 
     def trainable(self) -> Dict[str, nn.Module]:
@@ -708,10 +719,12 @@ class ForensicTrainer:
         mgen = self._mesh_gen(gen)
         for i, m in zip(idx.view(accum, -1), mask.view(accum, -1)):
             rows = self._split_rows(i)
-            ce, p1, f = self._forward(params, self._local(i), mgen, rows)
-            ls = (ce * self._local(m)).sum()
+            with span("train.forward"):
+                ce, p1, f = self._forward(params, self._local(i), mgen, rows)
+                ls = (ce * self._local(m)).sum()
             try:
-                with torch.autograd.detect_anomaly(check_nan=True) if debug else nullcontext():
+                with span("train.backward"), \
+                        torch.autograd.detect_anomaly(check_nan=True) if debug else nullcontext():
                     (ls / denom if accum == 1 else ls).backward()
             except RuntimeError as exc:
                 if debug and "nan" in str(exc):
@@ -738,11 +751,14 @@ class ForensicTrainer:
     def train_step(self, idx: np.ndarray, mask: np.ndarray):
         """One optimizer step on corpus rows `idx`; (loss, p_fake, forensic)
         (on a mesh: this rank's share of the loss and its rows' outputs)."""
-        i = to_device(torch.as_tensor(idx), self.device, torch.int64)
-        m = to_device(torch.as_tensor(mask), self.device, torch.float32)
-        loss, grads, (p1, forensic) = self.grads_of(i, m, self.state.gen)
-        self.tx.apply(self.trainable(), self.state.opt_state, grads)
-        self.state.step += 1
+        with span("train.step"):
+            with span("train.upload"):
+                i = to_device(torch.as_tensor(idx), self.device, torch.int64)
+                m = to_device(torch.as_tensor(mask), self.device, torch.float32)
+            loss, grads, (p1, forensic) = self.grads_of(i, m, self.state.gen)
+            with span("train.optimizer"):
+                self.tx.apply(self.trainable(), self.state.opt_state, grads)
+            self.state.step += 1
         return loss, p1, forensic
 
     @torch.inference_mode()
