@@ -71,8 +71,9 @@ Imports nothing of JAX. Phases, one line each; any failure exits non-zero:
      of CLIP ViT-B/32's text tower, 256 rows at S = 256 and 64;
      `predict_ids` of the DistilRoBERTa emotion classifier, 256 x 256;
      `encode_batch` of wav2vec2-base-960h, 16 waveforms of 80,000 samples)
-     with the launches counted (K2 = layers a chunk, CLIP 0), finite
-     output of its shape (unit rows, probabilities summing to 1), within
+     with the launches counted (K2 = layers a chunk, the BERT rung's chunks
+     planned by length; CLIP 0), finite output of its shape (unit rows,
+     probabilities summing to 1), within
      1e-4 of its largest value of the same module with the plain
      attention; the chunk's median wall ms over 5, its device ms by
      torch.profiler, K2's and the GEMMs' shares, the idle share;
@@ -1330,10 +1331,13 @@ def phase_hf_twins(dev):
             return getattr(twin, entry)(*inputs)
 
         _reset_counts()  # this twin's main-path chunk only
+        planned = bert.encode_chunks
         got = chunk()
         counted = _launch_counts()
         depth = cfg["num_hidden_layers"]
-        expect = {"fwd": 0 if kind == "clip" else depth, "fwd_bf16": 0, "bwd": 0,
+        # the BERT rung plans its own chunks by length (models/bert.plan_chunks)
+        chunks = bert.encode_chunks - planned if kind == "bert" else 1
+        expect = {"fwd": 0 if kind == "clip" else depth * chunks, "fwd_bf16": 0, "bwd": 0,
                   "bwd_bf16": 0, "adamw": 0}
         if counted != expect:
             raise RuntimeError(f"hf_twins {kind}: launches {counted}, expected {expect}")
@@ -1369,7 +1373,8 @@ def phase_hf_twins(dev):
                 raise RuntimeError(f"hf_twins {kind}: K2 vs the plain attention {plain_rel} "
                                    f"of the largest value (bound {HF_TWIN_REL})")
         chunk_ms = statistics.median(walls)
-        twins[kind] = {"params": params, "rows": rows, "launches_a_chunk": counted["fwd"],
+        twins[kind] = {"params": params, "rows": rows, "chunks": chunks,
+                       "launches_a_chunk": counted["fwd"] // chunks,
                        "chunk_ms": chunk_ms, "chunk_ms_range": [min(walls), max(walls)],
                        "chunk_device_ms": device_ms, "chunk_k2_ms": k2_ms,
                        "k2_share": k2_ms / device_ms if device_ms else None,

@@ -8,7 +8,9 @@ Hermetic, as `tests/test_bert_flax.py`: a small randomly initialised
 `utils/transfer.bert_state_dict`. On the CPU the port's attention is K2's
 plain version and the Flax twin's the XLA reference: both exact f32.
 
-Tolerance: hidden states and encodings 1e-4 (the JAX test's).
+Tolerance: hidden states and encodings 1e-4 (the JAX test's); the planned
+chunks against the whole request in one power-of-two bucket 1e-6 (f32
+round-off of GEMMs at another M).
 """
 import os
 
@@ -24,10 +26,13 @@ import jax.numpy as jnp  # noqa: E402
 from ultrafnd_git_tpu.models.bert_flax import BertEncoderFlax  # noqa: E402
 from ultrafnd_git_tpu.models.bert_flax import DeviceBertEncoder as JaxDeviceBert  # noqa: E402
 from ultrafnd_git_tpu.models.bert_flax import torch_bert_to_flax_params  # noqa: E402
+from ultrafnd_git_tpu_torch.models import bert as port_bert  # noqa: E402
 from ultrafnd_git_tpu_torch.models.bert import (  # noqa: E402
     BertEncoder,
     DeviceBertEncoder,
     load_hf_weights,
+    plan_chunks,
+    seq_bucket,
 )
 from ultrafnd_git_tpu_torch.utils.transfer import bert_state_dict  # noqa: E402
 
@@ -154,3 +159,91 @@ def test_dim_fit_pads_or_truncates_as_jax(bert, tok, dim):
     np.testing.assert_allclose(got, ref, **TOL)
     if dim > 64:
         assert np.all(got[:, 64:] == 0.0)
+
+
+# ---- the length-aware planner (plan_chunks) ----------------------------------
+
+def _lengths(kind, rng):
+    """A request's string lengths: the fields traffic's mix (titles, OCR,
+    comments), all long OCR, one length, or more strings than a chunk holds."""
+    if kind == "fields":
+        return np.concatenate([rng.integers(8, 49, 12), rng.integers(32, 257, 10),
+                               rng.integers(4, 65, 60)])
+    if kind == "ocr":
+        return rng.integers(192, 257, 64)
+    if kind == "equal":
+        return np.full(40, 77)
+    if kind == "one":
+        return np.array([1])
+    return rng.integers(0, 257, 700)  # "many": over batch_size, empty strings too
+
+
+def _one_bucket_slots(lengths, batch_size, max_length):
+    seq = seq_bucket(max(int(lengths.max()), 1), max_length)
+    return sum(seq_bucket(min(batch_size, len(lengths) - s), batch_size) * seq
+               for s in range(0, len(lengths), batch_size))
+
+
+@pytest.mark.parametrize("cost", [0.0, port_bert.CHUNK_LAYER_FLOPS, 1e13])
+@pytest.mark.parametrize("batch_size", [256, 24])
+@pytest.mark.parametrize("kind", ["fields", "ocr", "equal", "one", "many"])
+def test_plan_sorts_stays_on_the_grid_and_never_pads_more(kind, batch_size, cost):
+    """Every string in exactly one chunk, the chunks in a stable sort by
+    length; at most batch_size rows; each padded shape on the grid and holding
+    its strings; no more padded slots than one power-of-two bucket."""
+    lengths = _lengths(kind, np.random.default_rng(len(kind) + batch_size))
+    plan = plan_chunks(lengths, batch_size, 256, 768, 3072, cost)
+    order = np.concatenate([rows_of for rows_of, _, _ in plan])
+    np.testing.assert_array_equal(order, np.argsort(lengths, kind="stable"))
+    for rows_of, rows, seq in plan:
+        assert 1 <= len(rows_of) <= rows <= batch_size
+        assert rows % port_bert.ROW_STEP == 0 or rows == batch_size
+        assert seq % port_bert.SEQ_STEP == 0 and lengths[rows_of].max() <= seq <= 256
+    assert (sum(rows * seq for _, rows, seq in plan)
+            <= _one_bucket_slots(lengths, batch_size, 256))
+    if kind in ("equal", "one") or (kind == "ocr" and cost >= 1e13):
+        assert len(plan) == -(-len(lengths) // batch_size)
+
+
+def _mixed(rng, n=26, width=48):
+    """Titles (8-14 tokens), comments (3-12) and long OCR strings (20-48), as
+    one request, padded to its longest."""
+    lengths = np.concatenate([rng.integers(8, 15, 6), rng.integers(20, width + 1, 5),
+                              rng.integers(3, 13, n - 11)])
+    rng.shuffle(lengths)
+    mask = (np.arange(lengths.max())[None] < lengths[:, None]).astype(np.float32)
+    ids = rng.integers(4, VOCAB, mask.shape) * mask
+    return ids.astype(np.int64), mask
+
+
+@pytest.mark.parametrize("cost", [0.0, port_bert.CHUNK_LAYER_FLOPS])
+@pytest.mark.parametrize("batch_size", [256, 8])
+def test_planned_chunks_match_one_bucket_and_count(bert, monkeypatch, batch_size, cost):
+    """encode_ids over a mixed-length request equals the plain BertEncoder
+    over the whole request in one power-of-two bucket, mean-pooled and
+    L2-normalised, in the input order; the counters add up."""
+    monkeypatch.setattr(port_bert, "CHUNK_LAYER_FLOPS", cost)
+    enc = DeviceBertEncoder(bert, None, dim=64, max_length=48, batch_size=batch_size,
+                            device="cpu")
+    ids, mask = _mixed(np.random.default_rng(batch_size))
+    n, width = ids.shape
+    before = (port_bert.encode_chunks, port_bert.encode_padded_slots,
+              port_bert.encode_real_slots)
+    got = enc.encode_ids(ids, mask)
+    plan = plan_chunks(port_bert.string_lengths(mask), batch_size, 48, 64, 128, cost)
+    assert (port_bert.encode_chunks - before[0], port_bert.encode_padded_slots - before[1],
+            port_bert.encode_real_slots - before[2]) == (
+        len(plan), sum(rows * seq for _, rows, seq in plan), int(mask.sum()))
+    if batch_size < n or cost == 0.0:
+        assert len(plan) > 1
+    rows, seq = seq_bucket(n, 256), seq_bucket(width, 48)
+    ids_p = np.zeros((rows, seq), np.int64)
+    mask_p = np.zeros((rows, seq), np.float32)
+    ids_p[:n, :width], mask_p[:n, :width] = ids, mask
+    with torch.inference_mode():
+        m = torch.from_numpy(mask_p)[..., None]
+        hidden = enc.module(torch.from_numpy(ids_p), torch.from_numpy(mask_p))
+        ref = ((hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6))[:n].numpy()
+    ref = ref / (np.linalg.norm(ref, axis=-1, keepdims=True) + 1e-9)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    assert enc.encode_ids(ids[:0], mask[:0]).shape == (0, 64)

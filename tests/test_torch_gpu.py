@@ -1119,6 +1119,38 @@ def test_hf_twin_head_width_outside_the_kernel_raises(cuda):
         twin.encode_ids(np.ones((2, 8), np.int64), np.ones((2, 8), np.float32))
 
 
+def test_bert_twin_plans_chunks_on_the_card(cuda, monkeypatch):
+    """A mixed-length request (titles, comments, long OCR strings) through
+    the planner on the card: several chunks through K2, rows in the input
+    order, within 1e-4 of the largest value of the whole request in one
+    bucket on the plain attention on the same device."""
+    from ultrafnd_git_tpu_torch.models import bert
+
+    monkeypatch.setattr(bert, "CHUNK_LAYER_FLOPS", 0.0)  # split wherever padding drops
+    twin = _twin("bert", "cuda")
+    rng = np.random.default_rng(5)
+    lengths = np.concatenate([rng.integers(8, 49, 12), rng.integers(32, 257, 10),
+                              rng.integers(4, 65, 60)])
+    rng.shuffle(lengths)
+    mask = (np.arange(256)[None] < lengths[:, None]).astype(np.float32)
+    ids = (rng.integers(3, 200, mask.shape) * mask).astype(np.int64)
+    chunks, launches = bert.encode_chunks, fa.launches
+    got = twin.encode_ids(ids, mask)
+    chunks = bert.encode_chunks - chunks
+    assert chunks > 1
+    assert fa.launches - launches == chunks * TWIN_BERT["num_hidden_layers"]
+    bert.set_attention(twin.module, bert.plain_attention)
+    with torch.inference_mode():
+        ids_p = torch.zeros((128, 256), dtype=torch.int64, device="cuda")
+        mask_p = torch.zeros((128, 256), device="cuda")
+        ids_p[:len(ids)], mask_p[:len(ids)] = torch.from_numpy(ids), torch.from_numpy(mask)
+        m = mask_p[..., None]
+        pooled = (twin.module(ids_p, mask_p) * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6)
+    want = bert.l2_rows(bert.fit_dim(pooled[:len(ids)].cpu().numpy(), twin.dim))
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= HF_TWIN_REL * np.abs(want).max()
+
+
 def test_clip_twin_on_gpu_matches_cpu(cuda):
     from ultrafnd_git_tpu_torch.models import bert, clip
 

@@ -3,11 +3,12 @@
 Off, a span is the one shared no-op object and a train step or a request
 makes none; on, a train step is one `train.step` tree (upload, a forward
 of five stages and a backward a microbatch, the optimizer's norm and K1)
-and an `encode_ids` call one `encode.request` tree (five spans a chunk,
-then the finish), every span carrying its root's id inside its parent's
-interval; the spans map onto the profiler's clock within 100 us of a
-`record_function` block they hold; `profiler_trace` writes them into
-`fit.trace.json` as a track of their own.
+and an `encode_ids` call one `encode.request` tree (the plan's pad, one
+upload, a forward and a pool a chunk, one download, then the finish),
+every span carrying its root's id inside its parent's interval; the spans
+map onto the profiler's clock within 100 us of a `record_function` block
+they hold; `profiler_trace` writes them into `fit.trace.json` as a track
+of their own.
 """
 import json
 import shutil
@@ -25,7 +26,7 @@ from ultrafnd_git_tpu_torch.utils import spans
 
 STAGES = ["forward.text_tower", "forward.gnn", "forward.fusion", "forward.classifier",
           "forward.loss"]
-CHUNK = ["encode.pad", "encode.upload", "encode.forward", "encode.pool", "encode.download"]
+CHUNK = ["encode.forward", "encode.pool"]
 BERT = dict(hidden_size=32, num_hidden_layers=1, num_attention_heads=2, intermediate_size=64,
             vocab_size=100, max_position_embeddings=64, type_vocab_size=2,
             layer_norm_eps=1e-12)
@@ -130,7 +131,8 @@ def test_an_encode_of_two_chunks_is_one_request_tree():
     by_id, kids = _tree(rec.spans)
     (root,) = [s for s in rec.spans if s[2] is None]
     assert root[0] == "encode.request"
-    assert [s[0] for s in kids[root[1]]] == CHUNK * 2 + ["encode.finish"]
+    assert [s[0] for s in kids[root[1]]] == (["encode.pad", "encode.upload"] + CHUNK * 2
+                                             + ["encode.download", "encode.finish"])
     assert all(s[3] == root[1] for s in rec.spans)
 
 

@@ -15,12 +15,18 @@ head width it was not built for; its plain version on a CPU tensor.
 device, to hold the kernel against it.
 
 `DeviceBertEncoder` is the text ladder's HF rung on a device
-(`bert_flax.py:181-271`): the host tokenizer, then the encoder in chunks
-padded to power-of-two (batch, sequence) buckets, the last hidden state
+(`bert_flax.py:181-271`): the host tokenizer, then the encoder over chunks
+that `plan_chunks` cuts from the request by length, the last hidden state
 mean-pooled under the mask, fit to `dim` (truncated or zero-padded) and
-L2-normalised (+1e-9). `encode_ids` is one `encode.request` span, each
-chunk its pad, upload, forward, pool and download spans, then
-`encode.finish` (`utils/spans.py`).
+L2-normalised (+1e-9), rows in the request's order. The JAX twin pads a
+request to power-of-two (batch, sequence) buckets so that XLA compiles few
+shapes; this one runs eagerly, where cuBLAS and K2 take any M and S without
+a compile, so it sorts the strings by length and pads each chunk only to
+its own (rows, sequence), on a grid of 8 rows and 32 tokens. Padded keys
+are masked and padded rows dropped, so only the GEMMs' summation order at
+another M differs. `encode_ids` is one `encode.request` span: the plan's
+`encode.pad`, one `encode.upload`, a forward and a pool span a chunk, one
+`encode.download`, then `encode.finish` (`utils/spans.py`).
 
 The JAX twin runs K2 on the TPU in its default `mm_dtype=bfloat16`; this
 one runs it in f32, as the JAX twin's CPU path and the HF forward do
@@ -28,6 +34,7 @@ one runs it in f32, as the JAX twin's CPU path and the HF forward do
 """
 from __future__ import annotations
 
+import threading
 from types import SimpleNamespace
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
@@ -272,6 +279,99 @@ def tokenize(tokenizer, texts: List[str], max_length: int,
             np.asarray(enc["attention_mask"], np.float32))
 
 
+# The planner's grid: a chunk's rows are padded to a multiple of ROW_STEP (at
+# most batch_size), its sequence to a multiple of SEQ_STEP (at most max_length).
+ROW_STEP = 8
+SEQ_STEP = 32
+# A chunk's fixed cost to the planner, a layer, in FLOPs at the rate of the
+# chunk's own work: its launches, and the lower GEMM efficiency at small M.
+# Measured at bert-base's widths on an H100 80GB HBM3 (700 W), f32, TF32 off,
+# by `scripts/bert_chunk_cost.py`: a chunk's time at 104 (rows, sequence)
+# points from (8, 32) to (256, 256), fit as FLOPs / rate + fixed, read 2.8 to
+# 4.6 ms a chunk at 43 to 45 TFLOP/s in two runs, 1.0e10 to 1.7e10 FLOPs a
+# layer. The top of that range: below it the planner cuts full (64, 256)
+# chunks of long strings into two of 32 rows, which ran 6 ms slower than the
+# one (the GEMMs' waves, which a FLOP count does not see).
+CHUNK_LAYER_FLOPS = 1.7e10
+
+# Counts since import (or since a caller reset them): forward calls of the
+# encoder, and the rows x sequence they ran against the mask's sum. Added to
+# under a lock: featurize threads encode while others do.
+encode_chunks = 0
+encode_padded_slots = 0
+encode_real_slots = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _round_up(n, step):
+    return -(-n // step) * step
+
+
+def string_lengths(mask: np.ndarray) -> np.ndarray:
+    """Each row's real length: one past its last unmasked position (0 for a
+    row with none)."""
+    on = np.asarray(mask) > 0
+    return (on * np.arange(1, on.shape[1] + 1)).max(axis=1, initial=0)
+
+
+def chunk_flops(rows: int, seq: int, width: int, intermediate: int) -> float:
+    """A layer's FLOPs on a chunk padded to (rows, seq): the projections and
+    the feed-forward, 2 M W (4 W + 2 I) at M = rows x seq, and Q K^T and P V,
+    4 rows S^2 W."""
+    m = rows * seq
+    return 2.0 * m * width * (4 * width + 2 * intermediate) + 4.0 * m * seq * width
+
+
+def plan_chunks(lengths: np.ndarray, batch_size: int, max_length: int, width: int,
+                intermediate: int, chunk_cost: float = CHUNK_LAYER_FLOPS
+                ) -> List[Tuple[np.ndarray, int, int]]:
+    """The chunks of one request: [(the request's rows it holds, padded rows,
+    padded sequence)], rows shortest first.
+
+    The strings are sorted by length (stably) and cut into contiguous chunks
+    of at most `batch_size` rows, each padded to rows on ROW_STEP's grid and
+    to its own longest string on SEQ_STEP's (at most `max_length`). The cuts
+    minimise the padded FLOPs of a layer plus `chunk_cost` a chunk: strings
+    of one rounded sequence form a group, a DP over adjacent groups picks
+    the runs of groups that share a chunk, and a run of more than
+    `batch_size` strings is split evenly."""
+    lengths = np.asarray(lengths, np.int64)
+    n = len(lengths)
+    if n == 0:
+        return []
+    order = np.argsort(lengths, kind="stable")
+    need = np.minimum(_round_up(np.maximum(lengths[order], 1), SEQ_STEP), max_length)
+    seqs, starts = np.unique(need, return_index=True)
+    edges = starts.tolist() + [n]
+    groups = len(seqs)
+
+    def pieces(lo, hi):  # a run split evenly into chunks of at most batch_size
+        k = -(-(hi - lo) // batch_size)
+        return [lo + j * (hi - lo) // k for j in range(k + 1)]
+
+    best, back = [0.0] + [float("inf")] * groups, [0] * (groups + 1)
+    for b in range(1, groups + 1):
+        seq = int(seqs[b - 1])
+        for a in range(b):
+            count = edges[b] - edges[a]
+            k = -(-count // batch_size)
+            rows = min(_round_up(-(-count // k), ROW_STEP), batch_size)
+            cost = best[a] + k * (chunk_flops(rows, seq, width, intermediate) + chunk_cost)
+            if cost < best[b]:
+                best[b], back[b] = cost, a
+    runs, b = [], groups
+    while b:
+        runs.append((edges[back[b]], edges[b]))
+        b = back[b]
+    chunks = []
+    for lo, hi in reversed(runs):
+        cuts = pieces(lo, hi)
+        for s, e in zip(cuts, cuts[1:]):
+            chunks.append((order[s:e], min(_round_up(e - s, ROW_STEP), batch_size),
+                           int(need[e - 1])))
+    return chunks
+
+
 class DeviceBertEncoder:
     """HF BERT weights in a `BertEncoder` on `device` (cuda by default;
     raises without a GPU): strings -> (N, dim) L2-normalised rows.
@@ -280,6 +380,13 @@ class DeviceBertEncoder:
     without `bert.`) with its `config` (an HF config or a mapping of its
     fields). `tokenizer` is an HF tokenizer (or any callable with its call
     contract and `return_tensors="np"`).
+
+    A request is planned on the host (`plan_chunks`): its strings sorted by
+    length and cut into chunks of at most `batch_size` rows, each padded to
+    its own (rows, sequence) on a grid of 8 rows and 32 tokens. The chunks
+    go up in one copy, each runs the encoder and is mean-pooled under its
+    mask, its rows land in one (N, width) buffer in the request's order,
+    and the buffer comes down in one copy.
     """
 
     def __init__(self, model: Any, tokenizer: Any, dim: int = 768, max_length: int = 256,
@@ -287,47 +394,73 @@ class DeviceBertEncoder:
         cfg, sd = model_parts(model, config)
         self.device = resolve_device(device)
         self.dim, self.max_length, self.batch_size = int(dim), int(max_length), int(batch_size)
+        self.width, self.intermediate = int(cfg.hidden_size), int(cfg.intermediate_size)
         self.tok = tokenizer
         self.module = BertEncoder.from_config(cfg)
         load_hf_weights(self.module, sd, "bert.")
         self.module.to(self.device).eval()
 
+    def _padded(self, ids: np.ndarray, mask: np.ndarray):
+        """The request's plan, and its chunks laid end to end on the host:
+        (plan, ids with each chunk's destination rows after them, mask)."""
+        global encode_chunks, encode_padded_slots, encode_real_slots
+        lengths = string_lengths(mask)
+        if lengths.size and lengths.max() > self.max_length:
+            raise ValueError(f"a string of {lengths.max()} tokens is over max_length "
+                             f"{self.max_length}")
+        plan = plan_chunks(lengths, self.batch_size, self.max_length, self.width,
+                           self.intermediate, CHUNK_LAYER_FLOPS)
+        slots = sum(rows * seq for _, rows, seq in plan)
+        flat_ids = np.zeros(slots + len(ids), np.int64)
+        flat_mask = np.zeros(slots, np.float32)
+        order = np.concatenate([rows_of for rows_of, _, _ in plan] or [lengths[:0]])
+        flat_ids[slots:] = order
+        ids, mask = ids[order], mask[order]  # the chunks are runs of this order
+        at = first = 0
+        for rows_of, rows, seq in plan:
+            last, cols = first + len(rows_of), min(seq, ids.shape[1])
+            for flat, src in ((flat_ids, ids), (flat_mask, mask)):
+                flat[at:at + rows * seq].reshape(rows, seq)[:len(rows_of), :cols] = \
+                    src[first:last, :cols]
+            at, first = at + rows * seq, last
+        with _COUNT_LOCK:
+            encode_chunks += len(plan)
+            encode_padded_slots += slots
+            encode_real_slots += int(np.sum(mask, dtype=np.float64))
+        return plan, flat_ids, flat_mask
+
     @torch.inference_mode()
-    def _pooled(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """One chunk, padded to its (batch, sequence) bucket: (n, width)
-        rows of the mean of the last hidden state under the mask."""
-        n = ids.shape[0]
-        with span("encode.pad"):
-            sb = seq_bucket(ids.shape[1], self.max_length)
-            bb = seq_bucket(n, self.batch_size)
-            ids_p, mask_p = pad_to(ids, bb, sb), pad_to(mask, bb, sb)
-        with span("encode.upload"):
-            ids_t = to_device(torch.from_numpy(ids_p), self.device)
-            mask_t = to_device(torch.from_numpy(mask_p), self.device)
-        with span("encode.forward"):
-            hidden = self.module(ids_t, mask_t)
-        with span("encode.pool"):
-            m = mask_t[..., None]
-            rep = (hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6)
-        with span("encode.download"):
-            return rep[:n].cpu().numpy()
-
-    def _finish(self, outs: List[np.ndarray]) -> np.ndarray:
-        with span("encode.finish"):
-            if not outs:
-                return np.zeros((0, self.dim), np.float32)
-            return l2_rows(fit_dim(np.concatenate(outs, axis=0), self.dim))
-
     def encode_ids(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """Token ids (N, L) and their 1/0 mask -> (N, dim), in chunks of
-        `batch_size` (L at most `max_length`)."""
+        """Token ids (N, L) and their 1/0 mask -> (N, dim): the planned
+        chunks, one upload and one download (every string at most
+        `max_length` tokens)."""
         with span("encode.request"):
-            return self._finish([
-                self._pooled(ids[s:s + self.batch_size], mask[s:s + self.batch_size])
-                for s in range(0, len(ids), self.batch_size)])
+            with span("encode.pad"):
+                plan, flat_ids, flat_mask = self._padded(np.asarray(ids), np.asarray(mask))
+            with span("encode.upload"):
+                ids_t = to_device(torch.from_numpy(flat_ids), self.device)
+                mask_t = to_device(torch.from_numpy(flat_mask), self.device)
+            pooled = torch.empty((len(ids), self.width), dtype=torch.float32,
+                                 device=self.device)
+            at, dest = 0, len(flat_mask)
+            for rows_of, rows, seq in plan:
+                chunk_ids = ids_t[at:at + rows * seq].view(rows, seq)
+                chunk_mask = mask_t[at:at + rows * seq].view(rows, seq)
+                at += rows * seq
+                with span("encode.forward"):
+                    hidden = self.module(chunk_ids, chunk_mask)
+                with span("encode.pool"):
+                    m = chunk_mask[:len(rows_of), :, None]
+                    rep = (hidden[:len(rows_of)] * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6)
+                    pooled.index_copy_(0, ids_t[dest:dest + len(rows_of)], rep)
+                    dest += len(rows_of)
+            with span("encode.download"):
+                out = pooled.cpu().numpy()
+            with span("encode.finish"):
+                return l2_rows(fit_dim(out, self.dim))
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
-        """Strings -> (N, dim): tokenized a chunk at a time."""
-        return self._finish([
-            self._pooled(*tokenize(self.tok, list(texts[s:s + self.batch_size]), self.max_length))
-            for s in range(0, len(texts), self.batch_size)])
+        """Strings -> (N, dim): tokenized, then planned as `encode_ids`."""
+        if not len(texts):
+            return np.zeros((0, self.dim), np.float32)
+        return self.encode_ids(*tokenize(self.tok, list(texts), self.max_length))
