@@ -14,7 +14,8 @@ raw-media ensemble pipeline (decode, the device CV stage, the ensemble),
 train on a mesh (--dp, --tp, then --sp, --pp, expert-parallel MoE) and
 serve with serve_dp; the text, audio and evidence ladders' HF twins (BERT,
 the DistilRoBERTa emotion classifier, wav2vec2, CLIP's text tower) run at
-their published widths with seeded weights.
+their published widths with seeded weights, and so does the text ladder's
+language-model rung (LFM2-8B-A1B whole in bf16, K2-bf16's causal mode).
 
     python3 chip_smoke.py
 
@@ -1676,7 +1677,63 @@ def profile_request(pred, recs, phase, label, rows=4):
 def _reset_counts():
     from ultrafnd_git_tpu_torch.kernels import adamw as aw, flash_attention as fa
 
-    fa.launches = fa.bf16_launches = fa.bwd_launches = fa.bwd_bf16_launches = aw.launches = 0
+    fa.launches = fa.bf16_launches = fa.bf16_causal_launches = 0
+    fa.bwd_launches = fa.bwd_bf16_launches = aw.launches = 0
+
+
+def phase_lm_rung(dev):
+    """The text ladder's language-model rung at LFM2-8B-A1B's published
+    widths (portbench's configuration, weights from a seed, one flat draw
+    on the card): one request of 64 records' fields (portbench's traffic)
+    through `DeviceLfm2Encoder.encode_ids`, K2-bf16's causal mode counted,
+    timed; then again with every causal attention call and expert product
+    held against its plain version on the same operands
+    (`lfm2.held_to_plain`), and its peak memory."""
+    import torch
+
+    from portbench import traffic, weights
+    from portbench.flops import lfm2_8b_a1b as lm_flops
+    from portbench.reference import lfm2_encoder as ref
+    from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.models import bert, lfm2
+
+    cfg = json.loads((REPO / "portbench" / "configs" / "lfm2_8b_a1b.json").read_text())
+    spec = json.loads((REPO / "portbench" / "traffic" / "encode_fields_r64.json").read_text())
+    lad = cfg["ladder"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    drawn = weights.draw(ref.param_spec(cfg), 22, dev)["lm"]
+    enc = lfm2.DeviceLfm2Encoder(drawn, None, cfg, dim=lad["dim"], max_length=lad["max_length"],
+                                 batch_size=lad["batch_size"], device=str(dev))
+    del drawn
+    torch.cuda.empty_cache()
+    r = traffic.make_requests(dict(spec, pool=2), cfg, 22)[0]
+    enc.encode_ids(r["ids"], r["mask"])  # builds K2-bf16 and warms the shapes
+    before = bert.encode_chunks
+    torch.cuda.synchronize()
+    _reset_counts()  # this request only
+    t0 = time.perf_counter()
+    got = enc.encode_ids(r["ids"], r["mask"])
+    ms = 1e3 * (time.perf_counter() - t0)
+    chunks = bert.encode_chunks - before
+    attn = sum(t == "full_attention" for t in cfg["layer_types"])
+    launched = (fa.bf16_causal_launches, fa.bf16_launches)
+    if launched != (attn * chunks, 0):
+        raise RuntimeError(f"LM rung: K2-bf16 causal / plain launches {launched}, "
+                           f"expected ({attn * chunks}, 0)")
+    gaps = lfm2.held_to_plain(enc.module)
+    again = enc.encode_ids(r["ids"], r["mask"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    log("lm_rung", strings=len(r["lengths"]), tokens=int(r["lengths"].sum()), chunks=chunks,
+        request_ms=ms, tflops=lm_flops.real_flops(cfg, r["lengths"]) / ms / 1e9,
+        causal_launches=launched[0], attention_gap=gaps["attention"],
+        experts_gap=gaps["experts"], bit_identical_repeat=bool(np.array_equal(got, again)),
+        peak_gib=peak / 2 ** 30, products="grouped" if hasattr(torch, "_grouped_mm") else "loop")
+    if not (gaps["attention"] <= 8e-3 and gaps["experts"] <= 1e-2):
+        raise RuntimeError(f"LM rung: the card's path against the plain one on the same "
+                           f"operands: {gaps}")
+    del enc
+    torch.cuda.empty_cache()
+    return {"launches": {"fwd_bf16_causal": launched[0]}}
 
 
 def phase_train(dev, model_dir, out_dir, sparse_graph=False, bf16=False, f32_step_ms=None):
@@ -4029,6 +4086,7 @@ def main() -> int:
     k1 = check_adamw(dev)
     pp_shapes = check_pipeline_shapes(dev)
     hf_twins = phase_hf_twins(dev)
+    lm_rung = phase_lm_rung(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as root:
         seeded, served = Path(root) / "seeded_model", Path(root) / "trained_model"
         corpus = build_model_dir(str(seeded))
@@ -4108,6 +4166,12 @@ def main() -> int:
          "source": src + "flash_attention_fwd_bf16.cu",
          "replaces": ref + "flash_attention.py:162 (mm_dtype=bfloat16)",
          **paths("fwd_bf16", levers_n=levers["fwd_bf16"]), **flash_bf16,
+         "ptxas": ptxas["flash_attention_fwd_bf16"]},
+        {"name": "flash_attention_fwd_bf16_causal", "route": "cuda",
+         "source": src + "flash_attention_fwd_bf16.cu",
+         "replaces": "none (the LM rung's causal attention; the JAX package has no LM rung)",
+         "launches": lm_rung["launches"]["fwd_bf16_causal"],
+         "launches_by_path": {"lm_rung": lm_rung["launches"]["fwd_bf16_causal"]},
          "ptxas": ptxas["flash_attention_fwd_bf16"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:379",

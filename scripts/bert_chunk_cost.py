@@ -164,7 +164,7 @@ def main() -> None:
     planner = bert.plan_chunks
     layouts = {"one_bucket": one_bucket}
     for cost in COSTS:
-        layouts[f"cost_{cost:.2e}"] = (lambda c: lambda *a: planner(*a[:5], chunk_cost=c))(cost)
+        layouts[f"cost_{cost:.2e}"] = (lambda c: lambda *a: planner(*a[:4], chunk_cost=c))(cost)
     result["sweep"] = {}
     for traffic in TRAFFIC:
         reqs = requests(traffic, args.requests, rng)
@@ -194,7 +194,8 @@ def main() -> None:
     reqs = requests(TRAFFIC[0], args.requests, rng)
     lengths = [bert.string_lengths(m) for _, m in reqs]
     n = 200
-    plan_us = [1e6 * timeit.timeit(lambda: bert.plan_chunks(L, 256, 256, 768, 3072), number=n)
+    flops = bert.bert_layer_flops(768, 3072)
+    plan_us = [1e6 * timeit.timeit(lambda: bert.plan_chunks(L, 256, 256, flops), number=n)
                / n for L in lengths]
     pad_us = [1e6 * timeit.timeit(lambda: enc._padded(*r), number=n) / n for r in reqs]
     result["host"] = {"plan_us_median": float(np.median(plan_us)),

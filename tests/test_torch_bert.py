@@ -31,6 +31,7 @@ from ultrafnd_git_tpu_torch.models.bert import (  # noqa: E402
     BertEncoder,
     DeviceBertEncoder,
     load_hf_weights,
+    bert_layer_flops,
     plan_chunks,
     seq_bucket,
 )
@@ -192,7 +193,7 @@ def test_plan_sorts_stays_on_the_grid_and_never_pads_more(kind, batch_size, cost
     length; at most batch_size rows; each padded shape on the grid and holding
     its strings; no more padded slots than one power-of-two bucket."""
     lengths = _lengths(kind, np.random.default_rng(len(kind) + batch_size))
-    plan = plan_chunks(lengths, batch_size, 256, 768, 3072, cost)
+    plan = plan_chunks(lengths, batch_size, 256, bert_layer_flops(768, 3072), cost)
     order = np.concatenate([rows_of for rows_of, _, _ in plan])
     np.testing.assert_array_equal(order, np.argsort(lengths, kind="stable"))
     for rows_of, rows, seq in plan:
@@ -230,7 +231,8 @@ def test_planned_chunks_match_one_bucket_and_count(bert, monkeypatch, batch_size
     before = (port_bert.encode_chunks, port_bert.encode_padded_slots,
               port_bert.encode_real_slots)
     got = enc.encode_ids(ids, mask)
-    plan = plan_chunks(port_bert.string_lengths(mask), batch_size, 48, 64, 128, cost)
+    plan = plan_chunks(port_bert.string_lengths(mask), batch_size, 48,
+                       bert_layer_flops(64, 128), cost)
     assert (port_bert.encode_chunks - before[0], port_bert.encode_padded_slots - before[1],
             port_bert.encode_real_slots - before[2]) == (
         len(plan), sum(rows * seq for _, rows, seq in plan), int(mask.sum()))

@@ -5,8 +5,8 @@ Every test here carries the `gpu` marker and skips with a reason where
 torch.cuda is unavailable. The file imports no jax, so it also runs on a
 GPU machine without it:
     python -m pytest --noconftest -o addopts="" tests/test_torch_gpu.py -q
-Tolerances: K2's bf16 mode out within 8e-3 of its plain twin's largest
-value and lse 1e-4; K3/K4's bf16 mode dq, dk, dv and dbias within 8e-3 of
+Tolerances: K2's bf16 mode (and its causal mode) out within 8e-3 of its
+plain twin's largest value and lse 1e-4; K3/K4's bf16 mode dq, dk, dv and dbias within 8e-3 of
 the twin's largest value (one bf16 ulp at the top of the range); the
 bf16_compute step's gradient, GPU against CPU, within 5e-2 in relative L2
 and 1e-1 of each leaf's largest (the CPU test's bounds against JAX); forward kernel atol = rtol = 2e-5 (both sides full-f32
@@ -460,6 +460,51 @@ def test_flash_fwd_bf16_many_items_and_fewest_stages(cuda, shape):
     err = (out.float() - ref_out.float()).abs().max().item()
     assert err <= 8e-3 * ref_out.float().abs().max().item(), err
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [1, 100, 300])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_fwd_bf16_causal_every_width(cuda, d, s):
+    """K2-bf16's causal mode at every head width, S not a multiple of the
+    64-key tile (one, two and five tiles), right-padded rows and a fully
+    masked one: out within 8e-3 of the causal twin's largest value, lse
+    within 1e-4, two calls bit for bit, one causal launch each and no
+    launch of the plain mode."""
+    q, k, v, bias = _bf16_inputs((3, 4, s, d), 7 * d + s, cuda)
+    with torch.inference_mode():
+        before = fa.bf16_causal_launches, fa.bf16_launches
+        out, lse = fa.flash_attention_fwd_bf16_causal(q, k, v, bias)
+        out2, lse2 = fa.flash_attention_fwd_bf16_causal(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert (fa.bf16_causal_launches, fa.bf16_launches) == (before[0] + 2, before[1])
+        ref_out, ref_lse = fa.reference_attention_bf16(q, k, v, bias, causal=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    assert err <= 8e-3 * ref_out.float().abs().max().item(), err
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 256, 64), (2, 2, 2048, 256)],
+                         ids=["lm_chunk", "s2048_d256"])
+def test_flash_fwd_bf16_causal_beside_the_plain_mode(cuda, shape):
+    """The language model's attention shape (rows of 32 heads at S = 256)
+    and 32 key tiles through a ring of two stages: the causal mode against
+    its twin, and the plain mode's output the same bits before and after
+    the causal instantiation ran, and still its own twin's."""
+    q, k, v, bias = _bf16_inputs(shape, shape[2], cuda)
+    with torch.inference_mode():
+        plain_before = fa.flash_attention_fwd_bf16(q, k, v, bias)
+        out, lse = fa.flash_attention_fwd_bf16_causal(q, k, v, bias)
+        plain_after = fa.flash_attention_fwd_bf16(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.reference_attention_bf16(q, k, v, bias, causal=True)
+        plain_ref = fa.reference_attention_bf16(q, k, v, bias)[0]
+    assert all(torch.equal(a, b) for a, b in zip(plain_before, plain_after))
+    err = (out.float() - ref_out.float()).abs().max().item()
+    assert err <= 8e-3 * ref_out.float().abs().max().item(), err
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    err = (plain_after[0].float() - plain_ref.float()).abs().max().item()
+    assert err <= 8e-3 * plain_ref.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
@@ -1165,3 +1210,48 @@ def test_clip_twin_on_gpu_matches_cpu(cuda):
     got, cpu = (clip.DeviceClipTextEncoder(sd, None, device=d, config=cfg).encode_ids(ids, mask)
                 for d in ("cuda", "cpu"))
     np.testing.assert_allclose(got, cpu, atol=1e-4)
+
+
+def test_lm_rung_launches_causal_k2_and_matches_its_plain_path(cuda):
+    """A mixed-length request through the LM rung at the CPU tests' small
+    size (two query heads of 64 over one KV head, 8 experts top-2) on the
+    card: K2-bf16's causal mode once an attention layer a chunk and no other
+    attention kernel, the grouped expert products; each attention call
+    within 8e-3 and each expert product within 1e-2 of its plain version's
+    largest value on the same operands (bf16 both: the routing of one path
+    is the other's); the rows unit vectors."""
+    from _lfm2_reference import SMALL, draw
+    from ultrafnd_git_tpu_torch.models import bert, lfm2
+
+    enc = lfm2.DeviceLfm2Encoder(draw(SMALL, seed=3), None, SMALL, dim=96, max_length=64,
+                                 batch_size=16, device=str(cuda))
+    assert lfm2.grouped_products(torch.zeros(1, device=cuda, dtype=torch.bfloat16)) \
+        is lfm2._grouped
+    rng = np.random.default_rng(8)
+    lengths = np.concatenate([rng.integers(8, 49, 12), rng.integers(4, 65, 20)])
+    mask = (np.arange(64)[None] < lengths[:, None]).astype(np.float32)
+    ids = (rng.integers(3, 300, mask.shape) * mask).astype(np.int64)
+    chunks, before = bert.encode_chunks, (fa.bf16_causal_launches, fa.bf16_launches)
+    enc.encode_ids(ids, mask)
+    chunks = bert.encode_chunks - chunks
+    assert chunks > 1
+    assert (fa.bf16_causal_launches - before[0], fa.bf16_launches - before[1]) == (chunks, 0)
+    gaps = lfm2.held_to_plain(enc.module)
+    rows = enc.encode_ids(ids, mask)
+    assert gaps["attention"] <= 8e-3 and gaps["experts"] <= 1e-2, gaps
+    np.testing.assert_allclose(np.linalg.norm(rows, axis=1), 1.0, atol=1e-5)
+
+
+def test_grouped_expert_products_match_one_product_an_expert(cuda):
+    """`torch._grouped_mm` over rows sorted by expert (two experts empty)
+    at the published expert widths against one bf16 product an expert."""
+    from ultrafnd_git_tpu_torch.models import lfm2
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(3000, 2048, device=cuda, generator=g).to(torch.bfloat16)
+    w = (0.02 * torch.randn(8, 3584, 2048, device=cuda, generator=g)).to(torch.bfloat16)
+    offs = torch.tensor([100, 900, 900, 1500, 2000, 2999, 3000, 3000], dtype=torch.int32,
+                        device=cuda)
+    got, want = lfm2._grouped(x, w, offs), lfm2._per_expert(x, w, offs)
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2 * float(
+        want.float().abs().max())

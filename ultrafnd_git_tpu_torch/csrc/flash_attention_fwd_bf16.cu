@@ -18,6 +18,17 @@
 // softmax and lse = bf16(-1e9) + log S, never NaN. No float atomics: two
 // calls give the same bits.
 //
+// Causal mode (the CAUSAL template parameter, its own C entry
+// ufnd_flash_attention_fwd_bf16_causal): query i attends to keys 0 .. i.
+// An item of query tile t reads key tiles 0 .. t only (the producer loads no
+// later tile), and on the diagonal tile a key past its query gets s = -inf
+// before the online softmax. Key 0 is at or before every query, so each
+// row's running max is finite from the first tile on. The key-padding bias
+// applies as in the plain mode: right-padded keys come after every real
+// query, so a real row never reaches one. The ring of (K, V) stages counts
+// stages as they are issued, in both modes, since an item's count of key
+// tiles varies with its query tile here.
+//
 // What bounds it on the card (computed from shapes). At the serving shape
 // (256, 6, 64, 128) the call reads q, k, v (bf16) and the bias and writes
 // out (bf16) and lse (f32): 101.1 MB, 0.030 ms at 3.35 TB/s (0.060 ms and
@@ -339,7 +350,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
 // Launch bounds of three warpgroups for every width: 168 registers a thread
 // at entry (a wgmma of n256 alone needs more than 128), one CTA an SM; at
 // D >= 192 only two warpgroups are launched.
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
@@ -390,17 +401,18 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&qmap)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&kmap)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&vmap)) : "memory");
-      int k = 0;
+      int k = 0, n = 0;  // items and (K, V) stages issued
       for (int item = blockIdx.x * NC + c; item < n_items; item += gridDim.x * NC, ++k) {
-        const int bh = item / tiles, q0 = (item - bh * tiles) * kBox;
+        const int bh = item / tiles, qt = item - bh * tiles, q0 = qt * kBox;
+        const int kend = CAUSAL ? qt + 1 : tiles;  // the key tiles the item reads
         const int qs = k % NQ;
         mbar_wait(q_empty(c, qs), ((k / NQ) & 1) ^ 1);
         mbar_expect_tx(q_full(c, qs), TILE);
 #pragma unroll
         for (int a = 0; a < C::ATOMS; ++a)
           tma_load(q_slot(c, qs) + a * kAtomBytes, &qmap, q_full(c, qs), a * kBox, q0, bh);
-        for (int kt = 0; kt < tiles; ++kt) {
-          const int n = k * tiles + kt, st = n % NS;
+        for (int kt = 0; kt < kend; ++kt, ++n) {
+          const int st = n % NS;
           mbar_wait(kv_empty(c, st), ((n / NS) & 1) ^ 1);
           mbar_expect_tx(kv_full(c, st), 2 * TILE);
 #pragma unroll
@@ -416,17 +428,18 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     // lane holds rows g and g + 8 at columns 8i + 2tq, 8i + 2tq + 1
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
     const int c = wg - 1, g = lane >> 2, tq = lane & 3;
-    int k = 0;
+    int k = 0, n = 0;  // items and (K, V) stages consumed
     for (int item = blockIdx.x * NC + c; item < n_items; item += gridDim.x * NC, ++k) {
-      const int bh = item / tiles, q0 = (item - bh * tiles) * kBox;
+      const int bh = item / tiles, qt = item - bh * tiles, q0 = qt * kBox;
+      const int kend = CAUSAL ? qt + 1 : tiles;
       const bf16* brow = bias + (size_t)(bh / heads) * seq;
       const int qs = k % NQ;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       mbar_wait(q_full(c, qs), (k / NQ) & 1);
-      for (int kt = 0; kt < tiles; ++kt) {
-        const int n = k * tiles + kt, st = n % NS, k0 = kt * kBox;
+      for (int kt = 0; kt < kend; ++kt, ++n) {
+        const int st = n % NS, k0 = kt * kBox;
         // this thread's keys of the tile, 8j + 2tq + {0, 1}: bias, in flight
         // during the wait and the product
         float bk[8][2];
@@ -452,7 +465,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
         }
         wgmma_commit_and_wait();
         fence_regs(s);
-        if (kt == tiles - 1 && lane == 0) mbar_arrive(q_empty(c, qs));  // Q read for the last time
+        if (kt == kend - 1 && lane == 0) mbar_arrive(q_empty(c, qs));  // Q read for the last time
 
         // online softmax on the fragments: rows g (h = 0) and g + 8 (h = 1),
         // each spread over the 4 lanes of a quad
@@ -463,15 +476,20 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
           for (int e = 0; e < 4; ++e) {
             // a key past S has bias -inf, so x = -inf there: s is finite
             const float x = __fadd_rn(__fmul_rn(s[4 * j + e], scale), bk[j][e & 1]);
-            s[4 * j + e] = x;
-            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            // causal, diagonal tile: key 8j + 2tq + (e & 1) after query row
+            // 16 warp + g + 8 (e >> 1) of the tile is masked out
+            const bool later = CAUSAL && kt == qt &&
+                               8 * j + 2 * tq + (e & 1) > 16 * warp + g + 8 * (e >> 1);
+            s[4 * j + e] = later ? -INFINITY : x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
           }
         float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
           mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-          mx[h] = fmaxf(m[h], mx[h]);     // finite: key k0 < seq is in every tile
+          mx[h] = fmaxf(m[h], mx[h]);     // finite: key k0 < seq is in every tile, and
+                                          // at or before every query of a causal item
           alpha[h] = expf(m[h] - mx[h]);  // 0 on the first tile
           m[h] = mx[h];
         }
@@ -589,20 +607,20 @@ int encode(CUtensorMap* map, const void* ptr, int dim, int seq, long long bh) {
 
 // Per device: the dynamic shared memory attribute of width D (set once) and
 // how many CTAs of it the card holds at once (SMs x CTAs an SM).
-template <int D>
+template <int D, bool CAUSAL>
 cudaError_t resident_ctas(int* out) {
   static std::atomic<int> cached[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && (*out = cached[dev].load()) > 0) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+  err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D, CAUSAL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg<D>::SMEM);
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_fwd_bf16_kernel<D>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_fwd_bf16_kernel<D, CAUSAL>,
                                                       Cfg<D>::kThreads, Cfg<D>::SMEM);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -611,7 +629,7 @@ cudaError_t resident_ctas(int* out) {
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* bias, bf16* out,
            float* lse, int batch, int heads, int seq, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
@@ -625,18 +643,34 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* bias, bf16* 
     if (err != 0) return err;
   }
   int ctas = 0;
-  const cudaError_t err = resident_ctas<D>(&ctas);
+  const cudaError_t err = resident_ctas<D, CAUSAL>(&ctas);
   if (err != cudaSuccess) return err;
   const int groups = (n_items + C::NC - 1) / C::NC;  // one item a consumer
   const int grid = groups < ctas ? groups : ctas;
-  flash_fwd_bf16_kernel<D><<<grid, C::kThreads, C::SMEM, stream>>>(
+  flash_fwd_bf16_kernel<D, CAUSAL><<<grid, C::kThreads, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], bias, lse, heads, seq, n_items, scale);
   return cudaGetLastError();
 }
 
+template <bool CAUSAL>
+int dispatch(const void* q, const void* k, const void* v, const void* bias, void* out,
+             float* lse, int batch, int heads, int seq, int dim, float scale, void* stream) {
+  const bf16 *q_ = static_cast<const bf16*>(q), *k_ = static_cast<const bf16*>(k),
+             *v_ = static_cast<const bf16*>(v), *b_ = static_cast<const bf16*>(bias);
+  bf16* o_ = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dim) {
+    case 64: return launch<64, CAUSAL>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
+    case 128: return launch<128, CAUSAL>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
+    case 192: return launch<192, CAUSAL>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
+    case 256: return launch<256, CAUSAL>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). q, k, v, out: contiguous
+// Plain C entry points (loaded with ctypes). q, k, v, out: contiguous
 // (B, H, S, D) bf16, 16-byte aligned (TMA); bias: contiguous (B, S) bf16;
 // lse: (B, H, S) f32. Returns 0 when launched, else the cudaError_t of the
 // launch, kNoEncoder (-1) when libcuda has no cuTensorMapEncodeTiled, or
@@ -645,17 +679,15 @@ extern "C" int ufnd_flash_attention_fwd_bf16(const void* q, const void* k, const
                                              const void* bias, void* out, float* lse,
                                              int batch, int heads, int seq, int dim,
                                              float scale, void* stream) {
-  const bf16 *q_ = static_cast<const bf16*>(q), *k_ = static_cast<const bf16*>(k),
-             *v_ = static_cast<const bf16*>(v), *b_ = static_cast<const bf16*>(bias);
-  bf16* o_ = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dim) {
-    case 64: return launch<64>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
-    case 128: return launch<128>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
-    case 192: return launch<192>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
-    case 256: return launch<256>(q_, k_, v_, b_, o_, lse, batch, heads, seq, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, bias, out, lse, batch, heads, seq, dim, scale, stream);
+}
+
+// The causal mode: query i attends to keys 0 .. i (and the bias).
+extern "C" int ufnd_flash_attention_fwd_bf16_causal(const void* q, const void* k, const void* v,
+                                                    const void* bias, void* out, float* lse,
+                                                    int batch, int heads, int seq, int dim,
+                                                    float scale, void* stream) {
+  return dispatch<true>(q, k, v, bias, out, lse, batch, heads, seq, dim, scale, stream);
 }
 
 // The dynamic shared memory of the kernel at head width `dim` (bytes), -1

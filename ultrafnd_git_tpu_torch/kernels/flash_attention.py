@@ -18,6 +18,12 @@ the op's registered gradient is the fused backward:
   CUDA tensor it launches `csrc/flash_attention_fwd_bf16.cu`, both products
   bf16 with f32 sums, the softmax in f32, P rounded to bf16 for P V, out
   bf16 and lse f32;
+* for bf16 q, k, v whose queries attend to keys at or before them alone,
+  forward `flash_attention_fwd_bf16_causal(q, k, v, bias)`, K2-bf16's
+  causal mode (the language-model rung, `models/lfm2.py`): the same kernel
+  source instantiated with its causal flag, which reads only the key tiles
+  at or before each query tile and masks the diagonal tile; forward only
+  (no backward is registered: no causal path trains);
 * backward `flash_attention_bwd(q, k, v, bias, out, lse, do) -> (dq, dk,
   dv, dbias)`, the counterpart of `_pallas_backward` (kernels
   `_make_bwd_dq_kernel`, K3, and `_make_bwd_dkv_kernel`, K4): on a CUDA
@@ -32,7 +38,8 @@ the op's registered gradient is the fused backward:
 
 Each builds with nvcc for sm_90a at first use (`_build.py`) and raises on a
 failed build or launch; none falls back. On a CPU tensor they run the
-plain PyTorch versions, `reference_attention`, `reference_attention_bf16`,
+plain PyTorch versions, `reference_attention`, `reference_attention_bf16`
+(both with a `causal` flag),
 `attention_bwd_reference` and `attention_bwd_reference_bf16`, which the
 tests hold against the JAX kernels. The backward recomputes P = exp(s -
 lse) as the TPU kernels do, so on a row whose keys are all masked P is 1
@@ -40,19 +47,21 @@ per key rather than 1/S (see the note in `csrc/flash_attention_bwd.cu`);
 rows with a valid key agree with autograd of a softmax.
 
 `launches` counts f32 forward launches, `bf16_launches` bf16 forward
-launches, `bwd_launches` f32 backward launches and `bwd_bf16_launches` bf16
+launches, `bf16_causal_launches` causal bf16 forward launches,
+`bwd_launches` f32 backward launches and `bwd_bf16_launches` bf16
 backward launches (one per backward call, K3 and K4 fused), and nothing
 else, so a run can show that its path went through the kernels and in which
-mode; the CPU path leaves all four unchanged. Under
+mode; the CPU path leaves all five unchanged. Under
 `torch.inference_mode()` only K2 runs. The counts are safe to add to from
 several host threads (a lock); each library is built and loaded once under
 `_build`'s lock, whichever thread launches first.
 
-The ops are `ufnd::flash_attention_fwd` and `ufnd::flash_attention_fwd_bf16`,
-(q, k, v, bias) -> (out, lse), registered when this module is imported:
+The ops are `ufnd::flash_attention_fwd`, `ufnd::flash_attention_fwd_bf16` and
+`ufnd::flash_attention_fwd_bf16_causal`, (q, k, v, bias) -> (out, lse),
+registered when this module is imported:
 the CPU implementation is the plain version, the CUDA one the kernel
 launch with its checks and counter, and `torch.library.register_autograd`
-gives both the fused K3 + K4 backward (K3/K4 stay ctypes calls: no
+gives the first two the fused K3 + K4 backward (K3/K4 stay ctypes calls: no
 exported program holds a backward). A program exported with
 `torch.export` calls the op by name, so whoever loads it imports this
 module first.
@@ -73,6 +82,7 @@ HEAD_DIMS = (64, 128, 192, 256)  # the kernel's compiled head widths
 
 launches = 0  # K2 (f32) launches since import (or since a caller reset it)
 bf16_launches = 0  # K2 bf16-mode launches
+bf16_causal_launches = 0  # K2 bf16-mode causal launches
 bwd_launches = 0  # f32 backward (K3 + K4 fused) launches, one per call
 bwd_bf16_launches = 0  # bf16-mode backward launches, one per call
 # a count is read, added to and written back under this lock: the text
@@ -81,6 +91,7 @@ bwd_bf16_launches = 0  # bf16-mode backward launches, one per call
 _COUNT_LOCK = threading.Lock()
 _lib = None
 _bf16_lib = None
+_bf16_causal_lib = None
 _bwd_lib = None
 _bwd_block_keys = None
 _bwd_bf16_lib = None
@@ -93,16 +104,27 @@ def _scale(dim: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(dim)))
 
 
+def _causal(s: torch.Tensor) -> torch.Tensor:
+    """Scores (..., S, S) with every key after its query at -inf."""
+    n = s.shape[-1]
+    later = torch.ones((n, n), dtype=torch.bool, device=s.device).triu(1)
+    return s.masked_fill(later, float("-inf"))
+
+
 def reference_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain attention with the kernel's outputs: (out (B,H,S,D), lse (B,H,S))."""
+    """Plain attention with the kernel's outputs: (out (B,H,S,D), lse (B,H,S));
+    `causal`: query i attends to keys 0 .. i alone."""
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * _scale(q.shape[-1])
     if bias is not None:
         s = s + bias
+    if causal:
+        s = _causal(s)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
@@ -115,16 +137,20 @@ def reference_attention_bf16(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: torch.Tensor,
+    causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain attention in K2's bf16 mode: (out (B,H,S,D) bf16, lse (B,H,S) f32).
 
     The Pallas kernel's `mm_dtype=bfloat16` arithmetic: bf16 q, k, v and bias,
     both products with f32 sums, the softmax in f32 with each row's max over
     all S, P rounded to bf16 for P V, out = O / sum(P) rounded to bf16.
+    `causal` (the causal mode's twin): keys after their query at -inf.
     """
     qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * _scale(q.shape[-1])
     s = s + bias.to(torch.bfloat16).float()
+    if causal:
+        s = _causal(s)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
@@ -208,17 +234,28 @@ def _kernel():
     return _lib
 
 
+def _bf16_entry(name: str):
+    fn = getattr(_build.load("flash_attention_fwd_bf16"), name)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _bf16_kernel():
     global _bf16_lib
     if _bf16_lib is None:
-        fn = _build.load("flash_attention_fwd_bf16").ufnd_flash_attention_fwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_float,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _bf16_lib = fn
+        _bf16_lib = _bf16_entry("ufnd_flash_attention_fwd_bf16")
     return _bf16_lib
+
+
+def _bf16_causal_kernel():
+    global _bf16_causal_lib
+    if _bf16_causal_lib is None:
+        _bf16_causal_lib = _bf16_entry("ufnd_flash_attention_fwd_bf16_causal")
+    return _bf16_causal_lib
 
 
 def _bf16_smem(dim: int) -> int:
@@ -352,6 +389,21 @@ def _fwd_bf16_cuda(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, lse
 
 
+def _fwd_bf16_causal_cuda(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation of `ufnd::flash_attention_fwd_bf16_causal`."""
+    _check(q, k, v, bias, dtype=torch.bfloat16)
+    out, lse = _launch_fwd(_bf16_causal_kernel(), "flash_attention_fwd_bf16_causal",
+                           q, k, v, bias)
+    global bf16_causal_launches
+    with _COUNT_LOCK:
+        bf16_causal_launches += 1
+    return out, lse
+
+
+def _reference_attention_bf16_causal(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    return reference_attention_bf16(q, k, v, bias, causal=True)
+
+
 def _fwd_fake(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shapes and dtypes of both forward ops: out like q, lse (B, H, S) f32."""
     b, h, s, _ = q.shape
@@ -371,10 +423,12 @@ def _fwd_backward(ctx, dout, _dlse):
     return bwd(q, k, v, bias, out, lse, dout.contiguous(), with_dbias=ctx.needs_input_grad[3])
 
 
-def _register_forward_op(name: str, plain, cuda) -> "torch._library.custom_ops.CustomOpDef":
+def _register_forward_op(name: str, plain, cuda,
+                         backward: bool = True) -> "torch._library.custom_ops.CustomOpDef":
     """`ufnd::<name>(q, k, v, bias) -> (out, lse)` as a torch.library custom
     op: `plain` on the CPU, `cuda` on a GPU, a fake implementation for
-    tracing (torch.export), and the fused backward as its gradient."""
+    tracing (torch.export), and (`backward`) the fused backward as its
+    gradient."""
 
     def cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -383,13 +437,17 @@ def _register_forward_op(name: str, plain, cuda) -> "torch._library.custom_ops.C
     op = torch.library.custom_op(f"ufnd::{name}", cpu, mutates_args=(), device_types="cpu")
     op.register_kernel("cuda")(cuda)
     op.register_fake(_fwd_fake)
-    op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)
+    if backward:
+        op.register_autograd(_fwd_backward, setup_context=_fwd_setup_context)
     return op
 
 
 fwd_op = _register_forward_op("flash_attention_fwd", reference_attention, _fwd_cuda)
 fwd_bf16_op = _register_forward_op("flash_attention_fwd_bf16", reference_attention_bf16,
                                    _fwd_bf16_cuda)
+fwd_bf16_causal_op = _register_forward_op("flash_attention_fwd_bf16_causal",
+                                          _reference_attention_bf16_causal,
+                                          _fwd_bf16_causal_cuda, backward=False)
 
 
 def _forward(op, q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -433,6 +491,23 @@ def flash_attention_fwd_bf16(
     `reference_attention_bf16`.
     """
     return _forward(fwd_bf16_op, q, k, v, bias)
+
+
+def flash_attention_fwd_bf16_causal(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-bf16's causal mode: query i attends to keys 0 .. i (and the bias).
+
+    Operands and outputs as `flash_attention_fwd_bf16`. Calls the custom op
+    `ufnd::flash_attention_fwd_bf16_causal`: on a CUDA tensor it launches
+    the kernel's causal instantiation and adds one to
+    `bf16_causal_launches`; on a CPU tensor it returns
+    `reference_attention_bf16(..., causal=True)`. Forward only.
+    """
+    return _forward(fwd_bf16_causal_op, q, k, v, bias)
 
 
 def flash_attention_bwd(

@@ -24,9 +24,15 @@ shapes; this one runs eagerly, where cuBLAS and K2 take any M and S without
 a compile, so it sorts the strings by length and pads each chunk only to
 its own (rows, sequence), on a grid of 8 rows and 32 tokens. Padded keys
 are masked and padded rows dropped, so only the GEMMs' summation order at
-another M differs. `encode_ids` is one `encode.request` span: the plan's
-`encode.pad`, one `encode.upload`, a forward and a pool span a chunk, one
-`encode.download`, then `encode.finish` (`utils/spans.py`).
+another M differs.
+
+That request path is `ChunkedEncoder`, which the device rungs share (this
+one and the language-model rung, `models/lfm2.DeviceLfm2Encoder`): a rung
+gives its width, its layer FLOPs of a padded chunk (`layer_flops`, which
+`plan_chunks` minimises), its fixed cost a chunk, and its forward over one
+chunk. `encode_ids` is one `encode.request` span: the plan's `encode.pad`,
+one `encode.upload`, an `encode.forward` and an `encode.pool` span a chunk,
+one `encode.download`, then `encode.finish` (`utils/spans.py`).
 
 The JAX twin runs K2 on the TPU in its default `mm_dtype=bfloat16`; this
 one runs it in f32, as the JAX twin's CPU path and the HF forward do
@@ -34,6 +40,7 @@ one runs it in f32, as the JAX twin's CPU path and the HF forward do
 """
 from __future__ import annotations
 
+import functools
 import threading
 from types import SimpleNamespace
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
@@ -322,8 +329,13 @@ def chunk_flops(rows: int, seq: int, width: int, intermediate: int) -> float:
     return 2.0 * m * width * (4 * width + 2 * intermediate) + 4.0 * m * seq * width
 
 
-def plan_chunks(lengths: np.ndarray, batch_size: int, max_length: int, width: int,
-                intermediate: int, chunk_cost: float = CHUNK_LAYER_FLOPS
+def bert_layer_flops(width: int, intermediate: int) -> Callable[[int, int], float]:
+    """`chunk_flops` at a BERT's widths, as the planner takes it."""
+    return functools.partial(chunk_flops, width=width, intermediate=intermediate)
+
+
+def plan_chunks(lengths: np.ndarray, batch_size: int, max_length: int,
+                layer_flops: Callable[[int, int], float], chunk_cost: float = CHUNK_LAYER_FLOPS
                 ) -> List[Tuple[np.ndarray, int, int]]:
     """The chunks of one request: [(the request's rows it holds, padded rows,
     padded sequence)], rows shortest first.
@@ -331,10 +343,11 @@ def plan_chunks(lengths: np.ndarray, batch_size: int, max_length: int, width: in
     The strings are sorted by length (stably) and cut into contiguous chunks
     of at most `batch_size` rows, each padded to rows on ROW_STEP's grid and
     to its own longest string on SEQ_STEP's (at most `max_length`). The cuts
-    minimise the padded FLOPs of a layer plus `chunk_cost` a chunk: strings
-    of one rounded sequence form a group, a DP over adjacent groups picks
-    the runs of groups that share a chunk, and a run of more than
-    `batch_size` strings is split evenly."""
+    minimise `layer_flops(rows, seq)` (the model's FLOPs of a layer on a
+    chunk so padded; `bert_layer_flops` for a BERT) plus `chunk_cost` a
+    chunk: strings of one rounded sequence form a group, a DP over adjacent
+    groups picks the runs of groups that share a chunk, and a run of more
+    than `batch_size` strings is split evenly."""
     lengths = np.asarray(lengths, np.int64)
     n = len(lengths)
     if n == 0:
@@ -356,7 +369,7 @@ def plan_chunks(lengths: np.ndarray, batch_size: int, max_length: int, width: in
             count = edges[b] - edges[a]
             k = -(-count // batch_size)
             rows = min(_round_up(-(-count // k), ROW_STEP), batch_size)
-            cost = best[a] + k * (chunk_flops(rows, seq, width, intermediate) + chunk_cost)
+            cost = best[a] + k * (layer_flops(rows, seq) + chunk_cost)
             if cost < best[b]:
                 best[b], back[b] = cost, a
     runs, b = [], groups
@@ -372,44 +385,53 @@ def plan_chunks(lengths: np.ndarray, batch_size: int, max_length: int, width: in
     return chunks
 
 
-class DeviceBertEncoder:
-    """HF BERT weights in a `BertEncoder` on `device` (cuda by default;
-    raises without a GPU): strings -> (N, dim) L2-normalised rows.
-
-    `model` is an HF BERT model, or a state dict (`BertModel` keys, with or
-    without `bert.`) with its `config` (an HF config or a mapping of its
-    fields). `tokenizer` is an HF tokenizer (or any callable with its call
-    contract and `return_tensors="np"`).
+class ChunkedEncoder:
+    """The request path of a device rung: strings -> (N, dim) L2-normalised
+    rows, the mean of each string's last hidden state under its mask.
 
     A request is planned on the host (`plan_chunks`): its strings sorted by
     length and cut into chunks of at most `batch_size` rows, each padded to
     its own (rows, sequence) on a grid of 8 rows and 32 tokens. The chunks
-    go up in one copy, each runs the encoder and is mean-pooled under its
-    mask, its rows land in one (N, width) buffer in the request's order,
-    and the buffer comes down in one copy.
+    go up in one copy, each runs `forward` and is mean-pooled under its
+    mask (in f32), its rows land in one (N, width) buffer in the request's
+    order, and the buffer comes down in one copy. The chunks run longest
+    first: the device works through the longest while the host launches
+    the shorter ones, whose launches take longer than their device time in
+    the LM rung (PERF.md §6).
+
+    A subclass sets `device`, `dim`, `max_length`, `batch_size`, `width`,
+    `tok`, `layer_flops` and `chunk_cost`, and gives `forward(ids, mask,
+    real)` of one chunk, (rows, seq, width). With `wants_real` the upload
+    also holds each chunk's real positions (flat indices into the chunk, in
+    order), made on the host, and `real` is that chunk's slice (else None).
     """
 
-    def __init__(self, model: Any, tokenizer: Any, dim: int = 768, max_length: int = 256,
-                 batch_size: int = 256, device: str = "cuda", config: Any = None):
-        cfg, sd = model_parts(model, config)
-        self.device = resolve_device(device)
-        self.dim, self.max_length, self.batch_size = int(dim), int(max_length), int(batch_size)
-        self.width, self.intermediate = int(cfg.hidden_size), int(cfg.intermediate_size)
-        self.tok = tokenizer
-        self.module = BertEncoder.from_config(cfg)
-        load_hf_weights(self.module, sd, "bert.")
-        self.module.to(self.device).eval()
+    device: torch.device
+    dim: int
+    max_length: int
+    batch_size: int
+    width: int
+    tok: Any = None
+    layer_flops: Callable[[int, int], float]
+    chunk_cost: float
+    wants_real = False
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                real: Optional[torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
 
     def _padded(self, ids: np.ndarray, mask: np.ndarray):
         """The request's plan, and its chunks laid end to end on the host:
-        (plan, ids with each chunk's destination rows after them, mask)."""
+        (plan, ids with each chunk's destination rows after them and then,
+        with `wants_real`, each chunk's real positions; mask; the real
+        positions' count of each chunk)."""
         global encode_chunks, encode_padded_slots, encode_real_slots
         lengths = string_lengths(mask)
         if lengths.size and lengths.max() > self.max_length:
             raise ValueError(f"a string of {lengths.max()} tokens is over max_length "
                              f"{self.max_length}")
-        plan = plan_chunks(lengths, self.batch_size, self.max_length, self.width,
-                           self.intermediate, CHUNK_LAYER_FLOPS)
+        plan = plan_chunks(lengths, self.batch_size, self.max_length, self.layer_flops,
+                           self.chunk_cost)
         slots = sum(rows * seq for _, rows, seq in plan)
         flat_ids = np.zeros(slots + len(ids), np.int64)
         flat_mask = np.zeros(slots, np.float32)
@@ -423,11 +445,19 @@ class DeviceBertEncoder:
                 flat[at:at + rows * seq].reshape(rows, seq)[:len(rows_of), :cols] = \
                     src[first:last, :cols]
             at, first = at + rows * seq, last
+        counts = []
+        if self.wants_real:
+            at, parts = 0, [flat_ids]
+            for _, rows, seq in plan:
+                parts.append(np.flatnonzero(flat_mask[at:at + rows * seq]))
+                counts.append(len(parts[-1]))
+                at += rows * seq
+            flat_ids = np.concatenate(parts)
         with _COUNT_LOCK:
             encode_chunks += len(plan)
             encode_padded_slots += slots
             encode_real_slots += int(np.sum(mask, dtype=np.float64))
-        return plan, flat_ids, flat_mask
+        return plan, flat_ids, flat_mask, counts
 
     @torch.inference_mode()
     def encode_ids(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
@@ -436,24 +466,29 @@ class DeviceBertEncoder:
         `max_length` tokens)."""
         with span("encode.request"):
             with span("encode.pad"):
-                plan, flat_ids, flat_mask = self._padded(np.asarray(ids), np.asarray(mask))
+                plan, flat_ids, flat_mask, counts = self._padded(np.asarray(ids),
+                                                                 np.asarray(mask))
             with span("encode.upload"):
                 ids_t = to_device(torch.from_numpy(flat_ids), self.device)
                 mask_t = to_device(torch.from_numpy(flat_mask), self.device)
             pooled = torch.empty((len(ids), self.width), dtype=torch.float32,
                                  device=self.device)
-            at, dest = 0, len(flat_mask)
-            for rows_of, rows, seq in plan:
+            starts, at, dest, real_at = [], 0, len(flat_mask), len(flat_mask) + len(ids)
+            for c, (rows_of, rows, seq) in enumerate(plan):  # each chunk's slices of the upload
+                starts.append((at, dest, real_at))
+                at, dest = at + rows * seq, dest + len(rows_of)
+                real_at += counts[c] if self.wants_real else 0
+            for c in reversed(range(len(plan))):  # the longest chunk first
+                (rows_of, rows, seq), (at, dest, real_at) = plan[c], starts[c]
                 chunk_ids = ids_t[at:at + rows * seq].view(rows, seq)
                 chunk_mask = mask_t[at:at + rows * seq].view(rows, seq)
-                at += rows * seq
+                real = ids_t[real_at:real_at + counts[c]] if self.wants_real else None
                 with span("encode.forward"):
-                    hidden = self.module(chunk_ids, chunk_mask)
+                    hidden = self.forward(chunk_ids, chunk_mask, real)
                 with span("encode.pool"):
                     m = chunk_mask[:len(rows_of), :, None]
                     rep = (hidden[:len(rows_of)] * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6)
                     pooled.index_copy_(0, ids_t[dest:dest + len(rows_of)], rep)
-                    dest += len(rows_of)
             with span("encode.download"):
                 out = pooled.cpu().numpy()
             with span("encode.finish"):
@@ -464,3 +499,34 @@ class DeviceBertEncoder:
         if not len(texts):
             return np.zeros((0, self.dim), np.float32)
         return self.encode_ids(*tokenize(self.tok, list(texts), self.max_length))
+
+
+class DeviceBertEncoder(ChunkedEncoder):
+    """HF BERT weights in a `BertEncoder` on `device` (cuda by default;
+    raises without a GPU), over `ChunkedEncoder`'s request path.
+
+    `model` is an HF BERT model, or a state dict (`BertModel` keys, with or
+    without `bert.`) with its `config` (an HF config or a mapping of its
+    fields). `tokenizer` is an HF tokenizer (or any callable with its call
+    contract and `return_tensors="np"`). A chunk's forward is
+    `self.module(ids, mask)`, in f32.
+    """
+
+    @property
+    def chunk_cost(self) -> float:
+        return CHUNK_LAYER_FLOPS  # read at each plan
+
+    def __init__(self, model: Any, tokenizer: Any, dim: int = 768, max_length: int = 256,
+                 batch_size: int = 256, device: str = "cuda", config: Any = None):
+        cfg, sd = model_parts(model, config)
+        self.device = resolve_device(device)
+        self.dim, self.max_length, self.batch_size = int(dim), int(max_length), int(batch_size)
+        self.width, self.intermediate = int(cfg.hidden_size), int(cfg.intermediate_size)
+        self.layer_flops = bert_layer_flops(self.width, self.intermediate)
+        self.tok = tokenizer
+        self.module = BertEncoder.from_config(cfg)
+        load_hf_weights(self.module, sd, "bert.")
+        self.module.to(self.device).eval()
+
+    def forward(self, ids, mask, real=None):
+        return self.module(ids, mask)

@@ -2,7 +2,14 @@
 the JAX encoders' ladders:
 
 * text: `BERTContextEncoder`'s ladder (`models/text.py:45-280`), in JAX's
-  order (`text.py:209-232`):
+  order (`text.py:209-232`), after one rung of the port's own that only an
+  explicit opt-in selects:
+  0. the language-model rung, under `ULTRAFND_TEXT_LM=<directory of a
+     published LFM2-MoE checkpoint>` (config.json, *.safetensors and the
+     tokenizer's files, e.g. LiquidAI/LFM2-8B-A1B's):
+     `models/lfm2.DeviceLfm2Encoder` on the encoder's device in bf16, its
+     attention K2-bf16's causal mode; the mean of its last hidden state.
+     With the variable unset the ladder is the JAX one below, unchanged;
   1. the trained tower of `ULTRAFND_TEXT_DEVICE_CKPT` (under
      `ULTRAFND_TEXT_DEVICE=1`);
   2. HF BERT (`bert-base-uncased`, local files only, through
@@ -20,16 +27,19 @@ the JAX encoders' ladders:
   `OpticalFlow3DCNN` and `DeepForgeryDetector` (`models/visual.py:213`,
   `:298`), each the stable-hash embedding at its width.
 
-`ULTRAFND_TEXT_DEVICE` and `ULTRAFND_BERT_DEVICE` are read when a
-`TextFieldEncoder` is built, `ULTRAFND_TEXT_DEVICE_CKPT` when its tower is
-first used, as the JAX encoder reads them; the CKPT variable does nothing
-without the first. A trained tower that fails to load raises: the caller
-asked for trained weights. `text_rung()` names the rung the environment
-selects, for the cache fingerprint.
+`ULTRAFND_TEXT_LM`, `ULTRAFND_TEXT_DEVICE` and `ULTRAFND_BERT_DEVICE` are
+read when a `TextFieldEncoder` is built, `ULTRAFND_TEXT_DEVICE_CKPT` when its
+tower is first used, as the JAX encoder reads them; the CKPT variable does
+nothing without `ULTRAFND_TEXT_DEVICE`. A trained tower or a language model
+that fails to load raises: the caller asked for those weights (the LM rung
+is outside `ULTRAFND_DISABLE_HF`, which turns off the JAX ladder's HF
+rungs). `text_rung()` names the rung the environment selects, for the cache
+fingerprint: "lm:<resolved directory>:device" for the LM rung.
 """
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -39,6 +49,7 @@ from ultrafnd_git_tpu_torch.utils.hf import import_transformers, load_once
 
 TEXT_DEVICE = "ULTRAFND_TEXT_DEVICE"
 TEXT_DEVICE_CKPT = "ULTRAFND_TEXT_DEVICE_CKPT"
+TEXT_LM = "ULTRAFND_TEXT_LM"
 BERT_DEVICE = "ULTRAFND_BERT_DEVICE"
 BERT_MODEL = "bert-base-uncased"
 HOST_BATCH = 64  # strings a host `transformers` forward (the JAX ladder's hf_batch_size)
@@ -68,10 +79,20 @@ def bert_on_device(model) -> bool:
             and getattr(model.config, "model_type", "") == "bert")
 
 
+def lm_rung() -> Optional[str]:
+    """"lm:<resolved directory>:device" under `ULTRAFND_TEXT_LM`, else None."""
+    path = os.environ.get(TEXT_LM)
+    return f"lm:{Path(path).resolve()}:device" if path else None
+
+
 def text_rung(model_name: str = BERT_MODEL) -> Optional[str]:
-    """The text rung the environment selects, in the ladder's order: the
-    trained tower's `tower_rung()`, "hf:<model>:device" or "hf:<model>:host"
-    when the HF rung loads, "tower-seeded", or None for the hash rung."""
+    """The text rung the environment selects, in the ladder's order: the LM
+    rung's `lm_rung()`, the trained tower's `tower_rung()`,
+    "hf:<model>:device" or "hf:<model>:host" when the HF rung loads,
+    "tower-seeded", or None for the hash rung."""
+    lm = lm_rung()
+    if lm:
+        return lm
     if _wants_tower() and os.environ.get(TEXT_DEVICE_CKPT):
         return tower_rung()
     loaded = load_bert(model_name)
@@ -105,9 +126,11 @@ class TextFieldEncoder:
         self.dim = int(dim)
         self.max_length = int(max_length)
         self.device = device
+        self._lm_path = os.environ.get(TEXT_LM) or None
+        self._lm = None
         self._want_device_tower = _wants_tower(use_device_tower)
         self._device_tower = None
-        loaded = load_bert(model_name)
+        loaded = None if self._lm_path else load_bert(model_name)
         self.use_hf = loaded is not None
         self.tok, self.model = loaded if loaded is not None else (None, None)
         self._bert_on_device = self.use_hf and bert_on_device(self.model)
@@ -137,6 +160,16 @@ class TextFieldEncoder:
                 m = enc["attention_mask"].unsqueeze(-1).float()
                 outs.append(((hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-6)).numpy())
         return l2_rows(fit_dim(np.concatenate(outs, axis=0), self.dim))
+
+    def _lm_rung(self):
+        """The LM rung, built at first use from `ULTRAFND_TEXT_LM`'s files."""
+        if self._lm is None:
+            from ultrafnd_git_tpu_torch.models.lfm2 import DeviceLfm2Encoder
+
+            self._lm = DeviceLfm2Encoder.from_files(self._lm_path, dim=self.dim,
+                                                    max_length=self.max_length,
+                                                    device=self.device)
+        return self._lm
 
     def _tower(self):
         """The tower rung, built at first use; None on the hash rung."""
@@ -169,6 +202,8 @@ class TextFieldEncoder:
         texts = list(texts)
         if not texts:
             return np.zeros((0, self.dim), dtype=np.float32)
+        if self._lm_path:
+            return self._encode_nonempty(texts, self._lm_rung().encode_batch)
         if self._want_device_tower and os.environ.get(TEXT_DEVICE_CKPT):
             return self._encode_nonempty(texts, self._tower().encode_batch)
         if self.use_hf:

@@ -96,6 +96,12 @@ class Recording:
         return [(n, i, p, r, s + shift, e + shift) for n, i, p, r, s, e in self.spans]
 
 
+def active() -> bool:
+    """Whether a `recording()` block is open: a counter that costs device
+    work counts only then."""
+    return _on
+
+
 @contextmanager
 def recording() -> Iterator[Recording]:
     """Record every span that begins inside the block, on any thread."""
