@@ -657,7 +657,7 @@ print("MOE " + json.dumps({
 dist.destroy_process_group()
 """
 KERNELS = ("flash_attention_fwd", "flash_attention_fwd_bf16", "flash_attention_bwd",
-           "flash_attention_bwd_bf16", "adamw")
+           "flash_attention_bwd_bf16", "adamw", "gemm_tf32x3")
 V1_BATCH, V1_FRAMES = 8, 30  # the v1 collate's clips: (B, 30, 256, 256, 3) uint8
 V1_SHIFT = (-4, 2)  # (dy, dx) px a frame the v1_train clips' content moves
 V1_STREAM_BATCHES = 6  # batches of the feature stage's timed stream
@@ -712,6 +712,7 @@ def _kernel_label(symbol: str) -> str:
 
 def phase_build():
     from ultrafnd_git_tpu_torch.kernels import _build, adamw as aw, flash_attention as fa
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
 
     def timed(name):
         t0 = time.perf_counter()
@@ -721,6 +722,7 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         seconds = dict(zip(KERNELS, pool.map(timed, KERNELS)))
     fa._kernel(), fa._bf16_kernel(), fa._bwd_kernel(), fa._bwd_bf16_kernel(), aw._kernel()
+    gk._kernel()
     ptxas = {}
     for name, s in seconds.items():
         log("build", kernel=name, seconds=s,
@@ -825,6 +827,79 @@ def _sdpa(q, k, v, bias):
 
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+GEMM_PRODUCTS = (("qkv", 2304, 768, False), ("attn_out", 768, 768, False),
+                 ("ffn_in", 3072, 768, True), ("ffn_out", 768, 3072, False))
+GEMM_ROWS = (16384, 2048)  # an ocr chunk (64 x 256); a fields chunk of 8 x 256
+
+
+def check_gemm_tf32x3(dev):
+    """The BERT rung's 3xTF32 GEMM at bert-base's four products, at an ocr
+    chunk's M and a small one: against the f64 product beside cuBLAS f32,
+    against its plain version, timed against its bound (the work counted
+    once: 2 M N K at 495 TFLOP/s, or X, W, b and Y once at 3.35 TB/s; and
+    the 3xTF32 charge, three TF32 passes), the plain version and F.linear
+    (cuBLAS f32; F.gelu after it for the intermediate) as `library_ms`."""
+    import torch
+    import torch.nn.functional as F
+
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
+
+    rows, t0, before = [], time.perf_counter(), gk.launches
+    with torch.inference_mode():
+        for m in GEMM_ROWS:
+            for i, (name, n, k, gelu) in enumerate(GEMM_PRODUCTS):
+                g = torch.Generator().manual_seed(900 + i)
+                x = torch.randn(m, k, generator=g).to(dev)
+                w = (0.02 * torch.randn(n, k, generator=g)).to(dev)
+                b = (0.02 * torch.randn(n, generator=g)).to(dev)
+                hi, lo = gk.split_tf32(w)
+
+                def lib():
+                    y = F.linear(x, w, b)
+                    return F.gelu(y) if gelu else y
+
+                y, y2, plain, ref = (gk.linear_tf32x3(x, hi, lo, b, gelu),
+                                     gk.linear_tf32x3(x, hi, lo, b, gelu),
+                                     gk.reference_linear(x, hi, lo, b, gelu), lib())
+                want = F.linear(x.double(), w.double(), b.double())
+                want = F.gelu(want) if gelu else want
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                gap = (y.double() - want).abs().max().item() / scale
+                lib_gap = (ref.double() - want).abs().max().item() / scale
+                plain_rel = _max_err(y, plain) / plain.abs().max().item()
+                if not torch.equal(y, y2):
+                    raise RuntimeError(f"gemm_tf32x3 {name} at M = {m}: two calls differ")
+                if not gap <= 2 * lib_gap:
+                    raise RuntimeError(f"gemm_tf32x3 {name} at M = {m}: gap to f64 {gap}, "
+                                       f"cuBLAS f32's {lib_gap}")
+                flop = 2.0 * m * n * k
+                t = {"product": name, "m": m, "n": n, "k": k, "gelu": gelu,
+                     "tile": gk.SHAPES[gk.tile_shape(m, n, dev)],
+                     "f64_gap": gap, "cublas_f32_f64_gap": lib_gap, "plain_rel": plain_rel,
+                     "ms": _median_ms(lambda: gk.linear_tf32x3(x, hi, lo, b, gelu)),
+                     "plain_ms": _median_ms(lambda: gk.reference_linear(x, hi, lo, b, gelu)),
+                     "library_ms": _median_ms(lib),
+                     **_bound(4.0 * (m * k + n * k + n + m * n), flop, TF32_FLOPS),
+                     "bound_3xtf32_ms": 1e3 * 3 * flop / TF32_FLOPS}
+                t["share"] = t["bound_ms"] / t["ms"]
+                t["share_3xtf32"] = t["bound_3xtf32_ms"] / t["ms"]
+                t["tflops"] = flop / t["ms"] / 1e9
+                t["library_tflops"] = flop / t["library_ms"] / 1e9
+                rows.append(t)
+                log("gemm_tf32x3", **t, bit_identical_repeat=True,
+                    library="F.linear f32 (cuBLAS, TF32 off)" + (" + F.gelu" if gelu else ""))
+                del x, w, b, hi, lo, y, y2, plain, ref, want
+                torch.cuda.empty_cache()
+    layer = {m: {"ms": sum(r["ms"] for r in rows if r["m"] == m),
+                 "library_ms": sum(r["library_ms"] for r in rows if r["m"] == m)}
+             for m in GEMM_ROWS}
+    log("gemm_tf32x3", layer_ms=json.dumps(layer), launches=gk.launches - before,
+        replaces="none: the JAX package leaves these products to XLA",
+        phase_wall_s=time.perf_counter() - t0)
+    return {"products": rows, "layer": layer}
 
 
 def check_flash(dev):
@@ -1251,6 +1326,7 @@ def phase_hf_twins(dev):
     from torch.profiler import ProfilerActivity, profile
 
     from ultrafnd_git_tpu_torch.kernels import flash_attention as fa
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
     from ultrafnd_git_tpu_torch.models import bert, clip, roberta, w2v2
 
     from ultrafnd_git_tpu_torch.models.affective import emotion_rung
@@ -1316,7 +1392,7 @@ def phase_hf_twins(dev):
                                                        batch_size=HF_CHUNK, config=HF_CLIP),
                  "encode_ids"),
     }
-    twins, launches = {}, 0
+    twins, launches, gemm_launches = {}, 0, 0
     for j, (kind, (module_cls, cfg, build, entry)) in enumerate(builds.items()):
         s = time.perf_counter()
         sd = bert.draw_weights_(module_cls.from_config(cfg), seed=700 + j).state_dict()
@@ -1332,9 +1408,10 @@ def phase_hf_twins(dev):
             return getattr(twin, entry)(*inputs)
 
         _reset_counts()  # this twin's main-path chunk only
-        planned = bert.encode_chunks
+        planned, gemm_before = bert.encode_chunks, gk.launches
         got = chunk()
         counted = _launch_counts()
+        gemm_counted = gk.launches - gemm_before
         depth = cfg["num_hidden_layers"]
         # the BERT rung plans its own chunks by length (models/bert.plan_chunks)
         chunks = bert.encode_chunks - planned if kind == "bert" else 1
@@ -1342,7 +1419,11 @@ def phase_hf_twins(dev):
                   "bwd_bf16": 0, "adamw": 0}
         if counted != expect:
             raise RuntimeError(f"hf_twins {kind}: launches {counted}, expected {expect}")
+        # the BERT rung's four products a layer a chunk on the 3xTF32 GEMM
+        if gemm_counted != (4 * depth * chunks if kind == "bert" else 0):
+            raise RuntimeError(f"hf_twins {kind}: gemm_tf32x3 launches {gemm_counted}")
         launches += counted["fwd"]
+        gemm_launches += gemm_counted
         rows = len(inputs[0])
         width = {"bert": 768, "roberta": 7, "w2v2": 128, "clip": 512}[kind]
         if got.shape != (rows, width) or not np.isfinite(got).all():
@@ -1389,8 +1470,10 @@ def phase_hf_twins(dev):
                 device_ms=e.self_device_time_total / 1e3)
         del twin, got
         torch.cuda.empty_cache()
-    log("hf_twins", k2_launches=launches, phase_wall_s=time.perf_counter() - t0)
-    return {"k2_shapes": k2, "twins": twins, "launches": {"fwd": launches}}
+    log("hf_twins", k2_launches=launches, gemm_launches=gemm_launches,
+        phase_wall_s=time.perf_counter() - t0)
+    return {"k2_shapes": k2, "twins": twins, "launches": {"fwd": launches},
+            "gemm_launches": gemm_launches}
 
 
 def full_width_params(dev):
@@ -4084,6 +4167,7 @@ def main() -> int:
     flash_bf16 = check_flash_bf16(dev)
     bwd_bf16 = check_flash_bwd_bf16(dev, flash["dq"]["ms"])
     k1 = check_adamw(dev)
+    gemm = check_gemm_tf32x3(dev)
     pp_shapes = check_pipeline_shapes(dev)
     hf_twins = phase_hf_twins(dev)
     lm_rung = phase_lm_rung(dev)
@@ -4173,6 +4257,11 @@ def main() -> int:
          "launches": lm_rung["launches"]["fwd_bf16_causal"],
          "launches_by_path": {"lm_rung": lm_rung["launches"]["fwd_bf16_causal"]},
          "ptxas": ptxas["flash_attention_fwd_bf16"]},
+        {"name": "gemm_tf32x3", "route": "cuda", "source": src + "gemm_tf32x3.cu",
+         "replaces": "none (the JAX package leaves these products to XLA)",
+         "launches": hf_twins["gemm_launches"],
+         "launches_by_path": {"hf_twins": hf_twins["gemm_launches"]}, **gemm,
+         "ptxas": ptxas["gemm_tf32x3"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src + "flash_attention_bwd.cu", "replaces": ref + "flash_attention.py:379",
          **paths("bwd"), **flash["dq"], "pipelined_shapes": pp_shapes["bwd"],

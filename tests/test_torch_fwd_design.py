@@ -45,6 +45,16 @@ Pallas bf16 backward in interpret mode at 8e-3 of max|ref|; every ldmatrix
 and cp.async phase touches 8 distinct 16-byte bank groups and every P/dS
 store 32 distinct banks. Breaking a pairing (matrix order, .trans) or the
 BK = 32 swizzle fails these tests.
+
+(e) The BERT rung's 3xTF32 GEMM (csrc/gemm_tf32x3.cu): the split of W in
+`kernels/gemm_tf32x3.split_tf32` against the mirror of tf32_mma.cuh's split;
+the kernel's sums (three terms as the tensor cores read them, a 32-deep
+stage summed from zero and the stages added in f32; Kahan a k8 step under
+129 rows) within 2e-6 of the f64 product at bert-base's widths, where one
+TF32 term is 10x farther off; the X tile as the tensor map's swizzle lays
+it out, read back through the kernel's own A-fragment addresses (each load
+32 distinct banks) and the W tiles through its descriptors; each tile
+width's ring inside the SM. Constants are parsed from the source.
 """
 import re
 from pathlib import Path
@@ -1029,3 +1039,213 @@ def test_bwd_bf16_emulation_mirrors_the_kernel_source():
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
     ):
         assert needle in src, needle
+
+
+
+# ---------------------------------------------------------------------------
+# (e) The BERT rung's 3xTF32 GEMM (csrc/gemm_tf32x3.cu).
+
+GEMM = CSRC / "gemm_tf32x3.cu"
+
+
+def gemm_constants():
+    src = GEMM.read_text()
+    out = {}
+    for name in ("kBM", "kBK", "kRowBytes", "kSwizzleMode", "kLbo", "kSbo", "kStepBytes",
+                 "kStageBudget", "kKahanRows"):
+        m = re.search(rf"constexpr (?:uint32_t|int) {name} = (\d+);", src)
+        assert m, name
+        out[name] = int(m.group(1))
+    maps = set(re.findall(r"CU_TENSOR_MAP_SWIZZLE_(\d+)B", src))
+    assert len(maps) == 1, maps
+    out["map_bits"] = MAP_BITS[int(maps.pop())]
+    out["widths"] = [int(v) for v in re.search(
+        r"constexpr int kShapeBN\[kShapes\] = \{([\d, ]+)\};", src).group(1).split(",")]
+    return out
+
+
+def emulate_gemm(x, w, b, kahan=False, stage=32):
+    """The kernel's sums on (M, K) x and (N, K) w, f32: per k8 step the
+    three terms as the tensor cores read them (hi TF32, lo its top 19 bits),
+    summed from zero over a stage (each stage's sum exact, then rounded to
+    f32: the tensor cores keep more bits than f32 inside a stage) and the
+    stages added in f32; with `kahan` a k8 step's sum at a time,
+    compensated. + b."""
+    (xh, xl), (wh, wl) = split(x), split(w)
+    step = 8 if kahan else stage
+    acc = np.zeros((x.shape[0], w.shape[0]), F32)
+    comp = np.zeros_like(acc)
+    for k0 in range(0, x.shape[1], step):
+        s = slice(k0, k0 + step)
+        part = (xl[:, s].astype(np.float64) @ wh[:, s].T + xh[:, s].astype(np.float64) @ wl[:, s].T
+                + xh[:, s].astype(np.float64) @ wh[:, s].T).astype(F32)
+        if kahan:
+            yv = (part - comp).astype(F32)
+            tv = (acc + yv).astype(F32)
+            comp = ((tv - acc).astype(F32) - yv).astype(F32)
+            acc = tv
+        else:
+            acc = (acc + part).astype(F32)
+    return (acc + b).astype(F32)
+
+
+def _gap(y, want):
+    return float(np.abs(y.astype(np.float64) - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def gemm_cases():
+    """bert-base's q/k/v (K 768, N 2304) and output (K 3072, N 768) products
+    at M = 256: x N(0, 1), W and b N(0, 0.02^2), and their f64 products."""
+    rng = np.random.default_rng(23)
+    cases = {}
+    for m, k, n in ((256, 768, 2304), (256, 3072, 768)):
+        x = rng.standard_normal((m, k)).astype(F32)
+        w = (0.02 * rng.standard_normal((n, k))).astype(F32)
+        b = (0.02 * rng.standard_normal(n)).astype(F32)
+        cases[(m, k, n)] = (x, w, b, x.astype(np.float64) @ w.T.astype(np.float64) + b)
+    return cases
+
+
+def test_gemm_split_is_tf32_mma_split():
+    """split_tf32's hi is the mirror's hi bit for bit; its lo is exact, and
+    as the tensor cores read it (top 19 bits) it is the mirror's lo."""
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
+
+    w = np.random.default_rng(1).standard_normal((300, 64)).astype(F32) * 0.02
+    hi, lo = (t.numpy() for t in gk.split_tf32(torch.from_numpy(w)))
+    mh, ml = split(w)
+    np.testing.assert_array_equal(hi.view(np.uint32), mh.view(np.uint32))
+    np.testing.assert_array_equal((lo.view(np.uint32) & np.uint32(0xFFFFE000)), ml.view(np.uint32))
+    np.testing.assert_array_equal(hi + lo, w)
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["stage_sums", "kahan_k8"])
+@pytest.mark.parametrize("mkn", [(256, 768, 2304), (256, 3072, 768)], ids=["qkv", "ffn_out"])
+def test_gemm_three_terms_are_f32_accurate_and_one_tf32_term_is_not(gemm_cases, mkn, kahan):
+    """The kernel's sums within 2e-6 of the f64 product's largest value; one
+    TF32 term (hi x hi, summed in f32) at least 10x farther off, so the
+    mirror tells the two apart."""
+    x, w, b, want = gemm_cases[mkn]
+    kc = gemm_constants()
+    gap = _gap(emulate_gemm(x, w, b, kahan=kahan, stage=kc["kBK"]), want)
+    xh, wh = split(x)[0], split(w)[0]
+    one = _gap((xh @ wh.T + b).astype(F32), want)
+    assert gap <= 2e-6, gap
+    assert one >= 10 * gap, (one, gap)
+
+
+def _x_image(x, r0, k0, kc):
+    """The X tile of one stage as the tensor map writes it: rows [r0, r0 +
+    kBM) and columns [k0, k0 + kBK) of x, 128-byte rows at the map's
+    swizzle, rows past M zero; as f32 words."""
+    rows, cols = kc["kBM"], kc["kBK"]
+    img = np.zeros(rows * cols, F32)
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    ok = r0 + r < x.shape[0]
+    addr = swizzle(r * kc["kRowBytes"] + c * 4, kc["map_bits"])
+    img[addr[ok] // 4] = x[(r0 + r)[ok], k0 + c[ok]]
+    return img
+
+
+def _load_x_words(c, w, kk, h, plus8):
+    """The words each lane of warp w of consumer c reads for a fragment of
+    k8 step kk (h: columns + 4; plus8: rows + 8), by the kernel's load_x."""
+    r = 64 * c + 16 * w + G
+    col = (((2 * kk + h) ^ (r & 7)) << 2) + T
+    return (r + 8 * plus8) * 32 + col, r + 8 * plus8, 8 * kk + T + 4 * h
+
+
+def test_gemm_a_fragments_read_the_x_tile_without_bank_conflicts():
+    """Every A fragment load of both consumers, every k8 step of a stage:
+    the element of X the m16n8k8 layout names (a0 (g, t), a1 (g + 8, t), a2
+    (g, t + 4), a3 (g + 8, t + 4)), from the swizzled image, 32 distinct
+    banks; rows past M read as zeros."""
+    kc = gemm_constants()
+    x = np.random.default_rng(2).standard_normal((200, 64)).astype(F32)
+    for r0, k0 in ((0, 0), (128, 32)):  # the second tile is ragged: 72 rows of 128
+        img = _x_image(x, r0, k0, kc)
+        for c in range(2):
+            for w in range(4):
+                for kk in range(kc["kBK"] // 8):
+                    for h in range(2):
+                        for plus8 in range(2):
+                            words, r, col = _load_x_words(c, w, kk, h, plus8)
+                            want = np.where(r0 + r < 200, x[np.minimum(r0 + r, 199), k0 + col], 0)
+                            np.testing.assert_array_equal(img[words], want)
+                            assert not _conflicts(words, 1), (c, w, kk, h, plus8)
+
+
+def desc_read_f32(img, desc, mn):
+    """The (mn, 8) K-major f32 operand a wgmma .tf32 k8 step reads through
+    `desc` from the image img (bytes / 4): 8-row groups SBO apart, rows of
+    one swizzle span, 4 bytes a column."""
+    start, sbo = (desc & 0x3FFF) << 4, ((desc >> 32) & 0x3FFF) << 4
+    bits = SWIZZLE_BITS[desc >> 62]
+    i, k = np.arange(mn)[:, None], np.arange(8)[None, :]
+    lin = start + (i // 8) * sbo + (i % 8) * (16 << bits) + k * 4
+    return img[swizzle(lin, bits) // 4]
+
+
+@pytest.mark.parametrize("bn", [128, 96, 64])
+def test_gemm_w_descriptors_read_back_each_k8_step(bn):
+    """W_hi's tile (bn rows x 32) as the map writes it at the slot after the
+    X tile; the kernel's descriptor of each k8 step (start + kk kStepBytes,
+    kLbo, kSbo, kSwizzleMode) reads W[:, 8 kk .. 8 kk + 7] exactly."""
+    kc = gemm_constants()
+    w = np.random.default_rng(bn).standard_normal((bn, 64)).astype(F32)
+    x_bytes = kc["kBM"] * kc["kRowBytes"]
+    img = np.zeros((x_bytes + bn * kc["kRowBytes"]) // 4, F32)
+    r, c = np.meshgrid(np.arange(bn), np.arange(kc["kBK"]), indexing="ij")
+    img[swizzle(x_bytes + r * kc["kRowBytes"] + c * 4, kc["map_bits"]) // 4] = w[r, 32 + c]
+    assert x_bytes % 1024 == 0  # the W slot starts on a swizzle atom
+    for kk in range(kc["kBK"] // 8):
+        d = make_desc(x_bytes + kk * kc["kStepBytes"], kc["kLbo"], kc["kSbo"], kc["kSwizzleMode"])
+        np.testing.assert_array_equal(desc_read_f32(img, d, bn), w[:, 32 + 8 * kk: 40 + 8 * kk])
+
+
+@pytest.mark.parametrize("bn", [128, 96, 64])
+def test_gemm_ring_fits_the_sm_and_its_slots_sit_on_atoms(bn):
+    """Each tile width's ring (Cfg: the X tile and two W tiles a stage, as
+    many stages as the budget holds) with the alignment slack and barriers
+    inside the 232,448 bytes an SM gives a block; at least 4 stages; every
+    slot 1 KB aligned; a consumer's registers hold the f32 sum, the tensor
+    cores' sum, Kahan's and a k8 step's A fragments."""
+    kc = gemm_constants()
+    assert bn in kc["widths"]
+    src = GEMM.read_text()
+    assert "static constexpr size_t SMEM = 1024 + NS * STAGE + 16 * NS;" in src
+    stage = kc["kBM"] * kc["kRowBytes"] + 2 * bn * kc["kRowBytes"]
+    ns = kc["kStageBudget"] // stage
+    assert ns >= 4 and 1024 + ns * stage + 16 * ns <= 232448
+    assert stage % 1024 == 0 and (bn * kc["kRowBytes"]) % 1024 == 0
+    consumer = int(re.search(r"kConsumerRegs = (\d+);", src).group(1))
+    assert consumer >= 3 * bn // 2 + 8 + 24
+
+
+def test_gemm_emulation_mirrors_the_kernel_source():
+    src = GEMM.read_text()
+    for needle in (
+        '#include "tf32_mma.cuh"',
+        "const int c0 = ((((2 * kk) ^ (r & 7))) << 2) + t;",
+        "const int c1 = ((((2 * kk + 1) ^ (r & 7))) << 2) + t;",
+        "split(row[c0], hi[0], lo[0]);", "split(row[8 * kBK + c0], hi[1], lo[1]);",
+        "split(row[c1], hi[2], lo[2]);", "split(row[8 * kBK + c1], hi[3], lo[3]);",
+        "const int row0 = 64 * c + 16 * warp + g;",
+        "const uint64_t dh = desc(h_slot(s) + kk * kStepBytes);",
+        "const uint64_t dl = desc(l_slot(s) + kk * kStepBytes);",
+        "wgmma<BN>(tc, al, dh, kk % GROUP);", "wgmma<BN>(tc, ah, dl);", "wgmma<BN>(tc, ah, dh);",
+        "constexpr int GROUP = KAHAN ? 1 : kBK / 8;", "acc[i] += tc[i];",
+        "const float yv = tc[i] - comp[i];", "comp[i] = (tv - acc[i]) - yv;",
+        "if (m <= kKahanRows) return kShapes;",
+        "return x * 0.5f * (1.0f + erff(x * 0.70710678118654752440f));",
+        "float v0 = acc[4 * i + 2 * h] + b.x, v1 = acc[4 * i + 2 * h + 1] + b.y;",
+        "(uint64_t)(kSbo >> 4) << 32 | (uint64_t)kSwizzleMode << 62;",
+        "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE", "CU_TENSOR_MAP_DATA_TYPE_FLOAT32",
+        "const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows}, unit[2] = {1, 1};",
+        "const int m0 = (tile / n_tiles) * kBM, n0 = (tile % n_tiles) * BN;",
+    ):
+        assert needle in src, needle
+    for n in (64, 96, 128):  # A from registers, no transpose immediates (.tf32 takes none)
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 " in src
+    assert src.count(", p, 1, 1;\\n}\\n\"") == 3

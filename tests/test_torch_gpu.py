@@ -1255,3 +1255,108 @@ def test_grouped_expert_products_match_one_product_an_expert(cuda):
     got, want = lfm2._grouped(x, w, offs), lfm2._per_expert(x, w, offs)
     assert float((got.float() - want.float()).abs().max()) <= 1e-2 * float(
         want.float().abs().max())
+
+
+# ---- the BERT rung's 3xTF32 GEMM (csrc/gemm_tf32x3.cu) -----------------------
+
+# bert-base's four products of a layer: (name, N, K, GELU in the epilogue)
+BERT_PRODUCTS = (("qkv", 2304, 768, False), ("attn_out", 768, 768, False),
+                 ("ffn_in", 3072, 768, True), ("ffn_out", 768, 3072, False))
+
+
+def _gemm_case(cuda, m, n, k, seed):
+    """x (m, k) N(0, 1), W (n, k) and b N(0, 0.02^2), drawn on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    w = (0.02 * torch.randn(n, k, generator=g)).to(cuda)
+    b = (0.02 * torch.randn(n, generator=g)).to(cuda)
+    return x, w, b
+
+
+def _f64_gap(y, x, w, b, gelu):
+    """max|y - Y| / max|Y| against the f64 product Y."""
+    want = torch.nn.functional.linear(x.double(), w.double(), b.double())
+    if gelu:
+        want = torch.nn.functional.gelu(want)
+    return float((y.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("m", [1, 8, 1000, 2600, 16384])
+@pytest.mark.parametrize("product", BERT_PRODUCTS, ids=[p[0] for p in BERT_PRODUCTS])
+def test_gemm_tf32x3_is_as_close_to_f64_as_cublas_f32(cuda, product, m):
+    """Each of bert-base's four products (the GELU in the intermediate's
+    epilogue) at an ocr chunk's M and at ragged M: the kernel's gap to the
+    f64 product at most 2x cuBLAS f32's (TF32 off) to the same product, one
+    launch a call, and the same bits from two calls."""
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
+
+    name, n, k, gelu = product
+    x, w, b = _gemm_case(cuda, m, n, k, seed=m + n)
+    hi, lo = gk.split_tf32(w)
+    before = gk.launches
+    with torch.inference_mode():
+        y = gk.linear_tf32x3(x, hi, lo, b, gelu=gelu)
+        again = gk.linear_tf32x3(x, hi, lo, b, gelu=gelu)
+        lib = torch.nn.functional.linear(x, w, b)
+        if gelu:
+            lib = torch.nn.functional.gelu(lib)
+    torch.cuda.synchronize()
+    assert gk.launches - before == 2
+    assert torch.equal(y, again)
+    gap, lib_gap = _f64_gap(y, x, w, b, gelu), _f64_gap(lib, x, w, b, gelu)
+    assert gap <= 2 * lib_gap, (name, m, gap, lib_gap)
+
+
+@pytest.mark.parametrize("shape", [0, 1, 2, 3])
+@pytest.mark.parametrize("n,k", [(64, 64), (128, 128), (256, 256), (192, 64), (384, 128),
+                                 (256, 128), (128, 256)])
+def test_gemm_tf32x3_twin_widths_every_tile_shape(cuda, n, k, shape):
+    """The card tests' twins' widths (64, 128, 256; q/k/v fused 3W) at a
+    ragged M on each tile shape forced, partial column tiles included: within
+    1e-6 of the plain version's largest value, GELU on."""
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
+
+    x, w, b = _gemm_case(cuda, 300, n, k, seed=n + k)
+    hi, lo = gk.split_tf32(w)
+    with torch.inference_mode():
+        y = gk.linear_tf32x3(x, hi, lo, b, gelu=True, shape=shape)
+        want = gk.reference_linear(x, hi, lo, b, gelu=True)
+    torch.cuda.synchronize()
+    assert float((y - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_gemm_tf32x3_raises_on_what_it_does_not_take(cuda):
+    """N = 100 (not a multiple of 64), an f16 input and an input that asks for
+    a gradient each raise on the card; none falls back."""
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
+
+    x, w, b = _gemm_case(cuda, 64, 128, 64, seed=0)
+    hi, lo = gk.split_tf32(w)
+    before = gk.launches
+    with pytest.raises(ValueError, match="N % 64"):
+        gk.linear_tf32x3(x, hi[:100].contiguous(), lo[:100].contiguous(), b[:100], False)
+    with pytest.raises(ValueError, match="float32"):
+        gk.linear_tf32x3(x.half(), hi, lo, b)
+    with pytest.raises(ValueError, match="requires grad"):
+        gk.linear_tf32x3(x.clone().requires_grad_(), hi, lo, b)
+    assert gk.launches == before
+
+
+def test_bert_twin_launches_the_gemm_four_times_a_layer_a_chunk(cuda, monkeypatch):
+    """`_twin("bert", "cuda")` over a mixed-length request: the 3xTF32 GEMM
+    4 x layers x planned chunks, K2 layers x chunks."""
+    from ultrafnd_git_tpu_torch.kernels import gemm_tf32x3 as gk
+    from ultrafnd_git_tpu_torch.models import bert
+
+    monkeypatch.setattr(bert, "CHUNK_LAYER_FLOPS", 0.0)  # several chunks
+    twin = _twin("bert", "cuda")
+    rng = np.random.default_rng(9)
+    lengths = np.concatenate([rng.integers(8, 49, 12), rng.integers(32, 257, 10)])
+    mask = (np.arange(256)[None] < lengths[:, None]).astype(np.float32)
+    ids = (rng.integers(3, 200, mask.shape) * mask).astype(np.int64)
+    chunks, gemm, k2 = bert.encode_chunks, gk.launches, fa.launches
+    twin.encode_ids(ids, mask)
+    chunks = bert.encode_chunks - chunks
+    assert chunks > 1
+    assert gk.launches - gemm == 4 * TWIN_BERT["num_hidden_layers"] * chunks
+    assert fa.launches - k2 == TWIN_BERT["num_hidden_layers"] * chunks

@@ -36,7 +36,9 @@ one `encode.download`, then `encode.finish` (`utils/spans.py`).
 
 The JAX twin runs K2 on the TPU in its default `mm_dtype=bfloat16`; this
 one runs it in f32, as the JAX twin's CPU path and the HF forward do
-(ROADMAP.md §3).
+(ROADMAP.md §3). Its layers (`PackedBertLayer`) run their four products on
+the 3xTF32 GEMM (`kernels/gemm_tf32x3`), f32-accurate on the tensor cores,
+q/k/v as one; `BertEncoder` and RoBERTa keep the plain linears.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ from ultrafnd_git_tpu_torch.kernels.flash_attention import (
     padding_bias,
     reference_attention,
 )
+from ultrafnd_git_tpu_torch.kernels.gemm_tf32x3 import linear_tf32x3, split_tf32
 from ultrafnd_git_tpu_torch.utils.device import resolve_device, to_device
 from ultrafnd_git_tpu_torch.utils.spans import span
 
@@ -194,13 +197,56 @@ class BertLayer(nn.Module):
         return self.output(self.intermediate(x), x)
 
 
-class BertLayers(nn.Module):
-    """HF's `encoder`: `layer.{i}`."""
+class Tf32x3Linear(nn.Module):
+    """One or more HF linears of a layer as one 3xTF32 product
+    (`kernels/gemm_tf32x3.linear_tf32x3`): their weights concatenated along
+    the output and split once, at construction, into W_hi and W_lo, with
+    their biases; all three non-persistent buffers, so the layer's state
+    dict keeps the HF keys of the linears it was made from."""
 
-    def __init__(self, depth: int, width: int, heads: int, intermediate: int, eps: float):
+    def __init__(self, *linears: nn.Linear, gelu: bool = False):
         super().__init__()
-        self.layer = nn.ModuleList(BertLayer(width, heads, intermediate, eps)
-                                   for _ in range(depth))
+        self.gelu = gelu
+        hi, lo = split_tf32(torch.cat([lin.weight.detach() for lin in linears]))
+        self.register_buffer("w_hi", hi, persistent=False)
+        self.register_buffer("w_lo", lo, persistent=False)
+        self.register_buffer("bias", torch.cat([lin.bias.detach() for lin in linears]),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_tf32x3(x, self.w_hi, self.w_lo, self.bias, gelu=self.gelu)
+
+
+class PackedBertLayer(BertLayer):
+    """`BertLayer` with its four products in 3xTF32 (`DeviceBertEncoder`'s
+    layers): query, key and value as one product of N = 3 W (q, k and v
+    views of its output), the attention output, the intermediate with the
+    GELU in its epilogue, and the output. The HF linears stay as the
+    layer's children, for its state dict; `pack_()` makes the products from
+    their weights as they then are (after loading, on the layer's device)."""
+
+    def pack_(self) -> None:
+        att = self.attention.self
+        self.qkv = Tf32x3Linear(att.query, att.key, att.value)
+        self.attn_out = Tf32x3Linear(self.attention.output.dense)
+        self.ffn_in = Tf32x3Linear(self.intermediate.dense, gelu=True)
+        self.ffn_out = Tf32x3Linear(self.output.dense)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        att = self.attention.self
+        q, k, v = (heads_first(t, att.heads) for t in self.qkv(x).chunk(3, dim=-1))
+        h = heads_last(att.attend(q, k, v, bias))
+        x = self.attention.output.LayerNorm(x + self.attn_out(h))
+        return self.output.LayerNorm(x + self.ffn_out(self.ffn_in(x)))
+
+
+class BertLayers(nn.Module):
+    """HF's `encoder`: `layer.{i}`, of class `layer`."""
+
+    def __init__(self, depth: int, width: int, heads: int, intermediate: int, eps: float,
+                 layer: type = BertLayer):
+        super().__init__()
+        self.layer = nn.ModuleList(layer(width, heads, intermediate, eps) for _ in range(depth))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         bias = padding_bias(mask)
@@ -230,19 +276,19 @@ class BertEncoder(nn.Module):
 
     def __init__(self, width: int = 768, depth: int = 12, heads: int = 12,
                  intermediate: int = 3072, vocab_size: int = 30522, max_positions: int = 512,
-                 type_vocab: int = 2, ln_eps: float = 1e-12):
+                 type_vocab: int = 2, ln_eps: float = 1e-12, layer: type = BertLayer):
         super().__init__()
         self.embeddings = BertEmbeddings(vocab_size, width, max_positions, type_vocab, ln_eps)
-        self.encoder = BertLayers(depth, width, heads, intermediate, ln_eps)
+        self.encoder = BertLayers(depth, width, heads, intermediate, ln_eps, layer)
 
     @classmethod
-    def from_config(cls, config: Any) -> "BertEncoder":
+    def from_config(cls, config: Any, layer: type = BertLayer) -> "BertEncoder":
         cfg = hf_config(config)
         return cls(width=cfg.hidden_size, depth=cfg.num_hidden_layers,
                    heads=cfg.num_attention_heads, intermediate=cfg.intermediate_size,
                    vocab_size=cfg.vocab_size, max_positions=cfg.max_position_embeddings,
                    type_vocab=cfg.type_vocab_size,
-                   ln_eps=float(getattr(cfg, "layer_norm_eps", 1e-12)))
+                   ln_eps=float(getattr(cfg, "layer_norm_eps", 1e-12)), layer=layer)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
                 type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -509,7 +555,10 @@ class DeviceBertEncoder(ChunkedEncoder):
     without `bert.`) with its `config` (an HF config or a mapping of its
     fields). `tokenizer` is an HF tokenizer (or any callable with its call
     contract and `return_tensors="np"`). A chunk's forward is
-    `self.module(ids, mask)`, in f32.
+    `self.module(ids, mask)`, in f32, its layers `PackedBertLayer`s: the
+    four products of a layer in 3xTF32 (`kernels/gemm_tf32x3`; the plain
+    f32 linear on a CPU tensor), q/k/v as one. The module keeps
+    `BertEncoder`'s state-dict keys.
     """
 
     @property
@@ -524,9 +573,11 @@ class DeviceBertEncoder(ChunkedEncoder):
         self.width, self.intermediate = int(cfg.hidden_size), int(cfg.intermediate_size)
         self.layer_flops = bert_layer_flops(self.width, self.intermediate)
         self.tok = tokenizer
-        self.module = BertEncoder.from_config(cfg)
+        self.module = BertEncoder.from_config(cfg, layer=PackedBertLayer)
         load_hf_weights(self.module, sd, "bert.")
         self.module.to(self.device).eval()
+        for layer in self.module.encoder.layer:
+            layer.pack_()
 
     def forward(self, ids, mask, real=None):
         return self.module(ids, mask)
